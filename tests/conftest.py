@@ -26,6 +26,11 @@ import pandas as pd  # noqa: E402
 import pytest  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc; skips without one")
+
+
 @pytest.fixture
 def rng():
     return np.random.default_rng(42)
