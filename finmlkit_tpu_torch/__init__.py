@@ -11,7 +11,10 @@ compiled by ``nvcc`` for ``sm_90a`` at first use (``_build.py``) and bound with
   volume and dollar sums, directional counts, spreads and the in-bar imbalance
   extrema, one thread block per bar;
 - kernel **S** (``csrc/prefix_scan.cu``, ``ops.prefix_scan``): inclusive prefix
-  sums over int32, int64, float32 and float64 streams.
+  sums over int32, int64, float32 and float64 streams;
+- kernel **C** (the same file, ``ops.prefix_scan.fast_cumsum_cols``): the
+  prefix sums of every row of a ``(C, n)`` stack in one launch (the
+  footprints' bar ids and lows, the trade-size unit sums).
 
 A wrapper given a CPU tensor runs its kernel's plain PyTorch version; given a
 CUDA tensor it launches the kernel or raises.

@@ -25,6 +25,7 @@ _I64 = ctypes.c_longlong
 _SIGNATURES = {
     "fmk_scan_tile": [],
     "fmk_prefix_scan": [ctypes.c_int, _P, _P, _P, _I64, _P],
+    "fmk_prefix_scan_rows": [ctypes.c_int, _P, _P, _P, _I64, _I64, _P],
     "fmk_bar_products": [_P, _P, _P, _P, _I64, _I64, _P, _P, _P, _P],
 }
 

@@ -9,7 +9,8 @@ of the trades. Its stages:
    the per-bar integer and float32 products;
 2. :func:`median_pairs` gives the two middle trade sizes of every bar: bar ids
    from kernel S over the bar-open marks, one ``torch.sort`` of the composite
-   key ``(bar_id << 32) | f32_bits(amount)``, and two closed-form gathers;
+   key ``(bar_id << 32) | sortable_bits(amount)``, and two closed-form gathers
+   (``ops/segment.py``);
 3. :func:`bar_finals` converts to float64 and float32 units over the n_bars
    values, in the expression order of ``_fused_packed_final_jit`` and
    ``_assemble_final`` (``finmlkit_tpu/bar/fused.py:526-637``), so the finals
@@ -22,6 +23,8 @@ import torch
 
 from ..ops.fused_scan import F32BIG, I32MAX, I32MIN, bar_scan_products
 from ..ops.prefix_scan import fast_cumsum
+from ..ops.segment import (bar_ids_from_close_indices, segment_median_pair,
+                           sorted_segments)
 
 __all__ = ["bar_products_final", "median_pairs", "bar_finals"]
 
@@ -31,33 +34,15 @@ def median_pairs(amounts_f32: torch.Tensor, ci: torch.Tensor, *,
     """Per-bar ``np.median`` brackets ``(med_a, med_b)`` (float32).
 
     The median of bar k is ``(f64(med_a) + f64(med_b)) / 2``. Empty bars get
-    a value from a clamped position, which callers mask. Amounts must be
-    nonnegative: the raw float32 bits are then in value order
-    (``finmlkit_tpu/bar/fused.py:870-871``). ``cumsum`` computes the int32 bar
-    ids; it defaults to kernel S.
+    a value from a clamped position, which callers mask. ``cumsum`` computes
+    the bar ids; it defaults to kernel S.
     """
     if amounts_f32.dtype != torch.float32 or amounts_f32.dim() != 1:
         raise TypeError("amounts_f32 must be a 1-D float32 tensor")
-    dev = amounts_f32.device
     n, nb = amounts_f32.shape[0], ci.shape[0] - 1
-    # ADD-scatter of the bar opens: empty bars share an open position but
-    # still advance the id
-    marks = torch.zeros(n + 1, dtype=torch.int32, device=dev)
-    marks.index_add_(0, (ci[1:] + 1).clamp(0, n),
-                     torch.ones(nb, dtype=torch.int32, device=dev))
-    bar_id = cumsum(marks[:n]).clamp(0, nb - 1).to(torch.int64)
-    idx = torch.arange(n, device=dev)
-    valid = (idx > ci[0]) & (idx <= ci[-1])
-    bid = torch.where(valid, bar_id, torch.full_like(bar_id, nb))
-    bits = amounts_f32.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-    skey = torch.sort((bid << 32) | bits).values
-    svals = (skey & 0xFFFFFFFF).to(torch.int32).view(torch.float32)
-    # bar k's trades sit ascending at offset ci[k] - ci[0] of the sorted keys
-    offsets = ci[:-1] - ci[0]
-    counts = ci[1:] - ci[:-1]
-    lo = offsets + ((counts - 1).clamp(min=0) >> 1)
-    hi = offsets + (counts.clamp(min=1) >> 1)
-    return svals[lo.clamp(0, n - 1)], svals[hi.clamp(0, n - 1)]
+    bar_id, valid = bar_ids_from_close_indices(ci, n, cumsum=cumsum)
+    svals = sorted_segments(amounts_f32, bar_id, valid, nb)
+    return segment_median_pair(svals, ci[:-1] - ci[0], ci[1:] - ci[:-1])
 
 
 def bar_finals(p64, p32, pf, med, ci, tick_size: float, amount_scale: float):

@@ -1,15 +1,20 @@
 """Bar close-index computation (the "indexer" layer).
 
-Counterpart of ``finmlkit_tpu/bar/indexers.py``; the time-bar indexer is
-ported so far. Indexers return ``(close_ts, close_indices)``: element 0 is the
-open anchor of the first bar, and bar *i* spans trades ``(ci[i], ci[i+1]]``.
+Counterpart of ``finmlkit_tpu/bar/indexers.py``; the time-bar indexer and
+the integer dollar-bar indexer are ported so far. Indexers return
+``(close_ts, close_indices)``: element 0 is the open anchor of the first bar,
+and bar *i* spans trades ``(ci[i], ci[i+1]]``.
 """
 import math
 
 import numpy as np
 import torch
 
-__all__ = ["time_bar_indexer"]
+from ..ops.prefix_scan import fast_cumsum
+
+__all__ = ["time_bar_indexer", "dollar_bar_indexer_q"]
+
+_DOLLAR_SHIFT = 6  # >>6 keeps a month of tick*unit dollars inside int64
 
 
 def time_bar_indexer(timestamps: torch.Tensor, interval_seconds: float,
@@ -37,3 +42,35 @@ def time_bar_indexer(timestamps: torch.Tensor, interval_seconds: float,
     clock = (start + k * step).to(torch.int64)
     ci = torch.searchsorted(timestamps.contiguous(), clock + 1) - 1
     return clock, ci
+
+
+def dollar_bar_indexer_q(timestamps, price_ticks, amount_units, threshold,
+                         tick_size, amount_scale, *, cumsum=fast_cumsum):
+    """Integer-exact dollar-bar indexer over quantized trades.
+
+    Same rule as ``finmlkit_tpu.bar.indexers.dollar_bar_indexer_q``: per-trade
+    dollar units ``(ticks * units) >> 6`` (int64), their inclusive prefix ``c``
+    (``cumsum``, kernel S by default), and bar m closes at the first trade
+    where ``c >= ceil(m * thr)``, moved to at least one trade after the
+    previous close (``b = m + cummax(rank - m)``). The TPU's blocked rank and
+    ``(rows, 128)`` layout give the same ranks as ``torch.searchsorted``.
+    Bar 0 opens after trade 0, so ``ci[0] == 0``; trades after the last
+    crossing belong to no bar.
+
+    The number of targets, ``total / thr + 1``, comes from one read of the
+    total, so no bar is left out. Returns ``(close_ts, ci)`` as int64 tensors
+    on the device of the trades.
+    """
+    thr_scaled = float(threshold) / (tick_size * amount_scale) / (1 << _DOLLAR_SHIFT)
+    n = int(price_ticks.shape[0])
+    dev = price_ticks.device
+    d = (price_ticks.to(torch.int64) * amount_units) >> _DOLLAR_SHIFT
+    c = cumsum(d)
+    max_bars = min(max(int(float(int(c[n - 1])) / thr_scaled) + 1, 1), n)
+    m = torch.arange(1, max_bars + 1, dtype=torch.int64, device=dev)
+    u = torch.ceil(m.to(torch.float64) * thr_scaled).to(torch.int64)
+    naive = torch.searchsorted(c, u).clamp(min=1)  # #{c < u}; checks start at trade 1
+    b = m + torch.cummax(naive - m, 0).values
+    count = int((b <= n - 1).sum())
+    ci = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), b[:count]])
+    return timestamps[ci], ci

@@ -1,27 +1,33 @@
-// Kernel S: inclusive prefix sum of a 1-D stream of int32, int64, float32 or
-// float64 values.
+// Kernels S and C: inclusive prefix sums of int32, int64, float32 or float64
+// values, over one stream (S) or over every row of a (C, n) stack (C).
 //
 // Replaces the TPU kernels of finmlkit_tpu/ops/pallas_scan.py:
-//   K2  _cumsum_2d      (_cumsum_kernel)      int32 / float32 prefix sums,
-//   K3  _cumsum_2d_i64  (_cumsum_kernel_i64)  exact int64 prefix sums, carried
-//                                             there as hi/lo int32 pairs.
+//   K2   _cumsum_2d      (_cumsum_kernel)      int32 / float32 prefix sums,
+//   K3   _cumsum_2d_i64  (_cumsum_kernel_i64)  exact int64 prefix sums, carried
+//                                              there as hi/lo int32 pairs,
+//   K4a  _cumsum_3d      (_cumsum_kernel_cols)      C independent int32 /
+//                                                   float32 row prefix sums,
+//   K4b  _cumsum_3d_i64  (_cumsum_kernel_cols_i64)  K4a for int64 as hi/lo
+//                                                   pairs.
+// S is C with one row: every kernel below takes its row from blockIdx.y.
 // On the TPU the grid ran in order and carried the running total in scratch
 // memory from one block to the next. Here blocks run in parallel and in no
 // order, so the scan is three launches on one stream:
-//   1. every block reduces its tile of kTile elements to one total;
-//   2. one block scans the tile totals in place (inclusive);
-//   3. every block scans its tile and adds the total of the tiles before it.
-// A stream of one tile skips 1 and 2.
+//   1. every block reduces its tile of kTile elements of its row to one total;
+//   2. one block per row scans that row's tile totals in place (inclusive);
+//   3. every block scans its tile and adds the total of the row's tiles before
+//      it.
+// Rows of one tile skip 1 and 2.
 //
 // Bound: device memory. The stream is read twice and written once (12 bytes
-// per int32 element); phase 2 touches n / kTile values. Inside a tile each
-// thread loads kItems values coalesced through shared memory, sums them
+// per int32 element); phase 2 touches n / kTile values per row. Inside a tile
+// each thread loads kItems values coalesced through shared memory, sums them
 // serially, and one warp-shuffle scan per block joins the threads.
 //
 // int64 and int32 adds run in the unsigned type of the same width, so a prefix
 // that wraps past 2^63 (or 2^31) is defined and equals the two's-complement
-// result of the TPU pair scan (pallas_scan.py:155-178). Float sums are taken
-// in a fixed order, so results repeat bit for bit from run to run.
+// result of the TPU pair scans (pallas_scan.py:155-178, 264-283). Float sums
+// are taken in a fixed order, so results repeat bit for bit from run to run.
 #include <cuda_runtime.h>
 
 namespace {
@@ -117,23 +123,28 @@ __device__ typename Acc<T>::type tile_scan(const T* in, T* out,
   return total;
 }
 
+// Grid (tiles, rows): block (x, y) reduces tile x of row y. Row y of the
+// input starts at y * n, row y of the totals at y * tiles.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 tile_totals_kernel(const T* __restrict__ in,
                    typename Acc<T>::type* __restrict__ tot, long long n) {
-  const auto t = tile_scan<T>(in, nullptr,
+  const long long row = blockIdx.y;
+  const auto t = tile_scan<T>(in + row * n, nullptr,
                               static_cast<long long>(blockIdx.x) * kTile, n,
                               typename Acc<T>::type(0));
-  if (threadIdx.x == 0) tot[blockIdx.x] = t;
+  if (threadIdx.x == 0) tot[row * gridDim.x + blockIdx.x] = t;
 }
 
-// One block walks the tile totals in order, tile by tile, carrying the sum.
+// One block per row walks that row's m tile totals in order, tile by tile,
+// carrying the sum.
 template <typename A>
 __global__ void __launch_bounds__(kThreads)
 scan_totals_kernel(A* tot, long long m) {
+  A* row_tot = tot + static_cast<long long>(blockIdx.x) * m;
   A carry = A(0);
   for (long long s = 0; s < m; s += kTile)
-    carry = carry + tile_scan<A>(tot, tot, s, m, carry);
+    carry = carry + tile_scan<A>(row_tot, row_tot, s, m, carry);
 }
 
 template <typename T>
@@ -141,46 +152,59 @@ __global__ void __launch_bounds__(kThreads)
 scan_tiles_kernel(const T* __restrict__ in, T* __restrict__ out,
                   const typename Acc<T>::type* __restrict__ tot, long long n) {
   using A = typename Acc<T>::type;
-  const A offset = blockIdx.x > 0 ? tot[blockIdx.x - 1] : A(0);
-  tile_scan<T>(in, out, static_cast<long long>(blockIdx.x) * kTile, n, offset);
+  const long long row = blockIdx.y;
+  const A offset =
+      blockIdx.x > 0 ? tot[row * gridDim.x + blockIdx.x - 1] : A(0);
+  tile_scan<T>(in + row * n, out + row * n,
+               static_cast<long long>(blockIdx.x) * kTile, n, offset);
 }
 
 template <typename T>
-int launch(const void* x, void* out, void* partial, long long n,
-           cudaStream_t stream) {
+int launch(const void* x, void* out, void* partial, long long rows,
+           long long n, cudaStream_t stream) {
   using A = typename Acc<T>::type;
   const T* in = static_cast<const T*>(x);
   T* o = static_cast<T*>(out);
   A* tot = static_cast<A*>(partial);
   const long long tiles = (n + kTile - 1) / kTile;
+  const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(rows));
   if (tiles > 1) {
-    tile_totals_kernel<T><<<static_cast<unsigned>(tiles), kThreads, 0, stream>>>(
-        in, tot, n);
-    scan_totals_kernel<A><<<1, kThreads, 0, stream>>>(tot, tiles);
+    tile_totals_kernel<T><<<grid, kThreads, 0, stream>>>(in, tot, n);
+    scan_totals_kernel<A><<<static_cast<unsigned>(rows), kThreads, 0, stream>>>(
+        tot, tiles);
   }
-  scan_tiles_kernel<T><<<static_cast<unsigned>(tiles), kThreads, 0, stream>>>(
-      in, o, tot, n);
+  scan_tiles_kernel<T><<<grid, kThreads, 0, stream>>>(in, o, tot, n);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Elements per tile: the caller allocates ceil(n / fmk_scan_tile()) scratch
-// values of the stream's dtype for the tile totals.
+// Elements per tile: the caller allocates rows * ceil(n / fmk_scan_tile())
+// scratch values of the stream's dtype for the tile totals.
 extern "C" int fmk_scan_tile() { return kTile; }
 
+// Kernel C: the inclusive prefix sum of each row of a contiguous (rows, n)
+// array, rows <= 65535 (the grid's y limit).
 // dtype: 0 int32, 1 int64, 2 float32, 3 float64. Returns cudaGetLastError().
-extern "C" int fmk_prefix_scan(int dtype, const void* x, void* out,
-                               void* partial, long long n, void* stream) {
-  if (n <= 0) return 0;
+extern "C" int fmk_prefix_scan_rows(int dtype, const void* x, void* out,
+                                    void* partial, long long rows,
+                                    long long n, void* stream) {
+  if (n <= 0 || rows <= 0) return 0;
+  if (rows > 65535) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch<int>(x, out, partial, n, s);
-    case 1: return launch<long long>(x, out, partial, n, s);
-    case 2: return launch<float>(x, out, partial, n, s);
-    case 3: return launch<double>(x, out, partial, n, s);
+    case 0: return launch<int>(x, out, partial, rows, n, s);
+    case 1: return launch<long long>(x, out, partial, rows, n, s);
+    case 2: return launch<float>(x, out, partial, rows, n, s);
+    case 3: return launch<double>(x, out, partial, rows, n, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// Kernel S: the inclusive prefix sum of one stream of n values.
+extern "C" int fmk_prefix_scan(int dtype, const void* x, void* out,
+                               void* partial, long long n, void* stream) {
+  return fmk_prefix_scan_rows(dtype, x, out, partial, 1, n, stream);
 }
 
 extern "C" const char* fmk_error_string(int code) {

@@ -1,7 +1,9 @@
-"""Prefix sums of finmlkit_tpu_torch (plain path of kernel S) against the TPU
-kernels of the JAX package, run in interpret mode on the CPU: ``_cumsum_2d``
-(int32, float32) and ``_cumsum_2d_i64`` (int64 as hi/lo pairs, wrapping past
-2^63), and ``jnp.cumsum`` for float64 (the JAX package's off-TPU path).
+"""Prefix sums of finmlkit_tpu_torch (plain paths of kernels S and C) against
+the TPU kernels of the JAX package, run in interpret mode on the CPU:
+``_cumsum_2d`` (int32, float32) and ``_cumsum_2d_i64`` (int64 as hi/lo pairs,
+wrapping past 2^63) for S; ``fast_cumsum_cols``, i.e. ``_cumsum_3d`` (K4a) and
+``_cumsum_3d_i64`` (K4b, combined and as the raw hi/lo pair) for C; and
+``jnp.cumsum`` for float64 (the JAX package's off-TPU path).
 
 Integers must be exact; float32 within rtol 1e-5 and float64 within rtol
 1e-12 (the sums are taken in another order), on positive values.
@@ -78,3 +80,45 @@ def test_rejects_bad_input():
         prefix_scan.fast_cumsum(torch.zeros(4, 4, dtype=torch.int32))
     with pytest.raises(TypeError):
         prefix_scan.fast_cumsum(torch.zeros(4, dtype=torch.uint8))
+
+
+def _rows(dtype, c, n):
+    x = np.stack([_data(dtype, n, seed=1000 * r) for r in range(c)])
+    if c > 1 and dtype == np.int64:
+        x[1] = np.random.default_rng(n).integers(-1000, 1000, n)  # beside a wrapping row
+    return x
+
+
+@pytest.mark.parametrize("n", LENGTHS)
+@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("dtype", [np.int32, np.int64, np.float32, np.float64])
+def test_plain_cols_scan_matches_jax(dtype, c, n):
+    x = _rows(dtype, c, n)
+    before = prefix_scan.COLS_LAUNCHES
+    got = prefix_scan.fast_cumsum_cols(torch.from_numpy(x))
+    assert prefix_scan.COLS_LAUNCHES == before
+    what = f"{np.dtype(dtype).name} C={c} n={n}"
+    assert got.dtype == torch.from_numpy(x).dtype and got.shape == x.shape
+    if dtype == np.float64:
+        want = np.asarray(jnp.cumsum(jnp.asarray(x), axis=1))
+    else:
+        want = np.asarray(pallas_scan.fast_cumsum_cols(jnp.asarray(x),
+                                                       interpret=True))
+    if dtype == np.int64:
+        hi, lo = pallas_scan.fast_cumsum_cols(jnp.asarray(x), interpret=True,
+                                              as_pair=True)
+        assert_exact(got, np.asarray(pallas_scan.combine_i64(hi, lo)), what)
+    if dtype in (np.int32, np.int64):
+        assert_exact(got, want, what)
+    else:
+        rtol = 1e-5 if dtype == np.float32 else 1e-12
+        assert_close(got, want, rtol=rtol, what=what)
+
+
+def test_cols_rejects_bad_input():
+    with pytest.raises(ValueError):
+        prefix_scan.fast_cumsum_cols(torch.zeros(4, dtype=torch.int32))
+    with pytest.raises(TypeError):
+        prefix_scan.fast_cumsum_cols(torch.zeros(2, 4, dtype=torch.int16))
+    with pytest.raises(ValueError):
+        prefix_scan.fast_cumsum_cols(torch.zeros(70000, 1, dtype=torch.int32))
