@@ -2,13 +2,14 @@
 """Smoke run of finmlkit_tpu_torch on one NVIDIA GPU.
 
 Builds the package's CUDA kernels from ``finmlkit_tpu_torch/csrc`` and drives
-the port's two paths once at full size on a month of synthetic trades (the
+the port's three paths once at full size on a month of synthetic trades (the
 generator of ``bench.py``, 39,171,929 trades at seed 0): the time-bar path
 (1-minute time bars -> bar products and medians -> CUSUM events ->
-triple-barrier labels -> uniqueness and return-attribution weights) and the
+triple-barrier labels -> uniqueness and return-attribution weights), the
 order-flow path of ``bench.py`` config 2 (dollar bars at total dollars /
 40000 -> bar products and medians -> dense footprints -> trade-size
-features). Phases:
+features) and the information-driven bars of config 6 through the kits.
+Phases:
 
 1. environment: torch, CUDA, nvcc, triton, the card's name and power limit;
 2. build the kernels (``build/finmlkit_tpu_torch/``);
@@ -31,10 +32,25 @@ features). Phases:
    recomputation of the integer rule; sampled footprint bars against
    ``np.add.at`` and sampled bars' trade-size features against numpy; C
    launched at least twice, S and B at least once; stage and end-to-end
-   times, peak device memory. Without phase 5, B and S are timed here.
+   times, peak device memory. Without phase 5, B and S are timed here;
+7. the information-driven bars on the same month through the kits, through
+   the kernels and through the plain versions: tick bars of 1000 trades,
+   volume bars at total volume / 40000, CUSUM bars (sigma 2e-5 with NaNs at
+   the first 1,000 and at 1% of the trades, floor 1e-9, mult 60; also their
+   trade-size features and footprints), imbalance bars (tick, theta 30) and
+   run bars (tick, E0[T] 1000, E0[rate] 0.5, alphas 0.05), with OHLCV and
+   directional features each. Close indices, bars, features and the filled
+   sigma equal bit for bit (CUSUM closes may differ only at near ties, within
+   1e-12 of lam); tick closes against arange, volume and imbalance closes
+   against their integer rules and CUSUM closes against the float64 rule in
+   numpy; F launched once and E at least four times; kernel F against its
+   plain version on the month's sigma and phase 3's lengths, kernel E's four
+   scans alone; stage times, peak device memory. B, S and C are timed here
+   when phases 5 and 6 are skipped.
 
 Run from the repository root: ``python3 chip_smoke.py``; ``--phases 1,2,6``
-runs only the order-flow path, and ``--profile`` adds, after phase 6, the
+runs only the order-flow path, ``--phases 1,2,7`` only the information-driven
+bars, and ``--profile`` adds, after phase 6, the
 footprint features' own time, a ``torch.profiler`` table of one run of the
 order-flow path and its device idle share. Any failure exits non-zero
 before the last line. The last line is
@@ -42,6 +58,7 @@ before the last line. The last line is
 """
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -53,10 +70,30 @@ SCAN_LENGTHS = (1, 8191, 8193, N_MONTH + 1)
 COLS_ROWS = (1, 2, 5)
 COLS_LENGTHS = (1, 2047, 2049, N_MONTH + 1)
 DOLLAR_BARS = 40_000      # bench.py config 2: threshold = total dollars / 40000
+# phase 7: bench.py config 6 (bench.py:852-958), plus tick and volume bars
+INFO_TICKS = 1000         # tick bars of 1000 trades
+VOLUME_BARS = 40_000      # volume bars at total volume / 40000
+CUSUM_SIGMA, CUSUM_FLOOR, CUSUM_MULT = 2e-5, 1e-9, 60.0   # bench.py:861-865
+IMB_THETA = 30.0          # imbalance bars, tick mode, fixed theta (:914-915)
+RUN_EMA = dict(expected_ticks_init=1000.0, expected_rate_init=0.5,
+               alpha_ticks=0.05, alpha_rate=0.05)          # run bars (:935-938)
+FFILL_MASKS = ("all_valid", "none_valid", "leading_invalid")
+# the least time of a kernel: its bytes (each input read once, each output
+# written once) at the H100 SXM's 3.35 TB/s, or its operations at its float32
+# vector peak of 67 TFLOP/s (NVIDIA's data sheet), whichever is larger; every
+# kernel here does so few operations a byte that the bytes bound it
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
 
 
 def say(msg):
     print(msg, flush=True)
+
+
+def bound(nbytes, ops):
+    """``(bound_ms, bound_by)`` of the ``kernels`` line."""
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
 def fail(msg):
@@ -437,25 +474,65 @@ def kernels_b_s(card, tr, ci, launches, s_inputs=()):
                      torch.ones(n_bars, dtype=torch.int32, device="cuda"))
     s_ms, s_plain = cuda_ms(lambda: fast_cumsum(marks)), \
         cuda_ms(lambda: fast_cumsum_plain(marks))
+    s_lib = cuda_ms(lambda: torch.cumsum(marks, 0, dtype=marks.dtype))
+    # B reads 13 bytes a trade and the close indices, writes 104 bytes a bar
+    b_bound = bound(13 * n_trades + 8 * (n_bars + 1) + 104 * n_bars,
+                    40 * n_trades)
+    s_bound = bound(8 * n_trades, n_trades)
     s_err = max(assert_close(fast_cumsum(x), fast_cumsum_plain(x), rtol=1e-12,
                              what="S at the path's shapes") for x in (marks, *s_inputs))
     b_err = max(float((a.double() - b.double()).abs().max()) for a, b in
                 zip(bar_scan_products(*pargs), bar_scan_products_plain(*pargs)))
-    say(f"kernel B ({n_bars:,} bars) {b_ms:.3f} ms vs plain {b_plain:.3f} ms; "
-        f"kernel S (int32, {n_trades:,}) {s_ms:.3f} ms vs plain {s_plain:.3f} "
-        f"ms [{card}]")
+    say(f"kernel B ({n_bars:,} bars) {b_ms:.3f} ms vs plain {b_plain:.3f} ms, "
+        f"bound {b_bound[0]:.3f} ms; kernel S (int32, {n_trades:,}) {s_ms:.3f} "
+        f"ms vs plain {s_plain:.3f} ms, torch.cumsum {s_lib:.3f} ms, bound "
+        f"{s_bound[0]:.3f} ms [{card}]")
     return {
         "B": {"name": "B bar_products (replaces K1a v4 and K1b v2)",
               "route": "cuda", "source": "finmlkit_tpu_torch/csrc/bar_products.cu",
               "replaces": "finmlkit_tpu/ops/fused_scan.py:1261",
               "launches": launches["B"], "max_abs_err": b_err, "ms": b_ms,
-              "plain_ms": b_plain},
+              "plain_ms": b_plain, "bound_ms": b_bound[0],
+              "bound_by": b_bound[1], "library_ms": None},
         "S": {"name": "S prefix_scan (replaces K2 and K3)", "route": "cuda",
               "source": "finmlkit_tpu_torch/csrc/prefix_scan.cu",
               "replaces": "finmlkit_tpu/ops/pallas_scan.py:141",
               "launches": launches["S"], "max_abs_err": s_err, "ms": s_ms,
-              "plain_ms": s_plain},
+              "plain_ms": s_plain, "bound_ms": s_bound[0],
+              "bound_by": s_bound[1], "library_ms": s_lib},
     }
+
+
+def kernel_c(card, tr, ci, low_t, launches):
+    """Kernel C alone at a path's shapes (the footprints' int32 rows and the
+    trade size's int64 unit rows): its ``kernels`` entry, with the int64
+    time."""
+    import torch
+    from finmlkit_tpu_torch.bar.footprint_q import _fp_rows
+    from finmlkit_tpu_torch.ops.prefix_scan import (fast_cumsum_cols,
+                                                    fast_cumsum_cols_plain)
+    n_trades = tr.ticks.shape[0]
+    rows32 = _fp_rows(ci, low_t, n_trades)
+    rows64 = torch.stack([tr.units, tr.units])
+    c_ms, c_plain, c_err = {}, {}, 0.0
+    for name, x in (("int32", rows32), ("int64", rows64)):
+        c_ms[name] = cuda_ms(lambda: fast_cumsum_cols(x))
+        c_plain[name] = cuda_ms(lambda: fast_cumsum_cols_plain(x))
+        c_err = max(c_err, float((fast_cumsum_cols(x) - fast_cumsum_cols_plain(x))
+                                 .abs().max()))
+    c_lib = cuda_ms(lambda: torch.cumsum(rows64, 1))
+    del rows32, rows64
+    c_bound = bound(2 * 16 * n_trades, 2 * n_trades)   # int64 (2, n) in and out
+    say(f"kernel C (2, {n_trades:,}): int32 {c_ms['int32']:.3f} ms vs "
+        f"plain {c_plain['int32']:.3f} ms; int64 {c_ms['int64']:.3f} ms vs "
+        f"plain {c_plain['int64']:.3f} ms, torch.cumsum(x, 1) {c_lib:.3f} ms, "
+        f"bound {c_bound[0]:.3f} ms [{card}]")
+    return {"name": "C prefix_scan_rows (replaces K4a and K4b)", "route": "cuda",
+            "source": "finmlkit_tpu_torch/csrc/prefix_scan.cu",
+            "replaces": "finmlkit_tpu/ops/pallas_scan.py:249 and :287",
+            "launches": launches["C"], "max_abs_err": c_err, "ms": c_ms["int64"],
+            "plain_ms": c_plain["int64"], "bound_ms": c_bound[0],
+            "bound_by": c_bound[1], "library_ms": c_lib}
 
 
 def run_dollar(tr, thr, plain=False):
@@ -587,8 +664,6 @@ def check_trade_size_numpy(out, q, amount, theta_mult=5.0, n_sample=40):
 def phase_dollar(card, month, with_bs=False, profile=False):
     import torch
     from finmlkit_tpu_torch.ops import fused_scan, prefix_scan
-    from finmlkit_tpu_torch.ops.prefix_scan import (fast_cumsum_cols,
-                                                    fast_cumsum_cols_plain)
     from finmlkit_tpu_torch.testing import assert_exact
     n_trades, price, amount, side, q, tr = (month[k] for k in
                                             ("n", "price", "amount", "side", "q", "tr"))
@@ -664,27 +739,7 @@ def phase_dollar(card, month, with_bs=False, profile=False):
         f"({(peak - base) / 2**30:.2f} GiB above the {base / 2**30:.2f} GiB held "
         f"before the run) [{card}]")
 
-    # --- kernel C alone at the path's shapes ---
-    from finmlkit_tpu_torch.bar.footprint_q import _fp_rows
-    low_t = fp["low_level"]
-    rows32 = _fp_rows(ci, low_t, n_trades)
-    rows64 = torch.stack([tr.units, tr.units])
-    c_ms, c_plain, c_err = {}, {}, 0.0
-    for name, x in (("int32", rows32), ("int64", rows64)):
-        c_ms[name] = cuda_ms(lambda: fast_cumsum_cols(x))
-        c_plain[name] = cuda_ms(lambda: fast_cumsum_cols_plain(x))
-        c_err = max(c_err, float((fast_cumsum_cols(x) - fast_cumsum_cols_plain(x))
-                                 .abs().max()))
-    del rows32, rows64
-    say(f"kernel C (2, {n_trades:,}): int32 {c_ms['int32']:.3f} ms vs "
-        f"torch.cumsum {c_plain['int32']:.3f} ms; int64 {c_ms['int64']:.3f} ms "
-        f"vs torch.cumsum {c_plain['int64']:.3f} ms [{card}]")
-    kernels = {"C": {
-        "name": "C prefix_scan_rows (replaces K4a and K4b)", "route": "cuda",
-        "source": "finmlkit_tpu_torch/csrc/prefix_scan.cu",
-        "replaces": "finmlkit_tpu/ops/pallas_scan.py:249 and :287",
-        "launches": launches["C"], "max_abs_err": c_err, "ms": c_ms["int64"],
-        "plain_ms": c_plain["int64"]}}
+    kernels = {"C": kernel_c(card, tr, ci, fp["low_level"], launches)}
     if with_bs:       # phase 5 did not run: B and S at this path's shapes
         dollars = (tr.ticks.to(torch.int64) * tr.units) >> 6
         kernels.update(kernels_b_s(card, tr, ci, launches, s_inputs=(dollars,)))
@@ -736,11 +791,367 @@ def profile_dollar(card, tr, thr, fp, e2e_ms):
         f"median {e2e_ms:.2f} ms, idle share about "
         f"{max(0.0, 1 - busy / e2e_ms):.1%} [{card}]")
 
+def info_sigma(n, seed=0):
+    """The CUSUM bars' sigma: 2e-5 a trade (bench.py:861), NaN at the first
+    1,000 trades and at 1% of the trades drawn from the seed, so that kernel
+    F has gaps to fill."""
+    sigma = np.full(n, CUSUM_SIGMA)
+    sigma[:1000] = np.nan
+    sigma[np.random.default_rng(seed).random(n) < 0.01] = np.nan
+    return sigma
+
+
+def info_kits(month, device="cuda", plain=False):
+    """The five kits of phase 7 on the month; each quantizes the trades on
+    the host and copies them to ``device`` once."""
+    from finmlkit_tpu_torch.bar import kit
+    cols = tuple(month[k] for k in ("ts", "price", "amount", "side"))
+    kw = dict(device=device, plain=plain)
+    vol_thr = float(month["amount"].astype(np.float64).sum()) / VOLUME_BARS
+    return {
+        "tick": kit.TickBarKit(*cols, INFO_TICKS, **kw),
+        "volume": kit.VolumeBarKit(*cols, vol_thr, **kw),
+        "cusum": kit.CUSUMBarKit(*cols, month["sigma"], CUSUM_FLOOR, CUSUM_MULT,
+                                 **kw),
+        "imbalance": kit.ImbalanceBarKit(*cols, threshold=IMB_THETA, **kw),
+        "run": kit.RunBarKit(*cols, **RUN_EMA, **kw),
+    }
+
+
+def run_info(kits, event):
+    """The information-driven bar path through the kits: close indices, bar
+    products, and for the CUSUM bars trade-size features (theta the bar's
+    median trade size, mult 5), footprints and the filled sigma at the
+    closes. ``event()`` returns a recorded timing event. Returns outputs and
+    stage times (ms) per bar type."""
+    out, marks = {}, {}
+    for name, k in kits.items():
+        m = [event()]
+        res = {"closes": k.bar_close_indices}
+        m.append(event())
+        res["ohlcv"] = k.build_ohlcv()
+        res["directional"] = k.build_directional_features()
+        m.append(event())
+        if name == "cusum":
+            res["trade_size"] = k.build_trade_size_features(
+                res["ohlcv"]["median_trade_size"], 5.0)
+            res["footprints"] = k.build_footprints()
+            res["sigma"] = k.get_sigma()
+            m.append(event())
+        out[name], marks[name] = res, m
+    stages = {}
+    for name, m in marks.items():
+        m[-1].synchronize()
+        names = ("index", "products", "trade size+footprints")
+        stages[name] = {names[i]: m[i].elapsed_time(m[i + 1])
+                        for i in range(len(m) - 1)}
+    return out, stages
+
+
+def _inner_max(x, starts, ends):
+    """max of x[starts[k]:ends[k]] for each k (-inf where empty), by
+    np.maximum.reduceat; the ranges are ascending and disjoint."""
+    out = np.full(len(starts), -np.inf)
+    ne = ends > starts
+    if ne.any():
+        idx = np.stack([starts[ne], ends[ne]], 1).ravel()  # ends < len(x)
+        out[ne] = np.maximum.reduceat(x, idx)[::2]
+    return out
+
+
+def threshold_rule_numpy(prefix, ci, thr, what, absolute=False, base0=None):
+    """Close indices ``ci`` (bar k holds trades (ci[k], ci[k+1]]) against a
+    reset-at-close threshold rule, vectorised over all bars on the host: the
+    in-bar statistic ``prefix[t] - prefix[ci[k]]`` (``base0`` in place of the
+    first bar's base; its absolute value if ``absolute``) reaches ``thr`` at
+    every close and at no earlier trade of the bar, and not after the last
+    close."""
+    n = len(prefix)
+    closes = ci[1:]
+    bar = np.searchsorted(closes, np.arange(n), side="left")
+    base = prefix[ci[np.minimum(bar, len(ci) - 1)]]
+    if base0 is not None:
+        base[bar == 0] = base0
+    stat = prefix - base
+    del bar, base
+    if absolute:
+        stat = np.abs(stat)
+    if not bool((stat[closes] >= thr).all()):
+        fail(f"{what}: a bar closes below the threshold")
+    inner = _inner_max(stat, ci[:-1] + 1, closes)
+    if bool((inner >= thr).any()):
+        fail(f"{what}: a bar reaches the threshold before its close")
+    if ci[-1] + 1 < n and stat[ci[-1] + 1:].max() >= thr:
+        fail(f"{what}: the trades after the last close reach the threshold")
+
+
+def cusum_rule_numpy(ts, price, sigma, ci, tol=1e-12):
+    """CUSUM close indices against the rule in float64 on the host, bar by
+    bar in closed form (``s+ = max(s0 + R, R - cummin R)``, ``s- = min(s0 +
+    R, R - cummax R)`` over the bar's prefix R of log returns): every close
+    crosses ``lam`` and no earlier trade of its bar does, except where a
+    statistic lies within ``tol`` relative of ``lam`` (a near tie, where sums
+    taken in another order may decide otherwise). Returns the near ties."""
+    n = len(price)
+    isnan = np.isnan(sigma)
+    last = np.maximum.accumulate(np.where(isnan, -1, np.arange(n)))
+    lam = np.maximum(CUSUM_MULT * sigma[np.clip(last, 0, n - 1)], CUSUM_FLOOR)
+    rets = np.concatenate([[0.0], np.diff(np.log(price))])
+    can = np.concatenate([ts[:-1] != ts[1:], [True]])
+    if ci[0] != int(np.argmin(isnan)):
+        fail(f"cusum ci[0] = {ci[0]}, not the first valid sigma")
+    sp = sn = 0.0
+    ties = 0
+    bounds = np.concatenate([ci, [n - 1]]) if ci[-1] < n - 1 else ci
+    for k in range(len(bounds) - 1):
+        a, b = bounds[k], bounds[k + 1]
+        r, lm, cc = rets[a + 1:b + 1], lam[a + 1:b + 1], can[a + 1:b + 1]
+        big = np.cumsum(r)
+        s_pos = np.maximum(sp + big, big - np.minimum.accumulate(big))
+        s_neg = np.minimum(sn + big, big - np.maximum.accumulate(big))
+        up, dn = (s_pos - lm) / lm, (-s_neg - lm) / lm
+        hit = cc & ((up >= 0) | (dn >= 0))
+        near = cc & ((np.abs(up) <= tol) | (np.abs(dn) <= tol))
+        closing = k < len(ci) - 1
+        inner_hit = hit[:-1] if closing else hit
+        if bool((inner_hit & ~near[:len(inner_hit)]).any()):
+            fail(f"cusum bar {k}: the statistic crosses lam before the close")
+        ties += int(inner_hit.sum())
+        if closing:
+            if not (hit[-1] or near[-1]):
+                fail(f"cusum bar {k}: the close at {b} does not cross lam")
+            ties += int(near[-1] and not hit[-1])
+            if up[-1] >= -tol:
+                sp, sn = 0.0, s_neg[-1]
+            else:
+                sp, sn = s_pos[-1], 0.0
+    return ties
+
+
+def phase_info(card, month, need):
+    """Phase 7: tick, volume, CUSUM, imbalance and run bars through the
+    kits on the month, kernel path against plain path, host rule checks,
+    kernels F and E alone. ``need`` names the kernels of B, S and C that no
+    earlier phase timed. Returns the path's launches and ``kernels``
+    entries."""
+    import torch
+    from finmlkit_tpu_torch.ops import event_scan, fused_scan, prefix_scan
+    from finmlkit_tpu_torch.testing import assert_exact
+    n = month["n"]
+    month["sigma"] = info_sigma(n)
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def counters():
+        return {"B": fused_scan.LAUNCHES, "S": prefix_scan.LAUNCHES,
+                "C": prefix_scan.COLS_LAUNCHES, "F": prefix_scan.FFILL_LAUNCHES,
+                "E": event_scan.LAUNCHES}
+
+    kits = info_kits(month)
+    run_info(kits, event)                      # warm: allocator, caches
+    del kits
+    kits = info_kits(month)                    # host quantization, copies
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fused_scan.LAUNCHES = prefix_scan.LAUNCHES = prefix_scan.COLS_LAUNCHES = 0
+    prefix_scan.FFILL_LAUNCHES = event_scan.LAUNCHES = 0
+    k_out, k_st = run_info(kits, event)        # the path's counted run
+    launches = counters()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    tr = kits["cusum"].trades
+    del kits
+    if launches["F"] != 1 or launches["E"] < 4 or min(
+            launches[k] for k in ("B", "S", "C")) < 1:
+        fail(f"a kernel of the information-bar path did not launch as it "
+             f"should (F once, E at least 4 times): {launches}")
+    t0 = time.perf_counter()
+    p_out, p_st = run_info(info_kits(month, plain=True), event)
+    t_plain = time.perf_counter() - t0
+
+    # --- kernel path == plain path ---
+    ties_kp = 0
+    for name in k_out:
+        kc, pc = k_out[name]["closes"], p_out[name]["closes"]
+        same = kc.shape == pc.shape and bool((kc == pc).all())
+        if not same and name != "cusum":
+            assert_exact(kc, pc, f"{name} close indices")
+        if not same:                           # CUSUM near ties only
+            m = min(len(kc), len(pc))
+            first = int(torch.nonzero(kc[:m] != pc[:m])[0]) if bool(
+                (kc[:m] != pc[:m]).any()) else m
+            ties_kp = len(kc) + len(pc) - 2 * first
+            say(f"cusum close indices differ from bar {first} on "
+                f"(kernel {len(kc):,} bars, plain {len(pc):,})")
+            continue                           # both are held to the rule below
+        for part in ("ohlcv", "directional", "trade_size", "footprints"):
+            for key, v in k_out[name].get(part, {}).items():
+                assert_exact(v, p_out[name][part][key], f"{name} {part}.{key}")
+        if name == "cusum":
+            assert_exact(k_out[name]["sigma"], p_out[name]["sigma"],
+                         "cusum filled sigma at the closes")
+
+    # --- the outputs are right: host rules, shapes, finite values ---
+    ts, price, amount, side, q = (month[k] for k in
+                                  ("ts", "price", "amount", "side", "q"))
+    cis = {name: np.concatenate([[0], r["closes"].cpu().numpy()])
+           for name, r in k_out.items()}
+    assert_exact(cis["tick"], np.concatenate(
+        [[0], np.arange(INFO_TICKS - 1, n, INFO_TICKS)]), "tick ci")
+    thr_units = math.ceil(float(amount.astype(np.float64).sum()) / VOLUME_BARS
+                          / q.amount_scale)
+    threshold_rule_numpy(np.cumsum(q.amount_units), cis["volume"], thr_units,
+                         "volume bars", base0=0)
+    threshold_rule_numpy(np.cumsum(side.astype(np.int64)), cis["imbalance"],
+                         IMB_THETA, "imbalance bars", absolute=True)
+    first_valid = int(np.argmin(np.isnan(month["sigma"])))
+    cis["cusum"][0] = first_valid
+    ties = {}
+    ties["kernel"] = cusum_rule_numpy(ts, price, month["sigma"], cis["cusum"])
+    if ties_kp:
+        p_ci = np.concatenate([[first_valid], p_out["cusum"]["closes"].cpu().numpy()])
+        ties["plain"] = cusum_rule_numpy(ts, price, month["sigma"], p_ci)
+        if ties["kernel"] + ties["plain"] == 0:
+            fail("cusum close indices differ without a near tie")
+    for name, r in k_out.items():
+        nb = len(cis[name]) - 1
+        o = r["ohlcv"]
+        for key in ("open", "high", "low", "close", "vwap", "median_trade_size"):
+            if o[key].shape != (nb,) or not bool(torch.isfinite(o[key]).all()):
+                fail(f"{name} ohlcv[{key}] is not {nb} finite values")
+        if int(o["trades"].sum()) != int(cis[name][-1] - cis[name][0]):
+            fail(f"{name} bars do not cover (ci[0], ci[-1]] once")
+    for key, v in k_out["cusum"]["trade_size"].items():
+        if not bool(torch.isfinite(v).all()):
+            fail(f"cusum trade_size.{key} not finite")
+    counts = {name: len(c) - 1 for name, c in cis.items()}
+    say(f"info bars: {counts}, launches {launches}; kernel path == plain path "
+        f"(close indices, bars, CUSUM trade size, footprints and filled "
+        f"sigma exact; CUSUM near-tie differences {ties_kp}); tick ci == "
+        f"arange, volume and imbalance ci == the integer rules in numpy, "
+        f"CUSUM ci == the float64 rule in numpy ({ties['kernel']} near ties)")
+    say(f"info path peak device memory {peak / 2**30:.2f} GiB allocated "
+        f"({(peak - base) / 2**30:.2f} GiB above the {base / 2**30:.2f} GiB "
+        f"held before the run) [{card}]")
+    for label, st in (("kernel", k_st), ("plain", p_st)):
+        say(f"info stage ms, {label} path: " + "; ".join(
+            f"{name} " + ", ".join(f"{k} {v:.2f}" for k, v in d.items())
+            for name, d in st.items()) + f" [{card}]")
+    say(f"plain path wall time {t_plain:.1f} s (host loops of the plain scans)")
+    del p_out
+
+    sig = torch.from_numpy(month["sigma"]).cuda()
+    kernels = {"F": kernel_f(card, sig, launches),
+               "E": kernel_e(card, tr, torch.from_numpy(price).cuda(), sig,
+                             thr_units, counts, launches,
+                             cusum_may_differ=bool(ties_kp))}
+    del sig
+    ci_cusum = torch.from_numpy(cis["cusum"]).cuda()
+    if "C" in need:
+        kernels["C"] = kernel_c(card, tr, ci_cusum,
+                                k_out["cusum"]["footprints"]["low_level"], launches)
+    if need & {"B", "S"}:
+        kernels.update(kernels_b_s(card, tr, ci_cusum, launches))
+    return launches, kernels
+
+
+def kernel_f(card, sigma, launches):
+    """Kernel F alone: against its plain version bit for bit on the month's
+    sigma and on phase 3's lengths (float32 and float64, three masks), and
+    timed on the sigma. Returns its ``kernels`` entry."""
+    import torch
+    from finmlkit_tpu_torch.ops.prefix_scan import fast_ffill, fast_ffill_plain
+    from finmlkit_tpu_torch.testing import assert_exact
+    n = sigma.shape[0]
+    valid = ~torch.isnan(sigma)
+    assert_exact(fast_ffill(sigma, valid), fast_ffill_plain(sigma, valid),
+                 "F on the month's sigma")
+    f_ms = cuda_ms(lambda: fast_ffill(sigma, valid))
+    f_plain = cuda_ms(lambda: fast_ffill_plain(sigma, valid))
+    f_bound = bound(17 * n, n)             # float64 values and mask in, out
+    g = torch.Generator(device="cuda").manual_seed(7)
+    for length in SCAN_LENGTHS:
+        for dtype in (torch.float32, torch.float64):
+            v = torch.randn(length, dtype=dtype, device="cuda", generator=g)
+            v[::7] = float("nan")
+            for mask in FFILL_MASKS:
+                m = torch.full((length,), mask == "all_valid", device="cuda")
+                if mask == "leading_invalid":
+                    m = torch.rand(length, device="cuda", generator=g) < 0.3
+                    m[:min(length, 5000)] = False
+                assert_exact(fast_ffill(v, m), fast_ffill_plain(v, m),
+                             f"F {dtype} n={length} {mask}")
+    say(f"kernel F == plain bit for bit on the month's sigma and on lengths "
+        f"{list(SCAN_LENGTHS)} x float32/float64 x {list(FFILL_MASKS)}; F on "
+        f"the month {f_ms:.3f} ms vs plain {f_plain:.3f} ms, bound "
+        f"{f_bound[0]:.3f} ms [{card}]")
+    return {"name": "F ffill (replaces K5)", "route": "cuda",
+            "source": "finmlkit_tpu_torch/csrc/ffill.cu",
+            "replaces": "finmlkit_tpu/ops/pallas_scan.py:84",
+            "launches": launches["F"], "max_abs_err": 0.0, "ms": f_ms,
+            "plain_ms": f_plain, "bound_ms": f_bound[0],
+            "bound_by": f_bound[1], "library_ms": None}
+
+
+def kernel_e(card, tr, price, sigma, thr_units, counts, launches,
+             cusum_may_differ):
+    """Kernel E alone: its four scans at phase 7's inputs, each timed (three
+    calls) and held to its plain version (one timed call). Returns its
+    ``kernels`` entry, with the four scans' times summed."""
+    import torch
+    from finmlkit_tpu_torch.bar.indexers import cusum_scan_inputs
+    from finmlkit_tpu_torch.ops import event_scan as es
+    n = tr.ticks.shape[0]
+    rets, lam, can_close, fv, _ = cusum_scan_inputs(
+        tr.timestamps, price, sigma, CUSUM_FLOOR, CUSUM_MULT)
+    w = tr.sides.to(torch.float64)
+    run = tuple(RUN_EMA[k] for k in ("expected_ticks_init", "expected_rate_init",
+                                     "alpha_ticks", "alpha_rate"))
+    scans = {   # kernel, plain version, arguments (every buffer holds n closes)
+        "cusum": (es.cusum_scan, es.cusum_scan_plain, (rets, lam, can_close, fv, n)),
+        "imbalance": (es.info_scan, es.info_scan_plain,
+                      (w, 1.0, IMB_THETA, 0.0, 0.0, n, False)),
+        "run": (es.info_scan, es.info_scan_plain, (w, *run, n, True)),
+        "volume": (es.volume_scan, es.volume_scan_plain, (tr.units, thr_units, n)),
+    }
+    e_ms, e_plain, e_err = {}, {}, 0.0
+    for name, (kernel, plain, args) in scans.items():
+        e_ms[name] = cuda_ms(lambda: kernel(*args), reps=3)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        want = plain(*args)
+        b.record()
+        b.synchronize()
+        e_plain[name] = a.elapsed_time(b)
+        got = kernel(*args)
+        if got.shape == want.shape:
+            e_err = max(e_err, float((got - want).abs().max()) if len(got) else 0.0)
+        elif name != "cusum" or not cusum_may_differ:
+            fail(f"E {name} alone: {len(got)} closes vs plain {len(want)}")
+    # bytes: CUSUM 17 a trade (rets, lam, can_close), imbalance, run and
+    # volume 8 each, 8 per close written; some 10 operations a trade a scan
+    e_bound = bound(41 * n + 8 * sum(counts[k] for k in scans), 40 * n)
+    say("kernel E alone (ms, kernel | plain): " + ", ".join(
+        f"{k} {e_ms[k]:.2f} | {e_plain[k]:.1f}" for k in scans)
+        + f"; bound of the four {e_bound[0]:.3f} ms [{card}]")
+    return {"name": "E event_scan (the four boundary scans; replaces XLA "
+                    "while_loops, not a TPU kernel)", "route": "cuda",
+            "source": "finmlkit_tpu_torch/csrc/event_scan.cu",
+            "replaces": "finmlkit_tpu/bar/indexers.py:368, :508 and :680",
+            "launches": launches["E"], "max_abs_err": e_err,
+            "ms": sum(e_ms.values()), "plain_ms": sum(e_plain.values()),
+            "bound_ms": e_bound[0], "bound_by": e_bound[1], "library_ms": None}
+
 
 def main():
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--profile", action="store_true",
                     help="after phase 6, time the footprint features alone "
@@ -765,20 +1176,25 @@ def main():
     if 4 in phases:
         phase_products()
     kernels = {}
-    month = make_month(N_MONTH) if phases & {5, 6} else None
-    if 5 in phases:
-        kernels = phase_month(card, month)
-        for k in kernels.values():
-            k["launches_by_path"] = {"time": k["launches"]}
-    if 6 in phases:
-        launches, dollar = phase_dollar(card, month, with_bs=5 not in phases,
-                                        profile=args.profile)
+
+    def merge(path, launches, entries):
         for name, n in launches.items():
-            if name in kernels:                 # B and S, timed in phase 5
+            if name in kernels:                 # timed by an earlier phase
                 kernels[name]["launches"] += n
             else:
-                kernels[name] = dict(dollar[name], launches_by_path={})
-            kernels[name]["launches_by_path"]["dollar"] = n
+                kernels[name] = dict(entries[name], launches_by_path={})
+            kernels[name]["launches_by_path"][path] = n
+
+    month = make_month(N_MONTH) if phases & {5, 6, 7} else None
+    if 5 in phases:
+        entries = phase_month(card, month)
+        merge("time", {k: v["launches"] for k, v in entries.items()}, entries)
+    if 6 in phases:
+        merge("dollar", *phase_dollar(card, month, with_bs=5 not in phases,
+                                      profile=args.profile))
+    if 7 in phases:
+        need = {"B", "S", "C"} - set(kernels)
+        merge("info", *phase_info(card, month, need))
     say(f"smoke run: {time.perf_counter() - t_start:.1f} s, the kernels' build "
         f"included")
     if kernels:

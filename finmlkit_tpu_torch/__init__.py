@@ -14,7 +14,11 @@ compiled by ``nvcc`` for ``sm_90a`` at first use (``_build.py``) and bound with
   sums over int32, int64, float32 and float64 streams;
 - kernel **C** (the same file, ``ops.prefix_scan.fast_cumsum_cols``): the
   prefix sums of every row of a ``(C, n)`` stack in one launch (the
-  footprints' bar ids and lows, the trade-size unit sums).
+  footprints' bar ids and lows, the trade-size unit sums);
+- kernel **F** (``csrc/ffill.cu``, ``ops.prefix_scan.fast_ffill``): the
+  forward fill of the CUSUM bars' sigma;
+- kernel **E** (``csrc/event_scan.cu``, ``ops.event_scan``): the CUSUM,
+  imbalance, run and volume bar boundary scans, one launch each.
 
 A wrapper given a CPU tensor runs its kernel's plain PyTorch version; given a
 CUDA tensor it launches the kernel or raises.

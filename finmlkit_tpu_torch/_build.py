@@ -1,8 +1,9 @@
 """Build and load the package's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into ONE shared library with a
-plain C interface, at first use, and loaded with ``ctypes``. The library goes
-to ``build/finmlkit_tpu_torch/`` beside the package, named by a hash of the
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc``, all of them at
+once, and the objects are linked into ONE shared library with a plain C
+interface, at first use, and loaded with ``ctypes``. The library goes to
+``build/finmlkit_tpu_torch/`` beside the package, named by a hash of the
 sources and flags, so a changed source builds anew and an unchanged one is
 reused. There is no fallback: a missing ``nvcc`` or a failed build raises.
 """
@@ -17,16 +18,21 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "finmlkit_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
+_F64 = ctypes.c_double
 # C entry points: name -> argtypes. Each returns cudaGetLastError() as int.
 _SIGNATURES = {
     "fmk_scan_tile": [],
     "fmk_prefix_scan": [ctypes.c_int, _P, _P, _P, _I64, _P],
     "fmk_prefix_scan_rows": [ctypes.c_int, _P, _P, _P, _I64, _I64, _P],
     "fmk_bar_products": [_P, _P, _P, _P, _I64, _I64, _P, _P, _P, _P],
+    "fmk_ffill_tile": [],
+    "fmk_ffill": [ctypes.c_int, _P, _P, _P, _P, _I64, _P],
+    "fmk_event_scan": [ctypes.c_int, _P, _P, _P, _P, _I64, _I64, _F64, _F64,
+                       _F64, _F64, _I64, _P, _I64, _P, _P],
 }
 
 _lib = None
@@ -65,15 +71,27 @@ def _compile(out: Path) -> None:
     global build_seconds, build_log
     srcs, _ = _sources()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    nvcc, tag = nvcc_path(), f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in srcs]
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for src, obj in zip(srcs, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    build_log = "".join(logs)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    failed = [s.name for s, p in zip(srcs, procs) if p.returncode != 0]
+    if not failed:
+        r = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                           capture_output=True, text=True)
+        build_log += r.stdout + r.stderr
+        failed = ["the link"] if r.returncode != 0 else []
     build_seconds = time.perf_counter() - t0
-    build_log = r.stdout + r.stderr
-    if r.returncode != 0:
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed (exit {r.returncode}):\n{build_log}")
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{build_log}")
     out.with_suffix(".log").write_text(build_log)
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
 

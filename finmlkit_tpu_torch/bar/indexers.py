@@ -1,18 +1,24 @@
 """Bar close-index computation (the "indexer" layer).
 
-Counterpart of ``finmlkit_tpu/bar/indexers.py``; the time-bar indexer and
-the integer dollar-bar indexer are ported so far. Indexers return
-``(close_ts, close_indices)``: element 0 is the open anchor of the first bar,
-and bar *i* spans trades ``(ci[i], ci[i+1]]``.
+Counterpart of ``finmlkit_tpu/bar/indexers.py``. Ported: the time, tick,
+integer dollar and integer volume indexers, the CUSUM indexer (float64) and
+the imbalance and run indexers (float64). Not ported: the float64 volume and
+dollar indexers (for prices off a tick grid), the native host indexers
+(kernel E runs the same recurrences on the card) and the TPU's float32 scans.
+Indexers return ``(close_ts, close_indices)``: element 0 is the open anchor of
+the first bar, and bar *i* spans trades ``(ci[i], ci[i+1]]``.
 """
 import math
 
 import numpy as np
 import torch
 
-from ..ops.prefix_scan import fast_cumsum
+from ..ops.event_scan import cusum_scan, info_scan, volume_scan
+from ..ops.prefix_scan import fast_cumsum, fast_ffill
 
-__all__ = ["time_bar_indexer", "dollar_bar_indexer_q"]
+__all__ = ["time_bar_indexer", "tick_bar_indexer", "dollar_bar_indexer_q",
+           "volume_bar_indexer_q", "cusum_scan_inputs", "cusum_bar_indexer",
+           "imbalance_bar_indexer", "run_bar_indexer"]
 
 _DOLLAR_SHIFT = 6  # >>6 keeps a month of tick*unit dollars inside int64
 
@@ -42,6 +48,19 @@ def time_bar_indexer(timestamps: torch.Tensor, interval_seconds: float,
     clock = (start + k * step).to(torch.int64)
     ci = torch.searchsorted(timestamps.contiguous(), clock + 1) - 1
     return clock, ci
+
+
+def tick_bar_indexer(timestamps: torch.Tensor, threshold: int):
+    """Tick-bar indexer in closed form (``indexers.py:136-148``): the first
+    close at trade ``max(threshold - 1, 1)``, then every ``max(threshold, 1)``
+    trades. Returns ``(close_ts, ci)`` on the device of ``timestamps``."""
+    n = timestamps.shape[0]
+    step = max(int(threshold), 1)
+    first = max(int(threshold) - 1, 1)
+    dev = timestamps.device
+    ci = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                    torch.arange(first, n, step, dtype=torch.int64, device=dev)])
+    return timestamps[ci], ci
 
 
 def dollar_bar_indexer_q(timestamps, price_ticks, amount_units, threshold,
@@ -74,3 +93,146 @@ def dollar_bar_indexer_q(timestamps, price_ticks, amount_units, threshold,
     count = int((b <= n - 1).sum())
     ci = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), b[:count]])
     return timestamps[ci], ci
+
+
+def volume_bar_indexer_q(timestamps, amount_units, threshold, amount_scale, *,
+                         scan=volume_scan):
+    """Integer-exact volume-bar indexer with reset-to-zero semantics
+    (``indexers.py:352-404``; the host loop ``native/seg_stats.cpp:183-194``):
+    the in-bar sum of the int64 ``amount_units`` starts with trade 0's, checks
+    start at trade 1, a bar closes at the first trade where the sum reaches
+    ``threshold / amount_scale`` units (compared exactly, as the integer
+    ``ceil`` of that), and the sum restarts at zero. ``scan`` defaults to
+    kernel E (``ops.event_scan.volume_scan``). Returns ``(close_ts, ci)``.
+    """
+    n = int(amount_units.shape[0])
+    dev = amount_units.device
+    thr_units = float(threshold) / float(amount_scale)
+    thr = math.ceil(thr_units)
+    total = float(int(amount_units.sum()))
+    # every bar holds at least thr units, so the buffer never fills
+    max_bars = n if thr_units <= 0 else min(max(int(total / thr_units) + 2, 2), n)
+    out = scan(amount_units, thr, max_bars)
+    ci = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), out])
+    return timestamps[ci], ci
+
+
+def cusum_scan_inputs(timestamps, prices, sigma, sigma_floor: float,
+                      sigma_mult: float, *, ffill=fast_ffill):
+    """The inputs of the CUSUM scan (``indexers.py:621-642``), in float64:
+    ``(rets, lam, can_close, first_valid, filled_sigma)``. ``rets[0] = 0``,
+    ``can_close[i]`` is false while ``timestamps[i] == timestamps[i+1]``, and
+    ``first_valid`` (a host int) is the first non-NaN sigma, 0 when there is
+    none."""
+    f64 = torch.float64
+    sig = sigma.to(f64)
+    isnan = torch.isnan(sig)
+    first_valid = int(torch.argmin(isnan.to(torch.uint8)))
+    sig_filled = ffill(sig, ~isnan)
+    lam = torch.maximum(sig_filled * float(sigma_mult),
+                        torch.tensor(float(sigma_floor), dtype=f64,
+                                     device=sig.device))
+    log_p = torch.log(prices.to(f64))
+    rets = torch.cat([torch.zeros(1, dtype=f64, device=log_p.device),
+                      torch.diff(log_p)])
+    can_close = torch.cat([timestamps[:-1] != timestamps[1:],
+                           torch.ones(1, dtype=torch.bool, device=timestamps.device)])
+    return rets, lam, can_close, first_valid, sig_filled
+
+
+def cusum_bar_indexer(timestamps, prices, sigma, sigma_floor: float,
+                      sigma_mult: float, max_bars: int | None = None, *,
+                      ffill=fast_ffill, scan=cusum_scan):
+    """CUSUM bar indexer with adaptive threshold and the same-print-block rule
+    (``indexers.py:600-657``; reference ``logic.py:152-221``), in float64.
+
+    NaN sigmas are forward-filled (``ffill``, kernel F by default) from the
+    first valid one; ``lam = max(sigma_mult * sigma, sigma_floor)``; the
+    symmetric CUSUM of the log returns starts after the first valid sigma; a
+    bar cannot close while ``timestamps[i] == timestamps[i+1]``; when s+
+    triggers only s+ resets, and vice versa (``scan``, kernel E by default).
+    ``max_bars`` caps the number of bars (a truncation); without it the
+    event buffer grows until every bar fits.
+
+    Returns ``(close_ts, ci, filled_sigma)``, ``ci[0]`` the first valid sigma.
+    """
+    n = prices.shape[0]
+    rets, lam, can_close, first_valid, sig_filled = cusum_scan_inputs(
+        timestamps, prices, sigma, sigma_floor, sigma_mult, ffill=ffill)
+    user_cap = max_bars is not None
+    mb = int(max_bars) if user_cap else max(min(n, 1 << 16), 2)
+    while True:
+        out = scan(rets, lam, can_close, first_valid, mb)
+        if user_cap or len(out) < mb or mb >= n:
+            break
+        mb = min(mb * 4, n)  # the buffer filled: grow it and scan again
+    ci = torch.cat([torch.tensor([first_valid], dtype=torch.int64,
+                                 device=timestamps.device), out])
+    return timestamps[ci], ci, sig_filled
+
+
+def _info_bar_indexer(timestamps, sides, weights, expected_ticks_init,
+                      expected_rate_init, alpha_ticks, alpha_rate, threshold,
+                      max_bars, run_mode, scan):
+    if threshold is not None:
+        if alpha_ticks or alpha_rate:
+            raise ValueError("threshold= selects fixed mode; EMA alphas must be 0")
+        expected_ticks_init, expected_rate_init = 1.0, float(threshold)
+    if expected_ticks_init is None or expected_rate_init is None:
+        raise ValueError("provide either threshold= or both "
+                         "expected_ticks_init= and expected_rate_init=")
+    f64 = torch.float64
+    w = sides.to(f64) if weights is None else sides.to(f64) * weights.to(f64)
+    n = w.shape[0]
+    user_cap = max_bars is not None
+    mb = int(max_bars) if user_cap else max(min(n, 1 << 16), 2)
+    while True:
+        out = scan(w, float(expected_ticks_init), float(expected_rate_init),
+                   float(alpha_ticks), float(alpha_rate), mb, run_mode)
+        count = len(out)
+        if user_cap or count < mb or mb >= n:
+            break   # a user max_bars is an explicit truncation
+        if mb >= max(n // 8, 2):
+            # theta = E[T] * E[rate] can adapt down to a bar per trade on
+            # driftless data; fail instead of scanning on (indexers.py:780-790)
+            raise ValueError(
+                f"info-bar threshold adapted into the every-trade "
+                f"regime (> {mb} bars over {n} trades); raise the "
+                f"initial expectations/alphas or pass max_bars=")
+        mb = min(mb * 4, n)
+    ci = torch.cat([torch.zeros(1, dtype=torch.int64, device=w.device), out])
+    return timestamps[ci], ci
+
+
+def imbalance_bar_indexer(timestamps, sides, weights=None, *, threshold=None,
+                          expected_ticks_init=None, expected_rate_init=None,
+                          alpha_ticks=0.0, alpha_rate=0.0, max_bars=None,
+                          scan=info_scan):
+    """Imbalance bars (tick, volume or dollar; ``indexers.py:796-820``): a bar
+    closes when the in-bar signed imbalance ``|sum(side * w)|`` reaches theta,
+    in float64.
+
+    ``sides`` are the ±1 signs (int8); ``weights`` None for tick imbalance,
+    the amounts for volume imbalance, price times amount for dollar
+    imbalance. ``threshold`` fixes theta (the alphas must be 0); otherwise
+    theta = E[T] * E[rate] from ``expected_ticks_init`` and
+    ``expected_rate_init``, EMA-updated at each close with ``alpha_ticks`` and
+    ``alpha_rate``. ``max_bars`` truncates; without it a ValueError is raised
+    once the bars pass n / 8. ``scan`` defaults to kernel E. Returns
+    ``(close_ts, ci)``.
+    """
+    return _info_bar_indexer(timestamps, sides, weights, expected_ticks_init,
+                             expected_rate_init, alpha_ticks, alpha_rate,
+                             threshold, max_bars, False, scan)
+
+
+def run_bar_indexer(timestamps, sides, weights=None, *, threshold=None,
+                    expected_ticks_init=None, expected_rate_init=None,
+                    alpha_ticks=0.0, alpha_rate=0.0, max_bars=None,
+                    scan=info_scan):
+    """Run bars (``indexers.py:823-835``): a bar closes when ``max(sum of the
+    buy w, sum of the sell w)`` within the bar reaches theta. Parameters as
+    in :func:`imbalance_bar_indexer`."""
+    return _info_bar_indexer(timestamps, sides, weights, expected_ticks_init,
+                             expected_rate_init, alpha_ticks, alpha_rate,
+                             threshold, max_bars, True, scan)

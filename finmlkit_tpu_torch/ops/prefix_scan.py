@@ -11,16 +11,21 @@ one launch. The TPU's ``(rows, 128)`` planes, block padding and hi/lo pairs
 
 Integer prefixes wrap modulo 2^32 or 2^64 (two's complement), as the TPU pair
 scans' do.
+
+Kernel F (``csrc/ffill.cu``) is the forward fill of ``fast_ffill``: it
+replaces ``_ffill_2d`` (K5), which moved float32 values as int32 bits through
+``(rows, 128)`` planes; here float32 and float64 move as their own bits.
 """
 import torch
 
 from .. import _build
 
 __all__ = ["fast_cumsum", "fast_cumsum_plain", "fast_cumsum_cols",
-           "fast_cumsum_cols_plain"]
+           "fast_cumsum_cols_plain", "fast_ffill", "fast_ffill_plain"]
 
-LAUNCHES = 0       # kernel S launches by fast_cumsum in this process
-COLS_LAUNCHES = 0  # kernel C launches by fast_cumsum_cols in this process
+LAUNCHES = 0        # kernel S launches by fast_cumsum in this process
+COLS_LAUNCHES = 0   # kernel C launches by fast_cumsum_cols in this process
+FFILL_LAUNCHES = 0  # kernel F launches by fast_ffill in this process
 
 _DTYPE_CODE = {torch.int32: 0, torch.int64: 1, torch.float32: 2,
                torch.float64: 3}
@@ -109,3 +114,55 @@ def fast_cumsum_cols(x: torch.Tensor) -> torch.Tensor:
     if x.numel():
         COLS_LAUNCHES += 1
     return _launch(x, x.shape[0], x.shape[1], "fast_cumsum_cols")
+
+
+def fast_ffill_plain(values: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fast_ffill`, on any device: the running
+    max of the valid positions and a gather (``finmlkit_tpu/bar/indexers.py:
+    633-635``)."""
+    n = values.shape[0]
+    if n == 0:
+        return values.clone()
+    idx = torch.arange(n, device=values.device)
+    last = torch.cummax(torch.where(valid, idx, -1), 0).values
+    return values[last.clamp(0, n - 1)]
+
+
+def fast_ffill(values: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Forward fill: ``out[i] = values[j]``, ``j`` the last position ``<= i``
+    where ``valid`` is true; positions before the first valid one take
+    ``values[0]`` (the reference's ``sig[clip(last_valid, 0, n - 1)]``).
+
+    ``values`` is a 1-D float32 or float64 tensor, ``valid`` a bool tensor of
+    its length. The output is a selection, equal to the input's bits. On a
+    CUDA tensor this launches kernel F; on a CPU tensor it runs
+    :func:`fast_ffill_plain`.
+    """
+    global FFILL_LAUNCHES
+    if values.dim() != 1 or values.dtype not in (torch.float32, torch.float64):
+        raise TypeError("fast_ffill takes a 1-D float32 or float64 tensor, got "
+                        f"{values.dtype} of shape {tuple(values.shape)}")
+    if valid.shape != values.shape or valid.dtype != torch.bool \
+            or valid.device != values.device:
+        raise ValueError("valid must be a bool tensor of the values' shape "
+                         "and device")
+    if values.device.type == "cpu":
+        return fast_ffill_plain(values, valid)
+    if values.device.type != "cuda":
+        raise ValueError(f"fast_ffill runs on cpu or cuda, not {values.device}")
+    values, valid = values.contiguous(), valid.contiguous()
+    out = torch.empty_like(values)
+    n = values.shape[0]
+    if n == 0:
+        return out
+    lib = _build.library()
+    tiles = (n + lib.fmk_ffill_tile() - 1) // lib.fmk_ffill_tile()
+    scratch = torch.empty(tiles, dtype=torch.int64, device=values.device)
+    FFILL_LAUNCHES += 1
+    with torch.cuda.device(values.device):
+        stream = torch.cuda.current_stream(values.device).cuda_stream
+        rc = lib.fmk_ffill(values.element_size(), values.data_ptr(),
+                           valid.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                           n, stream)
+    _build.check(rc, "fast_ffill")
+    return out

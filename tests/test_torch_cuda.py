@@ -1,4 +1,4 @@
-"""Kernels B, S and C on the card against their plain versions.
+"""Kernels B, S, C, F and E on the card against their plain versions.
 
 These tests need an NVIDIA GPU and ``nvcc``; elsewhere they skip. The card's
 host has no JAX, so run them there without the suite's conftest:
@@ -12,7 +12,7 @@ from finmlkit_tpu_torch.bar.aggregate_q import bar_trade_size_features
 from finmlkit_tpu_torch.bar.footprint_q import comp_bar_footprints_q
 from finmlkit_tpu_torch.bar.fused import median_pairs
 from finmlkit_tpu_torch.bar.indexers import dollar_bar_indexer_q
-from finmlkit_tpu_torch.ops import fused_scan, prefix_scan
+from finmlkit_tpu_torch.ops import event_scan, fused_scan, prefix_scan
 from finmlkit_tpu_torch.testing import adversarial_trades, assert_close, assert_exact
 
 pytestmark = pytest.mark.cuda
@@ -131,3 +131,101 @@ def test_order_flow_matches_plain(cuda, case):
                                    cumsum_cols=prefix_scan.fast_cumsum_cols_plain)
     for k in want:
         assert_exact(got[k], want[k], k)
+
+
+def _ffill_case(n, dtype, mask, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    v = torch.randn(n, dtype=dtype, device=device, generator=g)
+    v[::7] = float("nan")
+    if mask == "random":
+        m = torch.rand(n, device=device, generator=g) < 0.3
+    elif mask == "leading_invalid":
+        m = torch.rand(n, device=device, generator=g) < 0.3
+        m[:min(n, 5000)] = False
+    else:
+        m = torch.full((n,), mask == "all_valid", device=device)
+    return v, m
+
+
+@pytest.mark.parametrize("n", [1, 2047, 2048, 2049, 8193, 5_000_001])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mask", ["random", "leading_invalid", "all_valid",
+                                  "none_valid"])
+def test_ffill_matches_plain(cuda, dtype, n, mask):
+    v, m = _ffill_case(n, dtype, mask, cuda, n)
+    before = prefix_scan.FFILL_LAUNCHES
+    got = prefix_scan.fast_ffill(v, m)
+    assert prefix_scan.FFILL_LAUNCHES == before + 1
+    assert_exact(got, prefix_scan.fast_ffill_plain(v, m))
+
+
+def _sides(n, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    s = torch.where(torch.rand(n, device=device, generator=g) < 0.5, 1, -1)
+    return s.to(torch.float64), g
+
+
+@pytest.mark.parametrize("run_mode", [False, True], ids=["imbalance", "run"])
+@pytest.mark.parametrize("case", ["tick_fixed", "tick_ema", "volume_fixed",
+                                  "capped", "every_trade"])
+def test_info_scan_matches_plain(cuda, case, run_mode):
+    n = 1_000_003
+    w, g = _sides(n, cuda, 11)
+    args = (1.0, 30.0, 0.0, 0.0)
+    if case == "tick_ema":
+        args = (1000.0, 0.5 if run_mode else 0.03, 0.05, 0.05)
+    elif case == "volume_fixed":
+        w = w * torch.rand(n, dtype=torch.float64, device=cuda, generator=g)
+        args = (1.0, 7.5, 0.0, 0.0)
+    elif case == "every_trade":
+        n = 100_000
+        w, args = w[:n], (1.0, 1.0, 0.0, 0.0)
+    mb = 50 if case == "capped" else n
+    before = event_scan.LAUNCHES
+    got = event_scan.info_scan(w, *args, mb, run_mode)
+    assert event_scan.LAUNCHES == before + 1
+    want = event_scan.info_scan_plain(w, *args, mb, run_mode)
+    assert_exact(got, want)
+    assert len(want) > 25
+
+
+@pytest.mark.parametrize("thr", [1, 10**7, 10**9, 10**12])
+def test_volume_scan_matches_plain(cuda, thr):
+    n = 1_000_003
+    g = torch.Generator(device=cuda).manual_seed(thr % 1000)
+    units = torch.randint(0, 10**7, (n,), dtype=torch.int64, device=cuda,
+                          generator=g)
+    units[::50] = 10**9
+    mb = n if thr > 1 else 200_000      # thr 1: a bar per trade, capped
+    before = event_scan.LAUNCHES
+    got = event_scan.volume_scan(units, thr, mb)
+    assert event_scan.LAUNCHES == before + 1
+    assert_exact(got, event_scan.volume_scan_plain(units, thr, mb))
+
+
+@pytest.mark.parametrize("start", [0, 4097])
+@pytest.mark.parametrize("max_bars", [None, 30])
+def test_cusum_scan_matches_plain(cuda, start, max_bars):
+    n = 1_000_003
+    g = torch.Generator(device=cuda).manual_seed(start)
+    rets = torch.randn(n, dtype=torch.float64, device=cuda, generator=g) * 2e-5
+    rets[0] = 0.0
+    rets[300_000:300_500] = 1e-3        # a burst: many closes in one tile
+    lam = 1.2e-3 * (0.5 + torch.rand(n, dtype=torch.float64, device=cuda,
+                                     generator=g))
+    can_close = torch.rand(n, device=cuda, generator=g) < 0.9
+    mb = n if max_bars is None else max_bars
+    before = event_scan.LAUNCHES
+    got = event_scan.cusum_scan(rets, lam, can_close, start, mb)
+    assert event_scan.LAUNCHES == before + 1
+    want = event_scan.cusum_scan_plain(rets, lam, can_close, start, mb)
+    assert_exact(got, want)
+    assert len(want) > 25
+
+
+def test_event_scan_edges(cuda):
+    w = torch.ones(1, dtype=torch.float64, device=cuda)
+    assert event_scan.info_scan(w, 1.0, 1.0, 0.0, 0.0, 10, False).numel() == 0
+    u = torch.tensor([5, 1, 1, 7], dtype=torch.int64, device=cuda)
+    assert event_scan.volume_scan(u, 3, 10).tolist() == [1, 3]
+    assert event_scan.volume_scan(u, 3, 0).numel() == 0

@@ -1,0 +1,174 @@
+"""The bar kits of finmlkit_tpu_torch (dicts of tensors) against the JAX kits'
+DataFrames and FootprintData on the CPU, column by column, on the trades of
+``tests/conftest.generate_trades``.
+
+The JAX kits run as the CPU gives them: bar products from ``aggregate_q``,
+trade-size features from the native host pass (the float64 semantics), and
+footprints from the ``_q`` path. Volume and dollar kits are held against the
+integer rules the port implements, so the JAX side gets ``FMKT_INDEXER=
+device``; the CUSUM kit is held against both the native host loop and the
+device scan.
+
+Tolerances: close indices, timestamps, OHLCV and the integer directional
+columns exact. The four cumulative-imbalance extrema are float32 differences
+of stream-wide prefixes in the port, as in the TPU kernel it ports, and exact
+integers rounded once in ``aggregate_q``: within 2^-22 of the largest signed
+volume (dollar) prefix of the stream, two float32 ulps of it (measured: at
+most 1.24 half-ulps); against the JAX kit's fused path (``FMKT_FUSED=
+interpret``) they are exact.
+Trade-size features within rtol 1e-6 of the float64 path, footprints within
+the ``_q`` path's float32 rounding (``tests/test_torch_pipeline.py``).
+"""
+import numpy as np
+import pandas as pd
+import pytest
+import torch
+
+from finmlkit_tpu.bar import TradesData
+from finmlkit_tpu.bar import kit as jkit
+from finmlkit_tpu_torch.bar import kit
+from finmlkit_tpu_torch.testing import assert_close, assert_exact
+from tests.conftest import generate_trades
+from tests.test_torch_pipeline import assert_footprints_match_q
+
+N = 5000
+EXTREMA = {"cum_volume_min": "volume", "cum_volume_max": "volume",
+           "cum_dollars_min": "dollars", "cum_dollars_max": "dollars"}
+
+
+@pytest.fixture(scope="module")
+def trades():
+    return generate_trades(n=N, seed=1)
+
+
+def _sigma(n):
+    sigma = np.full(n, 5e-4)
+    sigma[:50] = np.nan
+    sigma[200:220] = np.nan
+    return sigma
+
+
+def _kits(name, trades):
+    """(JAX kit, port kit, FMKT_INDEXER for the JAX side) of one case."""
+    ts, px, amt, side = trades
+    td = TradesData(ts, px, amt, side=side)
+    vol_thr = float(amt.astype(np.float64).sum()) / 150
+    dol_thr = float((px * amt.astype(np.float64)).sum()) / 150
+    info = dict(expected_ticks_init=50.0, expected_rate_init=0.3,
+                alpha_ticks=0.1, alpha_rate=0.05)
+    cases = {
+        "time": (jkit.TimeBarKit, (td, pd.Timedelta(seconds=30)),
+                 kit.TimeBarKit, (30.0,), "auto"),
+        "tick": (jkit.TickBarKit, (td, 100), kit.TickBarKit, (100,), "auto"),
+        "volume": (jkit.VolumeBarKit, (td, vol_thr), kit.VolumeBarKit,
+                   (vol_thr,), "device"),
+        "dollar": (jkit.DollarBarKit, (td, dol_thr), kit.DollarBarKit,
+                   (dol_thr,), "device"),
+        "cusum_host": (jkit.CUSUMBarKit, (td, _sigma(N), 1e-4, 2.0),
+                       kit.CUSUMBarKit, (_sigma(N), 1e-4, 2.0), "auto"),
+        "cusum_device": (jkit.CUSUMBarKit, (td, _sigma(N), 1e-4, 2.0),
+                         kit.CUSUMBarKit, (_sigma(N), 1e-4, 2.0), "device"),
+        "imbalance_tick": (jkit.ImbalanceBarKit, (td,), kit.ImbalanceBarKit,
+                           (), "auto", dict(threshold=17.0)),
+        "imbalance_volume_ema": (jkit.ImbalanceBarKit, (td, "volume"),
+                                 kit.ImbalanceBarKit, ("volume",), "auto",
+                                 dict(expected_ticks_init=50.0,
+                                      expected_rate_init=0.03, alpha_ticks=0.1,
+                                      alpha_rate=0.05)),
+        "run_tick_ema": (jkit.RunBarKit, (td,), kit.RunBarKit, (), "auto", info),
+        "run_dollar": (jkit.RunBarKit, (td, "dollar"), kit.RunBarKit,
+                       ("dollar",), "auto", dict(threshold=300.0)),
+    }
+    jcls, jargs, pcls, pargs, backend, *kw = cases[name]
+    kw = kw[0] if kw else {}
+    return (lambda: jcls(*jargs, **kw),
+            pcls(ts, px, amt, side, *pargs, device="cpu", **kw), backend)
+
+
+CASES = ["time", "tick", "volume", "dollar", "cusum_host", "cusum_device",
+         "imbalance_tick", "imbalance_volume_ema", "run_tick_ema", "run_dollar"]
+
+
+def _index_ns(df):
+    return df.index.values.astype("datetime64[ns]").view(np.int64)
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_kit_matches_jax(trades, name, monkeypatch):
+    make_jax, pk, backend = _kits(name, trades)
+    monkeypatch.setenv("FMKT_INDEXER", backend)
+    jk = make_jax()
+    assert_exact(pk.bar_close_indices, np.asarray(jk.bar_close_indices), "ci")
+    assert_exact(pk.bar_close_timestamps, np.asarray(jk.bar_close_timestamps),
+                 "close_ts")
+    n_bars = len(jk.bar_close_indices)
+    assert n_bars > 10
+
+    o, po = jk.build_ohlcv(), pk.build_ohlcv()
+    assert_exact(po["timestamp"], _index_ns(o), "ohlcv index")
+    assert list(po)[1:] == list(o.columns)
+    for c in o.columns:
+        assert_exact(po[c], o[c].values, f"ohlcv.{c}")
+
+    d, pd_ = jk.build_directional_features(), pk.build_directional_features()
+    assert_exact(pd_["timestamp"], _index_ns(d), "directional index")
+    assert list(pd_)[1:] == list(d.columns)
+    ts, px, amt, side = trades
+    signed = side * amt.astype(np.float64)
+    prefix = {"volume": np.abs(np.cumsum(signed)).max(),
+              "dollars": np.abs(np.cumsum(signed * px)).max()}
+    for c in d.columns:
+        if c in EXTREMA:
+            assert_close(pd_[c], d[c].values, rtol=0.0,
+                         atol=2**-22 * prefix[EXTREMA[c]], what=f"directional.{c}")
+        else:
+            assert_exact(pd_[c], d[c].values, f"directional.{c}")
+
+    theta = o["median_trade_size"].values
+    t, pt = jk.build_trade_size_features(theta, 5.0), \
+        pk.build_trade_size_features(theta, 5.0)
+    assert_exact(pt["timestamp"], _index_ns(t), "trade size index")
+    for c in t.columns:
+        assert_close(pt[c], t[c].values, rtol=1e-6, what=f"trade size {c}")
+
+    f, pf = jk.build_footprints(), pk.build_footprints()
+    assert_exact(pf["timestamp"], np.asarray(f.bar_timestamps), "footprint ts")
+    assert_footprints_match_q(pf, {k: getattr(f, k) for k in pf if k != "timestamp"})
+
+    if name.startswith("cusum"):
+        assert_exact(pk.get_sigma(), np.asarray(jk.get_sigma()), "get_sigma")
+
+
+def test_kit_products_match_jax_fused_path(trades, monkeypatch):
+    # the JAX kit's fused path (the Pallas bar scan in interpret mode) is the
+    # one the port reproduces: every product column bit for bit
+    monkeypatch.setenv("FMKT_FUSED", "interpret")
+    make_jax, pk, _ = _kits("tick", trades)
+    jk = make_jax()
+    o, po = jk.build_ohlcv(), pk.build_ohlcv()
+    d, pd_ = jk.build_directional_features(), pk.build_directional_features()
+    for df, got in ((o, po), (d, pd_)):
+        for c in df.columns:
+            assert_exact(got[c], df[c].values, c)
+
+
+def test_kit_checks_inputs(trades):
+    ts, px, amt, side = trades
+    with pytest.raises(ValueError, match="tick grid"):
+        kit.TickBarKit(ts, px + np.random.default_rng(0).random(N) * 1e-7, amt,
+                       side, 100, device="cpu")
+    pk = kit.TickBarKit(ts, px, amt, None, 100, device="cpu")
+    assert pk.build_ohlcv()["close"].shape == (N // 100,)
+    with pytest.raises(ValueError, match="sides"):
+        pk.build_directional_features()
+    with pytest.raises(ValueError, match="sides"):
+        kit.ImbalanceBarKit(ts, px, amt, None, threshold=17.0, device="cpu")
+    with pytest.raises(ValueError, match="mode"):
+        kit.RunBarKit(ts, px, amt, side, "ticks", threshold=17.0, device="cpu")
+    with pytest.raises(ValueError, match="Theta"):
+        kit.TickBarKit(ts, px, amt, side, 100, device="cpu") \
+            .build_trade_size_features(np.ones(3))
+    # the default device is the card: without one, the copy fails
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            kit.TickBarKit(ts, px, amt, side, 100)

@@ -23,15 +23,22 @@ in float32 (ROADMAP R5): the flags and runs of bars with a level pair within
 ``pct_block`` of bars with a trade within 1e-4 of the block threshold
 (ROADMAP R5; see tests/test_torch_trade_size.py).
 """
+import math
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
-from chip_smoke import check_footprints_numpy, check_trade_size_numpy, synth_trades
+from chip_smoke import (CUSUM_FLOOR, CUSUM_MULT, IMB_THETA, INFO_TICKS, RUN_EMA,
+                        VOLUME_BARS, check_footprints_numpy,
+                        check_trade_size_numpy, cusum_rule_numpy, info_kits,
+                        info_sigma, run_info, synth_trades, threshold_rule_numpy)
+from finmlkit_tpu.bar import indexers as jax_idx
 from finmlkit_tpu.bar import aggregate, aggregate_q
 from finmlkit_tpu.bar import fused as jfused
 from finmlkit_tpu.bar.footprint import comp_bar_footprints
@@ -150,7 +157,8 @@ def test_import_leaves_out_jax_and_pandas():
         "import finmlkit_tpu_torch.bar.quantize, finmlkit_tpu_torch.sampling.filters\n"
         "import finmlkit_tpu_torch.label.tbm, finmlkit_tpu_torch.label.weights\n"
         "import finmlkit_tpu_torch.bar.footprint_q, finmlkit_tpu_torch.bar.aggregate_q\n"
-        "import finmlkit_tpu_torch.ops.segment\n"
+        "import finmlkit_tpu_torch.ops.segment, finmlkit_tpu_torch.ops.event_scan\n"
+        "import finmlkit_tpu_torch.bar.kit\n"
         "new = {m.split('.')[0] for m in set(sys.modules) - before}\n"
         "bad = new & {'jax', 'jaxlib', 'pandas', 'finmlkit_tpu'}\n"
         "assert 'torch' in sys.modules and not bad, bad\n")
@@ -213,6 +221,35 @@ def _dollar_port(ts, price, amount, side, thr, device="cpu"):
                 ts=tsf)
 
 
+def assert_footprints_match_q(fp, fpq, factor=3.0):
+    """The port's footprints (tensors) against the JAX ``_q`` path's (numpy)
+    within its float32 rounding (ROADMAP R5): the flags in float32 from
+    float32 sums, so the bars with a level pair within the volumes' rtol 1e-5
+    of the imbalance threshold are left out of the flag comparison."""
+    bv, sv = fp["buy_volumes"].double().numpy(), fp["sell_volumes"].double().numpy()
+    up, dn = bv[:, 1:], sv[:, :-1]
+    tie = ((np.abs(up - factor * dn) <= 1e-5 * np.maximum(up, factor * dn))
+           | (np.abs(dn - factor * up) <= 1e-5 * np.maximum(dn, factor * up))
+           ) & (up + dn > 0)
+    keep = ~tie.any(axis=1)
+    assert keep.mean() > 0.9
+    for k in ("low_level", "n_levels"):
+        assert_exact(fp[k].numpy().astype(np.int64), np.asarray(fpq[k], np.int64),
+                     f"_q {k}")
+    assert_exact(fp["buy_ticks"], fpq["buy_ticks"], "_q buy_ticks")
+    assert_exact(fp["sell_ticks"], fpq["sell_ticks"], "_q sell_ticks")
+    assert_exact(fp["cot_price_levels"], fpq["cot_price_levels"], "_q cot")
+    for k in ("buy_imbalances", "sell_imbalances", "imb_max_run_signed"):
+        assert_exact(fp[k].numpy()[keep], fpq[k][keep], f"_q {k}")
+    for k in ("buy_volumes", "sell_volumes"):
+        assert_close(fp[k], fpq[k], rtol=1e-5, atol=1e-5, what=f"_q {k}")
+    # the _q path's centred float32 vp_skew rounds by about 1e-7 per level
+    # (ROADMAP R5); the JAX package's 2e-4 is for bars of a few levels
+    skew_atol = np.maximum(2e-4, 2e-7 * fp["n_levels"].numpy())
+    assert np.all(np.abs(fp["vp_skew"].numpy() - fpq["vp_skew"]) <= skew_atol)
+    assert_close(fp["vp_gini"], fpq["vp_gini"], rtol=0.0, atol=2e-5, what="_q gini")
+
+
 def test_dollar_slice_matches_jax():
     ts, price, amount, side = synth_trades(N_DOLLAR, seed=1)
     thr = float((price * amount.astype(np.float64)).sum()) / BARS_DOLLAR
@@ -232,26 +269,7 @@ def test_dollar_slice_matches_jax():
             assert_close(fp[k], v, rtol=0.0, atol=1e-9, what=k)
         else:
             assert_exact(fp[k], v, k)
-    # the _q path flags in float32 from float32 sums (ROADMAP R5): leave out
-    # the bars with a pair within the volumes' rtol 1e-5 of the threshold
-    bv, sv = fp["buy_volumes"].double().numpy(), fp["sell_volumes"].double().numpy()
-    up, dn = bv[:, 1:], sv[:, :-1]
-    tie = ((np.abs(up - 3 * dn) <= 1e-5 * np.maximum(up, 3 * dn))
-           | (np.abs(dn - 3 * up) <= 1e-5 * np.maximum(dn, 3 * up))) & (up + dn > 0)
-    keep = ~tie.any(axis=1)
-    assert keep.mean() > 0.9
-    assert_exact(fp["buy_ticks"], fpq["buy_ticks"], "_q buy_ticks")
-    assert_exact(fp["sell_ticks"], fpq["sell_ticks"], "_q sell_ticks")
-    assert_exact(fp["cot_price_levels"], fpq["cot_price_levels"], "_q cot")
-    for k in ("buy_imbalances", "sell_imbalances", "imb_max_run_signed"):
-        assert_exact(fp[k].numpy()[keep], fpq[k][keep], f"_q {k}")
-    for k in ("buy_volumes", "sell_volumes"):
-        assert_close(fp[k], fpq[k], rtol=1e-5, atol=1e-5, what=f"_q {k}")
-    # the _q path's centred float32 vp_skew rounds by about 1e-7 per level
-    # (ROADMAP R5); the JAX package's 2e-4 is for bars of a few levels
-    skew_atol = np.maximum(2e-4, 2e-7 * fp["n_levels"].numpy())
-    assert np.all(np.abs(fp["vp_skew"].numpy() - fpq["vp_skew"]) <= skew_atol)
-    assert_close(fp["vp_gini"], fpq["vp_gini"], rtol=0.0, atol=2e-5, what="_q gini")
+    assert_footprints_match_q(fp, fpq)
     theta = np.asarray(want["ohlcv"]["median_trade_size"]) * 5.0
     ci = want["ci"]
     near = np.array([np.any(np.abs(amount[s + 1:e + 1] - theta[k]) <= 1e-4 * theta[k])
@@ -275,3 +293,89 @@ def test_dollar_host_checks_pass_on_the_port():
     cells, off = check_footprints_numpy(out, got["q"], amount, side)
     assert cells > 0 and off == 0
     check_trade_size_numpy(out, got["q"], amount)
+
+
+N_INFO = 200_000
+
+
+class _HostEvent:
+    """A stand-in for torch.cuda.Event on the CPU (chip_smoke.run_info)."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, other):
+        return (other.t - self.t) * 1e3
+
+
+def test_info_slice_matches_jax():
+    # chip_smoke.py phase 7 at 200k trades on the CPU: the five kits' close
+    # indices against the JAX indexers, and phase 7's host rule checks on
+    # the port's outputs
+    ts, price, amount, side = synth_trades(N_INFO, seed=2)
+    month = dict(n=N_INFO, ts=ts, price=price, amount=amount, side=side,
+                 sigma=info_sigma(N_INFO))
+    out, stages = run_info(info_kits(month, device="cpu"), _HostEvent)
+    assert set(stages["cusum"]) == {"index", "products", "trade size+footprints"}
+    q = jax_quantize_trades(price, amount)
+    tsj, sdj = jnp.asarray(ts), jnp.asarray(side)
+    vol_thr = float(amount.astype(np.float64).sum()) / VOLUME_BARS
+    want = {
+        "tick": jax_idx.tick_bar_indexer(tsj, INFO_TICKS)[1],
+        "volume": jax_idx.volume_bar_indexer_q(
+            tsj, jnp.asarray(q.amount_units), vol_thr, q.amount_scale)[1],
+        "cusum": jax_idx.cusum_bar_indexer(
+            tsj, jnp.asarray(price), jnp.asarray(month["sigma"]), CUSUM_FLOOR,
+            CUSUM_MULT)[1],
+        "imbalance": jax_idx.imbalance_bar_indexer(tsj, sdj, threshold=IMB_THETA)[1],
+        "run": jax_idx.run_bar_indexer(tsj, sdj, **RUN_EMA)[1],
+    }
+    for name, ci in want.items():
+        ci = np.asarray(ci)
+        assert_exact(out[name]["closes"], ci[1:], f"{name} closes")
+        assert len(ci) > 50, name
+        assert_exact(out[name]["ohlcv"]["timestamp"], ts[ci[1:]], f"{name} ts")
+    cis = {name: np.asarray(ci) for name, ci in want.items()}
+    threshold_rule_numpy(np.cumsum(q.amount_units), cis["volume"],
+                         math.ceil(vol_thr / q.amount_scale), "volume", base0=0)
+    threshold_rule_numpy(np.cumsum(side.astype(np.int64)), cis["imbalance"],
+                         IMB_THETA, "imbalance", absolute=True)
+    assert cusum_rule_numpy(ts, price, month["sigma"], cis["cusum"]) == 0
+    fp = out["cusum"]["footprints"]
+    assert fp["buy_volumes"].shape[0] == len(cis["cusum"]) - 1
+    for v in out["cusum"]["trade_size"].values():
+        assert bool(torch.isfinite(v).all())
+
+
+def test_info_host_checks_catch_wrong_closes():
+    # the rule checks of phase 7 fail on close indices moved by one trade
+    ts, price, amount, side = synth_trades(20_000, seed=3)
+    prefix = np.cumsum(side.astype(np.int64))
+    _, ci = jax_idx.imbalance_bar_indexer(jnp.asarray(ts), jnp.asarray(side),
+                                          threshold=IMB_THETA)
+    ci = np.asarray(ci)
+    threshold_rule_numpy(prefix, ci, IMB_THETA, "imbalance", absolute=True)
+    for k in (1, len(ci) // 2, len(ci) - 1):
+        bad = ci.copy()
+        bad[k] += 1
+        with pytest.raises(SystemExit):
+            threshold_rule_numpy(prefix, bad, IMB_THETA, "moved", absolute=True)
+    sigma = info_sigma(20_000)
+    _, cc, _ = jax_idx.cusum_bar_indexer(jnp.asarray(ts), jnp.asarray(price),
+                                         jnp.asarray(sigma), CUSUM_FLOOR, 10.0)
+    cc = np.asarray(cc)
+    assert len(cc) > 10
+    import chip_smoke
+    mult = chip_smoke.CUSUM_MULT
+    try:
+        chip_smoke.CUSUM_MULT = 10.0
+        assert cusum_rule_numpy(ts, price, sigma, cc) == 0
+        bad = cc.copy()
+        bad[5] -= 1
+        with pytest.raises(SystemExit):
+            cusum_rule_numpy(ts, price, sigma, bad)
+    finally:
+        chip_smoke.CUSUM_MULT = mult
