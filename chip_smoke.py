@@ -2,14 +2,14 @@
 """Smoke run of finmlkit_tpu_torch on one NVIDIA GPU.
 
 Builds the package's CUDA kernels from ``finmlkit_tpu_torch/csrc`` and drives
-the port's three paths once at full size on a month of synthetic trades (the
+the port's paths once at full size on a month of synthetic trades (the
 generator of ``bench.py``, 39,171,929 trades at seed 0): the time-bar path
 (1-minute time bars -> bar products and medians -> CUSUM events ->
 triple-barrier labels -> uniqueness and return-attribution weights), the
 order-flow path of ``bench.py`` config 2 (dollar bars at total dollars /
 40000 -> bar products and medians -> dense footprints -> trade-size
-features) and the information-driven bars of config 6 through the kits.
-Phases:
+features), the information-driven bars of config 6 through the kits, and the
+time bars' products through every median engine and bar scan. Phases:
 
 1. environment: torch, CUDA, nvcc, triton, the card's name and power limit;
 2. build the kernels (``build/finmlkit_tpu_torch/``);
@@ -19,7 +19,12 @@ Phases:
    beside rows that do not), float32 rtol 1e-5, float64 rtol 1e-12;
 4. kernel B and the medians against their plain versions on adversarial
    streams (empty, single-trade and side-0 trades, ci[0] >= 0, units above
-   2^31, a bar of about 1M trades): exact;
+   2^31, a bar of about 1M trades): exact; the hist and select engines
+   (kernels H and F) against their plain versions and their brackets against
+   the sort engine's on non-empty bars, the full planes (kernels C and V)
+   against their plain version and their products against B's on non-empty
+   bars, every engine and scan's finals against the default's: exact; B, H
+   and V timed on one bar of the 1M trades alone;
 5. the time-bar path through the kernels and through the plain versions on
    the card: bars, integers, medians and finals exact, labels and touch
    indices exact, weights within rtol 1e-12 of their prefix magnitude; each
@@ -46,11 +51,24 @@ Phases:
    numpy; F launched once and E at least four times; kernel F against its
    plain version on the month's sigma and phase 3's lengths, kernel E's four
    scans alone; stage times, peak device memory. B, S and C are timed here
-   when phases 5 and 6 are skipped.
+   when phases 5 and 6 are skipped;
+8. the engines on the month's 1-minute time bars (phase 5's close indices,
+   or recomputed): ``bar_products_final`` with the median engines sort, hist
+   and select times the scans rowtail (kernel B) and planes (kernels C and
+   V), finals bit-identical to the default's; H launched 9 times a hist call,
+   F 4 times a select call, V once and C twice a planes call; kernel H
+   against its plain version on every pass of the run, F's int32 fill on
+   every fill of the select engine, the planes against the plain planes and
+   their products against B's on non-empty bars, all exact; the floor probes
+   P1, P2 (k = 1, 2, 4, 8) and P3 (kernel P) against ``torch.sum``, exact;
+   each kernel alone timed with its bound, each engine and scan's stage time
+   and peak device memory. B, S and C are timed here when no earlier phase
+   timed them.
 
 Run from the repository root: ``python3 chip_smoke.py``; ``--phases 1,2,6``
 runs only the order-flow path, ``--phases 1,2,7`` only the information-driven
-bars, and ``--profile`` adds, after phase 6, the
+bars, ``--phases 1,2,8`` only the engines, and ``--profile`` adds, after
+phase 6, the
 footprint features' own time, a ``torch.profiler`` table of one run of the
 order-flow path and its device idle share. Any failure exits non-zero
 before the last line. The last line is
@@ -78,6 +96,10 @@ IMB_THETA = 30.0          # imbalance bars, tick mode, fixed theta (:914-915)
 RUN_EMA = dict(expected_ticks_init=1000.0, expected_rate_init=0.5,
                alpha_ticks=0.05, alpha_rate=0.05)          # run bars (:935-938)
 FFILL_MASKS = ("all_valid", "none_valid", "leading_invalid")
+# phase 8: the median engines and bar scans of bar_products_final
+ENGINES = ("sort", "hist", "select")
+SCANS = ("rowtail", "planes")
+IO_FLOOR_K = (1, 2, 4, 8)
 # the least time of a kernel: its bytes (each input read once, each output
 # written once) at the H100 SXM's 3.35 TB/s, or its operations at its float32
 # vector peak of 67 TFLOP/s (NVIDIA's data sheet), whichever is larger; every
@@ -86,8 +108,42 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 
 
+# name, source in finmlkit_tpu_torch/csrc and the functions it replaces (the
+# TPU kernels' defs, file:line) of each kernel of the ``kernels`` line
+KERNELS = {
+    "B": ("B bar_products (replaces K1a v4 and K1b v2; serves K1d v3)",
+          "bar_products.cu", "finmlkit_tpu/ops/fused_scan.py:1261, :1319 and :1288"),
+    "S": ("S prefix_scan (replaces K2 and K3)", "prefix_scan.cu",
+          "finmlkit_tpu/ops/pallas_scan.py:141 and :182"),
+    "C": ("C prefix_scan_rows (replaces K4a and K4b; K1c's prefixes)",
+          "prefix_scan.cu", "finmlkit_tpu/ops/pallas_scan.py:249 and :287"),
+    "F": ("F ffill (replaces K5; L1 in its int32 mode)", "ffill.cu",
+          "finmlkit_tpu/ops/pallas_scan.py:84 and finmlkit_tpu/ops/segment_select.py:73"),
+    "E": ("E event_scan (the four boundary scans; replaces XLA while_loops, not "
+          "a TPU kernel)", "event_scan.cu",
+          "finmlkit_tpu/bar/indexers.py:368, :508 and :680"),
+    "H": ("H segment_hist (replaces H1 and H2)", "segment_hist.cu",
+          "finmlkit_tpu/ops/segment_hist.py:106 and :167"),
+    "V": ("V bar_planes with C's prefixes (replaces K1c)", "bar_planes.cu",
+          "finmlkit_tpu/ops/fused_scan.py:1342"),
+    "P": ("P io_floor (replaces P1, P2 and P3)", "io_floor.cu",
+          "finmlkit_tpu/ops/fused_scan.py:1185, :1213 and :1236"),
+}
+
+
 def say(msg):
     print(msg, flush=True)
+
+
+def kernel_entry(key, launches, err, ms, plain_ms, bound_ms, library_ms, **extra):
+    """One kernel's entry of the ``kernels`` line; ``bound_ms`` is a
+    ``bound()`` pair."""
+    name, source, replaces = KERNELS[key]
+    return {"name": name, "route": "cuda",
+            "source": f"finmlkit_tpu_torch/csrc/{source}", "replaces": replaces,
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms[0], "bound_by": bound_ms[1],
+            "library_ms": library_ms, **extra}
 
 
 def bound(nbytes, ops):
@@ -246,17 +302,81 @@ def phase_products():
         pa, pb = median_pairs(amounts, ci, cumsum=fast_cumsum_plain)
         assert_exact(ma, pa, f"median a {c}")
         assert_exact(mb, pb, f"median b {c}")
+        check_engines_and_planes(ticks, units, sides, amounts, ci, str(c))
         counts = np.diff(arrs[4])
         say(f"  B case {c}: {len(counts)} bars ({int((counts == 0).sum())} "
             f"empty, {int((counts == 1).sum())} single, longest "
             f"{int(counts.max())}), units max {int(arrs[1].max())}: exact")
-    say("phase 4 ok: B and medians == plain on every adversarial case")
+    say("phase 4 ok: B and medians == plain, the hist and select engines and the "
+        "full planes == plain and == sort / B, every engine and scan's finals "
+        "== the default's, on every adversarial case")
+    long_bar_times(cases[0]["long_bar"])
+
+
+def check_engines_and_planes(ticks, units, sides, amounts, ci, what):
+    """The hist and select engines and the full planes on one stream: against
+    their plain versions everywhere, the brackets against the sort engine's
+    and the planes' products against kernel B's on non-empty bars, and every
+    engine and scan's finals against the default's. All exact."""
+    from finmlkit_tpu_torch.bar.fused import (bar_products_final, median_engine,
+                                              median_pairs, planes_products)
+    from finmlkit_tpu_torch.ops.fused_scan import (bar_scan_planes,
+                                                   bar_scan_planes_plain,
+                                                   bar_scan_products)
+    from finmlkit_tpu_torch.testing import assert_exact
+    ne = ci[1:] > ci[:-1]
+    sort = median_pairs(amounts, ci)
+    for m in ("hist", "select"):
+        got = median_engine(m)(amounts, ci)
+        want = median_engine(m, plain=True)(amounts, ci)
+        for name, a, b, c in zip(("a", "b"), got, want, sort):
+            assert_exact(a, b, f"{m} med_{name} vs plain, {what}")
+            assert_exact(a[ne], c[ne], f"{m} med_{name} vs sort, {what}")
+    planes = bar_scan_planes(ticks, units, sides, ci)
+    for name, a, b in zip(("pre64", "pre32", "ext32", "extf"), planes,
+                          bar_scan_planes_plain(ticks, units, sides, ci)):
+        assert_exact(a, b, f"planes {name} vs plain, {what}")
+    del planes
+    for a, b in zip(planes_products(ticks, units, sides, ci),
+                    bar_scan_products(ticks, units, sides, ci)):
+        assert_exact(a[:, ne], b[:, ne], f"planes products vs B, {what}")
+    kw = dict(tick_size=0.1, amount_scale=1e-8, amounts_f32=amounts)
+    ref = bar_products_final(ticks, units, ci, sides, **kw)
+    for m in ENGINES:
+        for sc in SCANS:
+            scan = planes_products if sc == "planes" else bar_scan_products
+            got = bar_products_final(ticks, units, ci, sides, medians=m, scan=scan, **kw)
+            for part, want in zip(got, ref):
+                for key in want:
+                    assert_exact(part[key], want[key], f"{m}/{sc} finals {key}, {what}")
+
+
+def long_bar_times(n_long):
+    """Kernels B, H (one histogram pass, one less pass) and V on one bar of
+    ``n_long`` trades: one block walks it alone."""
+    import torch
+    from finmlkit_tpu_torch.ops.fused_scan import bar_planes_extrema, bar_scan_products
+    from finmlkit_tpu_torch.ops import segment_hist as sh
+    from finmlkit_tpu_torch.testing import adversarial_trades
+    ticks, units, sides, amounts, _ = (torch.from_numpy(a).cuda() for a in
+                                       adversarial_trades(n=n_long, seed=1))
+    ci = torch.tensor([-1, n_long - 1], device="cuda")
+    bits = amounts.view(torch.int32)
+    zero = torch.zeros(1, dtype=torch.int32, device="cuda")
+    # H's launches without the wrapper's check of ci (the engine checks once)
+    t = {"B": cuda_ms(lambda: bar_scan_products(ticks, units, sides, ci)),
+         "H hist pass": cuda_ms(lambda: sh._launch_hist(bits, ci, zero, 28)),
+         "H less pass": cuda_ms(lambda: sh._launch_less(bits, ci, bits[:1])),
+         "V": cuda_ms(lambda: bar_planes_extrema(ticks, units, sides, ci))}
+    say(f"one bar of {n_long:,} trades, one block each (ms): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in t.items()) + f"; B's bytes bound "
+        f"{bound(13 * n_long, 0)[0]:.4f} ms")
 
 
 def run_slice(tr, ts_first, ts_last, plain=False):
     """The main path on device tensors; returns outputs and stage times (ms)."""
     import torch
-    from finmlkit_tpu_torch.bar.fused import bar_products_final
+    from finmlkit_tpu_torch.bar.fused import bar_products_final, median_engine
     from finmlkit_tpu_torch.bar.indexers import time_bar_indexer
     from finmlkit_tpu_torch.label.tbm import triple_barrier
     from finmlkit_tpu_torch.label.weights import average_uniqueness, return_attribution
@@ -279,7 +399,7 @@ def run_slice(tr, ts_first, ts_last, plain=False):
                                       tick_size=tr.tick_size,
                                       amount_scale=tr.amount_scale,
                                       amounts_f32=tr.amounts, scan=scan,
-                                      cumsum=cumsum)
+                                      medians=median_engine("sort", plain=plain))
     mark()
     n_bars = ci.shape[0] - 1
     close, bar_ts = ohlcv["close"], clock[1:n_bars + 1]
@@ -407,6 +527,7 @@ def phase_month(card, month):
 
     # --- the outputs are right: shapes, finite values, numpy on sampled bars ---
     ci = k_out["ci"]
+    month["ci_time"] = ci                 # phase 8 takes the same bars
     n_bars, n_ev = ci.shape[0] - 1, len(k_out["events"])
     o = k_out["ohlcv"]
     for key in ("open", "high", "low", "close", "volume", "vwap", "median_trade_size"):
@@ -488,18 +609,8 @@ def kernels_b_s(card, tr, ci, launches, s_inputs=()):
         f"ms vs plain {s_plain:.3f} ms, torch.cumsum {s_lib:.3f} ms, bound "
         f"{s_bound[0]:.3f} ms [{card}]")
     return {
-        "B": {"name": "B bar_products (replaces K1a v4 and K1b v2)",
-              "route": "cuda", "source": "finmlkit_tpu_torch/csrc/bar_products.cu",
-              "replaces": "finmlkit_tpu/ops/fused_scan.py:1261",
-              "launches": launches["B"], "max_abs_err": b_err, "ms": b_ms,
-              "plain_ms": b_plain, "bound_ms": b_bound[0],
-              "bound_by": b_bound[1], "library_ms": None},
-        "S": {"name": "S prefix_scan (replaces K2 and K3)", "route": "cuda",
-              "source": "finmlkit_tpu_torch/csrc/prefix_scan.cu",
-              "replaces": "finmlkit_tpu/ops/pallas_scan.py:141",
-              "launches": launches["S"], "max_abs_err": s_err, "ms": s_ms,
-              "plain_ms": s_plain, "bound_ms": s_bound[0],
-              "bound_by": s_bound[1], "library_ms": s_lib},
+        "B": kernel_entry("B", launches["B"], b_err, b_ms, b_plain, b_bound, None),
+        "S": kernel_entry("S", launches["S"], s_err, s_ms, s_plain, s_bound, s_lib),
     }
 
 
@@ -527,12 +638,8 @@ def kernel_c(card, tr, ci, low_t, launches):
         f"plain {c_plain['int32']:.3f} ms; int64 {c_ms['int64']:.3f} ms vs "
         f"plain {c_plain['int64']:.3f} ms, torch.cumsum(x, 1) {c_lib:.3f} ms, "
         f"bound {c_bound[0]:.3f} ms [{card}]")
-    return {"name": "C prefix_scan_rows (replaces K4a and K4b)", "route": "cuda",
-            "source": "finmlkit_tpu_torch/csrc/prefix_scan.cu",
-            "replaces": "finmlkit_tpu/ops/pallas_scan.py:249 and :287",
-            "launches": launches["C"], "max_abs_err": c_err, "ms": c_ms["int64"],
-            "plain_ms": c_plain["int64"], "bound_ms": c_bound[0],
-            "bound_by": c_bound[1], "library_ms": c_lib}
+    return kernel_entry("C", launches["C"], c_err, c_ms["int64"], c_plain["int64"],
+                        c_bound, c_lib)
 
 
 def run_dollar(tr, thr, plain=False):
@@ -540,7 +647,7 @@ def run_dollar(tr, thr, plain=False):
     import torch
     from finmlkit_tpu_torch.bar.aggregate_q import bar_trade_size_features
     from finmlkit_tpu_torch.bar.footprint_q import bar_footprints
-    from finmlkit_tpu_torch.bar.fused import bar_products_final
+    from finmlkit_tpu_torch.bar.fused import bar_products_final, median_engine
     from finmlkit_tpu_torch.bar.indexers import dollar_bar_indexer_q
     from finmlkit_tpu_torch.ops import fused_scan, prefix_scan
     scan = fused_scan.bar_scan_products_plain if plain else fused_scan.bar_scan_products
@@ -562,7 +669,7 @@ def run_dollar(tr, thr, plain=False):
                                       tick_size=tr.tick_size,
                                       amount_scale=tr.amount_scale,
                                       amounts_f32=tr.amounts, scan=scan,
-                                      cumsum=cumsum)
+                                      medians=median_engine("sort", plain=plain))
     mark()
     fp = bar_footprints(tr.ticks, tr.amounts, ci, tr.sides, ohlcv,
                         tick_size=tr.tick_size, imbalance_factor=3.0,
@@ -1089,12 +1196,7 @@ def kernel_f(card, sigma, launches):
         f"{list(SCAN_LENGTHS)} x float32/float64 x {list(FFILL_MASKS)}; F on "
         f"the month {f_ms:.3f} ms vs plain {f_plain:.3f} ms, bound "
         f"{f_bound[0]:.3f} ms [{card}]")
-    return {"name": "F ffill (replaces K5)", "route": "cuda",
-            "source": "finmlkit_tpu_torch/csrc/ffill.cu",
-            "replaces": "finmlkit_tpu/ops/pallas_scan.py:84",
-            "launches": launches["F"], "max_abs_err": 0.0, "ms": f_ms,
-            "plain_ms": f_plain, "bound_ms": f_bound[0],
-            "bound_by": f_bound[1], "library_ms": None}
+    return kernel_entry("F", launches["F"], 0.0, f_ms, f_plain, f_bound, None)
 
 
 def kernel_e(card, tr, price, sigma, thr_units, counts, launches,
@@ -1139,19 +1241,274 @@ def kernel_e(card, tr, price, sigma, thr_units, counts, launches,
     say("kernel E alone (ms, kernel | plain): " + ", ".join(
         f"{k} {e_ms[k]:.2f} | {e_plain[k]:.1f}" for k in scans)
         + f"; bound of the four {e_bound[0]:.3f} ms [{card}]")
-    return {"name": "E event_scan (the four boundary scans; replaces XLA "
-                    "while_loops, not a TPU kernel)", "route": "cuda",
-            "source": "finmlkit_tpu_torch/csrc/event_scan.cu",
-            "replaces": "finmlkit_tpu/bar/indexers.py:368, :508 and :680",
-            "launches": launches["E"], "max_abs_err": e_err,
-            "ms": sum(e_ms.values()), "plain_ms": sum(e_plain.values()),
-            "bound_ms": e_bound[0], "bound_by": e_bound[1], "library_ms": None}
+    return kernel_entry("E", launches["E"], e_err, sum(e_ms.values()),
+                        sum(e_plain.values()), e_bound, None)
+
+
+def phase_engines(card, month, need):
+    """Phase 8: the month's time bars through every median engine and bar
+    scan, the kernels of each against their plain versions, each kernel
+    alone, and the floor probes. ``need`` names the kernels of B, S and C
+    that no earlier phase timed. Returns the engines path's launches, the
+    ``kernels`` entries, and the floor probes' launches."""
+    import torch
+    from finmlkit_tpu_torch.bar.fused import (bar_products_final, gather_planes,
+                                              planes_products)
+    from finmlkit_tpu_torch.bar.indexers import time_bar_indexer
+    from finmlkit_tpu_torch.ops import fused_scan as fs
+    from finmlkit_tpu_torch.ops import prefix_scan as ps
+    from finmlkit_tpu_torch.ops import segment_hist as sh
+    from finmlkit_tpu_torch.ops.segment_select import segment_median_pair_select
+    from finmlkit_tpu_torch.testing import assert_exact
+    tr, ts = month["tr"], month["ts"]
+    ci = month.get("ci_time")
+    if ci is None:
+        ci = time_bar_indexer(tr.timestamps, 60.0, ts_first=int(ts[0]),
+                              ts_last_i=int(ts[-1]))[1]
+    n, nb = tr.ticks.shape[0], ci.shape[0] - 1
+    trade_args = (tr.ticks, tr.units, tr.sides, ci)
+    kw = dict(tick_size=tr.tick_size, amount_scale=tr.amount_scale,
+              amounts_f32=tr.amounts)
+    scans = {"rowtail": fs.bar_scan_products, "planes": planes_products}
+    combos = [(m, sc) for m in ENGINES for sc in SCANS]
+
+    def run(m, sc):
+        return bar_products_final(tr.ticks, tr.units, ci, tr.sides, medians=m,
+                                  scan=scans[sc], **kw)
+
+    def counters():
+        return {"B": fs.LAUNCHES, "S": ps.LAUNCHES, "C": ps.COLS_LAUNCHES,
+                "F": ps.FFILL_LAUNCHES + ps.FILL_LAST_LAUNCHES,
+                "H": sh.LAUNCHES, "V": fs.PLANES_LAUNCHES}
+
+    def timed(m, sc):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        out = run(m, sc)
+        b.record()
+        torch.cuda.synchronize()
+        return out, a.elapsed_time(b)
+
+    for m, sc in combos:                       # warm: allocator, caches
+        run(m, sc)
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    fs.LAUNCHES = fs.PLANES_LAUNCHES = sh.LAUNCHES = 0
+    ps.LAUNCHES = ps.COLS_LAUNCHES = ps.FFILL_LAUNCHES = ps.FILL_LAST_LAUNCHES = 0
+    outs, per, peak, ms = {}, {}, {}, {}
+    for m, sc in combos:                       # the path's counted run
+        before = counters()
+        torch.cuda.reset_peak_memory_stats()
+        outs[(m, sc)], t = timed(m, sc)
+        ms[(m, sc)] = [t]
+        peak[(m, sc)] = torch.cuda.max_memory_allocated()
+        per[(m, sc)] = {k: v - before[k] for k, v in counters().items()}
+    launches = counters()
+    for (m, sc), got in per.items():
+        want = {"B": int(sc == "rowtail"), "S": int(m in ("sort", "select")),
+                "C": 2 * (sc == "planes"), "F": 4 * (m == "select"),
+                "H": 9 * (m == "hist"), "V": int(sc == "planes")}
+        if got != want:
+            fail(f"engines {m}/{sc} launched {got}, expected {want}")
+    ref = outs[("sort", "rowtail")]
+    for key_ in combos[1:]:
+        for part, want in zip(outs[key_], ref):
+            for key in want:
+                assert_exact(part[key], want[key], f"{key_[0]}/{key_[1]} finals {key}")
+    o = ref[0]
+    if int(o["trades"].sum()) != n \
+            or not bool(torch.isfinite(o["median_trade_size"]).all()):
+        fail("engine finals do not cover the month or have non-finite medians")
+    del outs
+    for _ in range(2):                         # stage times, median of 3
+        for key_ in combos:
+            ms[key_].append(timed(*key_)[1])
+    say(f"engines: {nb:,} time bars, launches {launches} (per call as expected: "
+        f"H 9 a hist call, F 4 a select call, V 1 and C 2 a planes call); every "
+        f"engine and scan's finals == sort/rowtail's bit for bit")
+    say("engine stage ms (bar_products_final, median of 3) and peak device "
+        "memory above the trades: " + "; ".join(
+            f"{m}/{sc} {float(np.median(ms[(m, sc)])):.2f} ms "
+            f"{(peak[(m, sc)] - base_mem) / 2**30:.2f} GiB" for m, sc in combos)
+        + f" [{card}]")
+
+    # --- kernel H on every pass of the month's hist engine, exact ---
+    bits = tr.amounts.view(torch.int32)
+    passes, less_v = [], []
+
+    def hist_checked(bits_, ci_, base, s_):
+        got = sh.hist_pass(bits_, ci_, base, s_)
+        assert_exact(got, sh.hist_pass_plain(bits_, ci_, base, s_), f"H pass s={s_}")
+        passes.append((base.clone(), s_))
+        return got
+
+    def less_checked(bits_, ci_, v):
+        got = sh.less_pass(bits_, ci_, v)
+        for a, b in zip(got, sh.less_pass_plain(bits_, ci_, v)):
+            assert_exact(a, b, "H less pass")
+        less_v.append(v.clone())
+        return got
+
+    sh.segment_median_pair_hist(tr.amounts, ci, hist=hist_checked, less=less_checked)
+
+    def h_all(hist, less):
+        for base, s_ in passes:
+            hist(bits_c, ci_c, base, s_)
+        less(bits_c, ci_c, less_v[0])
+
+    # the kernel alone: ci checked once here, outside the timed window, as the
+    # engine does once a call; the checked wrappers wait for the card each time
+    bits_c, ci_c = sh._check_ci(bits, ci, "phase 8")
+    h_ms = cuda_ms(lambda: h_all(sh._launch_hist, sh._launch_less))
+    h_pass_ms = {"hist pass": cuda_ms(lambda: sh._launch_hist(bits_c, ci_c, *passes[0])),
+                 "less pass": cuda_ms(lambda: sh._launch_less(bits_c, ci_c, less_v[0]))}
+    h_wrapped = cuda_ms(lambda: h_all(sh.hist_pass, sh.less_pass))
+    h_plain = cuda_ms(lambda: h_all(sh.hist_pass_plain, sh.less_pass_plain), reps=2)
+    bar_of = torch.searchsorted(ci[1:].contiguous(), torch.arange(n, device=ci.device))
+    keys = [bar_of * 16 + (((bits - base[bar_of]) >> s_) & 15) for base, s_ in passes]
+    del bar_of
+    h_lib = cuda_ms(lambda: [torch.bincount(k_, minlength=nb * 16) for k_ in keys])
+    del keys
+    h_bound = bound(9 * 4 * n + 9 * 8 * (nb + 1) + 8 * 64 * nb + 8 * nb, 17 * 8 * n)
+    say(f"kernel H == plain on all 8 passes and the less pass of the month; the "
+        f"9 launches {h_ms:.3f} ms (first hist pass {h_pass_ms['hist pass']:.3f}, "
+        f"less pass {h_pass_ms['less pass']:.3f}; through the wrappers, which "
+        f"check ci each time, {h_wrapped:.3f}) vs plain {h_plain:.3f} ms, 8 "
+        f"torch.bincount of precomputed keys {h_lib:.3f} ms, bound "
+        f"{h_bound[0]:.3f} ms [{card}]")
+
+    # --- kernel F's int32 fill on every fill of the select engine, exact ---
+    fills = []
+
+    def fill_checked(v, m_):
+        got = ps.fill_last(v, m_)
+        assert_exact(got, ps.fill_last_plain(v, m_), f"F int32 fill {len(fills)}")
+        fills.append((v, m_))
+        return got
+
+    segment_median_pair_select(tr.amounts, ci, fill=fill_checked)
+    fv, fm = fills[-1]
+    f_ms = cuda_ms(lambda: ps.fill_last(fv, fm))
+    f_plain = cuda_ms(lambda: ps.fill_last_plain(fv, fm))
+    f_bound = bound(9 * n, n)
+    n_fills = len(fills)
+    del fills, fv, fm
+    say(f"kernel F int32 == fill_last_plain on the select engine's {n_fills} fills; "
+        f"one fill {f_ms:.3f} ms vs plain {f_plain:.3f} ms, bound "
+        f"{f_bound[0]:.3f} ms [{card}]")
+
+    # --- the planes (kernels C and V) against the plain planes, exact ---
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    planes = fs.bar_scan_planes(*trade_args)
+    torch.cuda.synchronize()
+    planes_peak = torch.cuda.max_memory_allocated()
+    plain = fs.bar_scan_planes_plain(*trade_args)
+    torch.cuda.synchronize()
+    plain_peak = torch.cuda.max_memory_allocated()
+    for name, a, b in zip(("pre64", "pre32", "ext32", "extf"), planes, plain):
+        assert_exact(a, b, f"V planes {name}")
+    del plain
+    ne = ci[1:] > ci[:-1]
+    for a, b in zip(gather_planes(planes, tr.ticks, ci), fs.bar_scan_products(*trade_args)):
+        assert_exact(a[:, ne], b[:, ne], "planes products vs B")
+    del planes
+    v_ms = cuda_ms(lambda: fs.bar_scan_planes(*trade_args))
+    v_plain = cuda_ms(lambda: fs.bar_scan_planes_plain(*trade_args), reps=2)
+    v_alone = cuda_ms(lambda: fs.bar_planes_extrema(*trade_args))
+    # the planes: 13 bytes a trade in, 6 int64 + 3 int32 prefixes and 5 int32 +
+    # 4 float32 extrema out (96 bytes a trade); V alone writes 36 of them
+    v_bound = bound(13 * n + 8 * (nb + 1) + 96 * n, 60 * n)
+    v_alone_bound = bound(13 * n + 8 * (nb + 1) + 36 * n, 40 * n)
+    say(f"planes == plain planes bit for bit, products == B on {int(ne.sum()):,} "
+        f"non-empty bars; bar_scan_planes (C twice, V once) {v_ms:.3f} ms vs "
+        f"plain {v_plain:.3f} ms, bound {v_bound[0]:.3f} ms; V alone {v_alone:.3f} "
+        f"ms, bound {v_alone_bound[0]:.3f} ms; peak device memory "
+        f"{(planes_peak - base_mem) / 2**30:.2f} GiB above the trades for the "
+        f"planes, {(plain_peak - base_mem) / 2**30:.2f} GiB with the plain planes "
+        f"[{card}]")
+
+    kernels = {
+        "H": kernel_entry("H", launches["H"], 0.0, h_ms, h_plain, h_bound, h_lib,
+                          h_pass_ms=h_pass_ms, h_wrapped_ms=h_wrapped),
+        "V": kernel_entry("V", launches["V"], 0.0, v_ms, v_plain, v_bound, None,
+                          v_alone_ms=v_alone, v_alone_bound_ms=v_alone_bound[0]),
+        "F": kernel_entry("F", launches["F"], 0.0, f_ms, f_plain, f_bound, None,
+                          int32_fill_ms=f_ms, int32_fill_plain_ms=f_plain,
+                          int32_fill_bound_ms=f_bound[0]),
+    }
+    if "C" in need:
+        in64, _ = fs.planes_prefix_inputs(*trade_args)
+        c_ms = cuda_ms(lambda: ps.fast_cumsum_cols(in64))
+        c_plain = cuda_ms(lambda: ps.fast_cumsum_cols_plain(in64), reps=2)
+        c_lib = cuda_ms(lambda: torch.cumsum(in64, 1), reps=2)
+        c_err = float((ps.fast_cumsum_cols(in64) - ps.fast_cumsum_cols_plain(in64))
+                      .abs().max())
+        del in64
+        c_bound = bound(2 * 48 * n, 6 * n)
+        say(f"kernel C (6, {n:,}) int64: {c_ms:.3f} ms vs plain {c_plain:.3f} ms, "
+            f"torch.cumsum(x, 1) {c_lib:.3f} ms, bound {c_bound[0]:.3f} ms [{card}]")
+        kernels["C"] = kernel_entry("C", launches["C"], c_err, c_ms, c_plain,
+                                    c_bound, c_lib)
+    if need & {"B", "S"}:
+        kernels.update(kernels_b_s(card, tr, ci, launches))
+
+    # --- the floor probes (kernel P): their own path, then alone ---
+    streams = fs.prep_planes_plain(*trade_args)
+    stack = torch.stack(streams)
+    torch.cuda.synchronize()
+    fs.IO_FLOOR_LAUNCHES = 0
+    got = {"P1": fs.bar_scan_io_floor(*streams),
+           **{f"P2 k={k}": fs.bar_scan_io_floor_k(streams[0], k) for k in IO_FLOOR_K},
+           "P3": fs.bar_scan_io_floor_stacked(stack)}
+    floor_launches = {"P": fs.IO_FLOOR_LAUNCHES}
+    if floor_launches["P"] != 2 + len(IO_FLOOR_K):
+        fail(f"the floor probes launched P {floor_launches['P']} times")
+    want = {"P1": fs.io_floor_plain(streams),
+            **{f"P2 k={k}": fs.io_floor_plain([streams[0]] * k) for k in IO_FLOOR_K},
+            "P3": fs.io_floor_plain(stack)}
+    for key in want:
+        assert_exact(got[key], want[key], key)
+    del got, want
+    p_ms = {"P1": cuda_ms(lambda: fs.bar_scan_io_floor(*streams)),
+            **{f"P2 k={k}": cuda_ms(lambda k=k: fs.bar_scan_io_floor_k(streams[0], k))
+               for k in IO_FLOOR_K},
+            "P3": cuda_ms(lambda: fs.bar_scan_io_floor_stacked(stack))}
+    # the bytes that reach device memory: P2 reads its one stream k times, but
+    # the repeats of a 16-byte load come from cache, so it moves 8 bytes a trade
+    p_bytes = {"P1": 36 * n, **{f"P2 k={k}": 8 * n for k in IO_FLOOR_K},
+               "P3": 36 * n}
+    p_plain = cuda_ms(lambda: fs.io_floor_plain(streams))
+    p_lib = cuda_ms(lambda: torch.sum(stack, 0, dtype=torch.int32))
+    p2_plain = {k: cuda_ms(lambda k=k: fs.io_floor_plain([streams[0]] * k))
+                for k in IO_FLOOR_K}
+    p2_lib = {k: cuda_ms(lambda k=k: torch.sum(streams[0].expand(k, n), 0,
+                                               dtype=torch.int32))
+              for k in IO_FLOOR_K}
+    p_bound = bound(36 * n, 8 * n)
+    say("kernel P == torch.sum on P1, P2 (k = " + ", ".join(map(str, IO_FLOOR_K))
+        + ") and P3; ms (and GB/s): " + ", ".join(
+            f"{k} {v:.3f} ({p_bytes[k] / v / 1e6:,.0f})" for k, v in p_ms.items())
+        + "; P2's plain (ms) " + ", ".join(f"{v:.3f}" for v in p2_plain.values())
+        + ", torch.sum of the expanded stream " + ", ".join(
+            f"{v:.3f}" for v in p2_lib.values())
+        + f"; P1's plain {p_plain:.3f} ms, torch.sum(x, 0) on the (8, n) stack "
+        f"{p_lib:.3f} ms ({36 * n / p_lib / 1e6:,.0f} GB/s), bound {p_bound[0]:.3f} "
+        f"ms at the data sheet's 3.35 TB/s [{card}]")
+    del streams, stack
+    kernels["P"] = kernel_entry(
+        "P", floor_launches["P"], 0.0, p_ms["P1"], p_plain, p_bound, p_lib,
+        p2_ms={str(k): p_ms[f"P2 k={k}"] for k in IO_FLOOR_K}, p3_ms=p_ms["P3"],
+        p2_plain_ms={str(k): v for k, v in p2_plain.items()},
+        p2_library_ms={str(k): v for k, v in p2_lib.items()})
+    return launches, kernels, floor_launches
 
 
 def main():
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--profile", action="store_true",
                     help="after phase 6, time the footprint features alone "
@@ -1181,11 +1538,13 @@ def main():
         for name, n in launches.items():
             if name in kernels:                 # timed by an earlier phase
                 kernels[name]["launches"] += n
+                for key, value in entries.get(name, {}).items():
+                    kernels[name].setdefault(key, value)  # e.g. F's int32 fill
             else:
                 kernels[name] = dict(entries[name], launches_by_path={})
             kernels[name]["launches_by_path"][path] = n
 
-    month = make_month(N_MONTH) if phases & {5, 6, 7} else None
+    month = make_month(N_MONTH) if phases & {5, 6, 7, 8} else None
     if 5 in phases:
         entries = phase_month(card, month)
         merge("time", {k: v["launches"] for k, v in entries.items()}, entries)
@@ -1195,6 +1554,11 @@ def main():
     if 7 in phases:
         need = {"B", "S", "C"} - set(kernels)
         merge("info", *phase_info(card, month, need))
+    if 8 in phases:
+        need = {"B", "S", "C"} - set(kernels)
+        launches, entries, floor_launches = phase_engines(card, month, need)
+        merge("engines", launches, entries)
+        merge("floor", floor_launches, entries)
     say(f"smoke run: {time.perf_counter() - t_start:.1f} s, the kernels' build "
         f"included")
     if kernels:

@@ -18,7 +18,17 @@ compiled by ``nvcc`` for ``sm_90a`` at first use (``_build.py``) and bound with
 - kernel **F** (``csrc/ffill.cu``, ``ops.prefix_scan.fast_ffill``): the
   forward fill of the CUSUM bars' sigma;
 - kernel **E** (``csrc/event_scan.cu``, ``ops.event_scan``): the CUSUM,
-  imbalance, run and volume bar boundary scans, one launch each.
+  imbalance, run and volume bar boundary scans, one launch each;
+- kernel **H** (``csrc/segment_hist.cu``, ``ops.segment_hist``): the
+  per-bar histogram and "less" passes of the hist median engine;
+- kernel **V** (``csrc/bar_planes.cu``, ``ops.fused_scan.bar_scan_planes``):
+  every trade's in-bar running extrema, the full planes with kernel C's
+  prefixes;
+- kernel **P** (``csrc/io_floor.cu``, ``ops.fused_scan.bar_scan_io_floor``):
+  the streaming-floor probes.
+
+Kernel F's int32 mode (``ops.prefix_scan.fill_last``) serves the radix-select
+median engine (``ops.segment_select``).
 
 A wrapper given a CPU tensor runs its kernel's plain PyTorch version; given a
 CUDA tensor it launches the kernel or raises.

@@ -30,9 +30,13 @@ _SIGNATURES = {
     "fmk_prefix_scan_rows": [ctypes.c_int, _P, _P, _P, _I64, _I64, _P],
     "fmk_bar_products": [_P, _P, _P, _P, _I64, _I64, _P, _P, _P, _P],
     "fmk_ffill_tile": [],
-    "fmk_ffill": [ctypes.c_int, _P, _P, _P, _P, _I64, _P],
+    "fmk_ffill": [ctypes.c_int, _P, _P, _P, _P, _I64, ctypes.c_int, _P],
     "fmk_event_scan": [ctypes.c_int, _P, _P, _P, _P, _I64, _I64, _F64, _F64,
                        _F64, _F64, _I64, _P, _I64, _P, _P],
+    "fmk_hist_pass": [_P, _P, _P, ctypes.c_int, _I64, _P, _P],
+    "fmk_less_pass": [_P, _P, _P, _I64, _P, _P, _P],
+    "fmk_bar_planes": [_P, _P, _P, _P, _I64, _I64, _P, _P, _P],
+    "fmk_io_floor": [_P] * 8 + [ctypes.c_int, _P, _I64, _P],
 }
 
 _lib = None

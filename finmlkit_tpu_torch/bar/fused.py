@@ -5,29 +5,40 @@ Counterpart of ``bar_products_final_device`` in ``finmlkit_tpu/bar/fused.py``,
 with the same ``(ohlcv, directional)`` dictionaries, as tensors on the device
 of the trades. Its stages:
 
-1. kernel B (``ops.fused_scan.bar_scan_products``) reads the trades and writes
-   the per-bar integer and float32 products;
-2. :func:`median_pairs` gives the two middle trade sizes of every bar: bar ids
-   from kernel S over the bar-open marks, one ``torch.sort`` of the composite
-   key ``(bar_id << 32) | sortable_bits(amount)``, and two closed-form gathers
-   (``ops/segment.py``);
+1. the bar scan (``scan``) reads the trades and writes the per-bar integer
+   and float32 products: kernel B (``ops.fused_scan.bar_scan_products``) by
+   default, or :func:`planes_products`, the full running state of every
+   trade (kernels C and V) gathered at the bar boundaries, as the JAX
+   package's ``scan="planes"`` (``fused_packed_device``);
+2. a median engine (``medians``) gives the two middle trade sizes of every
+   bar: ``"sort"`` (:func:`median_pairs`: bar ids from kernel S over the
+   bar-open marks, one ``torch.sort`` of the composite key ``(bar_id << 32)
+   | sortable_bits(amount)``, two closed-form gathers; ``ops/segment.py``),
+   ``"hist"`` (``ops/segment_hist.py``, kernel H) or ``"select"``
+   (``ops/segment_select.py``, kernel F's int32 fill);
 3. :func:`bar_finals` converts to float64 and float32 units over the n_bars
    values, in the expression order of ``_fused_packed_final_jit`` and
    ``_assemble_final`` (``finmlkit_tpu/bar/fused.py:526-637``), so the finals
-   are bit-identical to the JAX package's.
+   are bit-identical to the JAX package's, whatever the scan and the engine.
 
-There are no ``(rows, 128)`` planes, no packed readback buffers and no row
-widths: the TPU needed them, this device does not.
+There are no packed readback buffers and no row widths: the TPU needed them,
+this device does not.
 """
+from functools import partial
+
 import torch
 
+from ..ops import fused_scan, prefix_scan, segment_hist
 from ..ops.fused_scan import F32BIG, I32MAX, I32MIN, bar_scan_products
 from ..ops.prefix_scan import fast_cumsum
 from ..ops.segment import (bar_ids_from_close_indices, segment_median_pair,
                            sorted_segments)
+from ..ops.segment_select import segment_median_pair_select
 
-__all__ = ["bar_products_final", "median_pairs", "bar_finals"]
-
+__all__ = ["bar_products_final", "median_pairs", "bar_finals", "median_engine",
+           "median_sort_device", "median_rowsort_device", "median_select_device",
+           "median_hist_device", "gather_planes", "planes_products",
+           "planes_products_plain", "MEDIAN_ENGINES"]
 
 def median_pairs(amounts_f32: torch.Tensor, ci: torch.Tensor, *,
                  cumsum=fast_cumsum):
@@ -127,17 +138,124 @@ def bar_finals(p64, p32, pf, med, ci, tick_size: float, amount_scale: float):
     return ohlcv, directional
 
 
+def median_sort_device(amounts_f32, ci, *, plain=False):
+    """The one-sort engine (:func:`median_pairs`): kernel S for the bar ids,
+    or its plain version with ``plain=True``."""
+    return median_pairs(amounts_f32, ci, cumsum=prefix_scan.fast_cumsum_plain
+                        if plain else fast_cumsum)
+
+
+def median_rowsort_device(amounts_f32, ci, *, plain=False):
+    """The JAX package's default engine sorts independent rows of the trades
+    with an adaptive width, a workaround for the TPU's comparator-network
+    sort, and gives the same brackets as one flat sort. Here it is the
+    one-sort engine, :func:`median_sort_device`."""
+    return median_sort_device(amounts_f32, ci, plain=plain)
+
+
+def median_hist_device(amounts_f32, ci, *, plain=False):
+    """The histogram-select engine (``ops/segment_hist.py``): kernel H, or
+    its plain versions with ``plain=True``. Exact for nonnegative amounts."""
+    if plain:
+        return segment_hist.segment_median_pair_hist(
+            amounts_f32, ci, hist=segment_hist.hist_pass_plain,
+            less=segment_hist.less_pass_plain)
+    return segment_hist.segment_median_pair_hist(amounts_f32, ci)
+
+
+def median_select_device(amounts_f32, ci, *, plain=False):
+    """The radix-select engine (``ops/segment_select.py``): kernel F's int32
+    fill and kernel S, or their plain versions with ``plain=True``. Exact for
+    nonnegative amounts."""
+    if plain:
+        return segment_median_pair_select(amounts_f32, ci,
+                                          fill=prefix_scan.fill_last_plain,
+                                          cumsum=prefix_scan.fast_cumsum_plain)
+    return segment_median_pair_select(amounts_f32, ci)
+
+
+_ENGINES = {"sort": median_sort_device, "rowsort": median_rowsort_device,
+            "hist": median_hist_device, "select": median_select_device}
+MEDIAN_ENGINES = tuple(_ENGINES)
+
+
+def median_engine(name: str, *, plain: bool = False):
+    """The median engine called ``name``, as a function ``(amounts_f32, ci)
+    -> (med_a, med_b)``: ``"sort"`` (the default; exact for any float),
+    ``"rowsort"`` (the same sort), ``"hist"`` or ``"select"`` (exact for
+    nonnegative amounts). ``plain=True`` runs the engine's plain versions.
+    ``"host"`` (the JAX package's threaded native ``nth_element``) is not
+    ported and raises, as does any other name."""
+    if name == "host":
+        raise NotImplementedError(
+            'medians="host" (native nth_element on the host) is not ported: '
+            "ROADMAP.md queue 1, item 10 (host-only layers)")
+    if name not in _ENGINES:
+        raise ValueError(f"unknown median engine {name!r}; choose one of "
+                         f"{MEDIAN_ENGINES}")
+    return partial(_ENGINES[name], plain=plain)
+
+
+def gather_planes(planes, ticks, ci):
+    """Per-bar products ``(p64, p32, pf)``, in kernel B's layout, from the
+    running state of every trade (:func:`ops.fused_scan.bar_scan_planes`):
+    prefix differences at the bar boundaries and the running extrema at each
+    bar's last trade. Counterpart of ``_gather_post``
+    (``finmlkit_tpu/bar/fused.py:99-154``).
+
+    An empty bar gathers the running extrema of the trade before it, as the
+    JAX package does (kernel B writes sentinels there); the finals mask both.
+    Its sums are 0: a prefix at close index -1 counts as 0, where the JAX
+    gather clamps it to trade 0.
+    """
+    pre64, pre32, ext32, extf = planes
+    n = ticks.shape[0]
+    a, e = ci[:-1], ci[1:]
+    ec = e.clamp(0, n - 1)
+
+    def at(p, pos):
+        return torch.where(pos >= 0, p[:, pos.clamp(0, n - 1)],
+                           torch.zeros((), dtype=p.dtype, device=p.device))
+
+    s64 = at(pre64, e) - at(pre64, a)     # bu, su, bd, sd, tu, td
+    s32 = at(pre32, e) - at(pre32, a)     # tb, ts, sp (int32, wrapping)
+    x32 = ext32[:, ec]                    # high, low, spmax, ctmin, ctmax
+    p64 = s64[[4, 5, 0, 1, 2, 3]]
+    p32 = torch.stack([ticks[(a + 1).clamp(0, n - 1)], x32[0], x32[1],
+                       ticks[ec], s32[0], s32[1], s32[2], x32[2], x32[3],
+                       x32[4]])
+    return p64, p32, extf[:, ec]
+
+
+def planes_products(ticks, units, sides, ci):
+    """Per-bar products through the full planes (kernels C and V on CUDA
+    tensors), with :func:`bar_scan_products`'s signature and layout: the
+    ``scan`` of :func:`bar_products_final` that the kits call ``"planes"``."""
+    return gather_planes(fused_scan.bar_scan_planes(ticks, units, sides, ci),
+                         ticks, ci)
+
+
+def planes_products_plain(ticks, units, sides, ci):
+    """:func:`planes_products` through the plain planes, on any device."""
+    return gather_planes(fused_scan.bar_scan_planes_plain(ticks, units, sides, ci),
+                         ticks, ci)
+
+
 def bar_products_final(ticks, units, ci, sides, *, tick_size, amount_scale,
-                       amounts_f32, scan=bar_scan_products, cumsum=fast_cumsum):
+                       amounts_f32, scan=bar_scan_products, medians="sort"):
     """OHLCV + directional features of every bar, as two dicts of tensors.
 
     ``ticks`` int32, ``units`` int64, ``sides`` int8 and ``amounts_f32``
     float32 are per trade; ``ci`` int64 holds the close indices (bar k spans
-    trades ``(ci[k], ci[k+1]]``). ``scan`` and ``cumsum`` are the two kernel
-    entry points; they default to kernels B and S (their plain versions on
-    CPU tensors), and passing ``bar_scan_products_plain`` and
-    ``fast_cumsum_plain`` runs the plain path on any device.
+    trades ``(ci[k], ci[k+1]]``). ``scan`` computes the per-bar products:
+    kernel B by default, :func:`planes_products` for the full planes, or
+    either's plain version. ``medians`` is an engine function ``(amounts_f32,
+    ci) -> (med_a, med_b)``, such as ``median_engine(name, plain=True)``, or
+    the name of an engine's kernel path (:func:`median_engine`). On CPU
+    tensors every kernel entry point runs its plain version; passing the
+    plain versions runs the plain path on any device.
     """
     p64, p32, pf = scan(ticks, units, sides, ci)
-    med = median_pairs(amounts_f32, ci, cumsum=cumsum)
-    return bar_finals(p64, p32, pf, med, ci, tick_size, amount_scale)
+    engine = median_engine(medians) if isinstance(medians, str) else medians
+    return bar_finals(p64, p32, pf, engine(amounts_f32, ci), ci, tick_size,
+                      amount_scale)

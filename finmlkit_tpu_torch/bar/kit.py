@@ -11,9 +11,11 @@ A kit quantizes the trades on the host (``bar/quantize.py``) and copies them
 to its device once. Prices off a tick grid raise: the JAX kits' float64
 fallback (``bar/aggregate.py`` and the float64 indexers) is not ported. The
 TPU's bucket padding of trades and bars (a compile-cache workaround) and the
-``FMKT_*`` switches (TPU dispatch) do not cross: every kit runs the kernels
-of the port, or with ``plain=True`` their plain PyTorch versions (the
-reference the kernels are held against).
+``FMKT_*`` environment switches (TPU dispatch) do not cross: every kit runs
+the kernels of the port, or with ``plain=True`` their plain PyTorch versions
+(the reference the kernels are held against). The median engine and the bar
+scan that ``FMKT_MEDIANS`` and ``FMKT_SCAN`` select in the JAX kits are the
+keyword arguments ``medians`` and ``scan`` here.
 """
 from abc import ABC, abstractmethod
 
@@ -25,7 +27,8 @@ from ..ops import event_scan, fused_scan, prefix_scan
 from . import indexers
 from .aggregate_q import bar_trade_size_features
 from .footprint_q import bar_footprints
-from .fused import bar_products_final
+from .fused import (bar_products_final, median_engine, planes_products,
+                    planes_products_plain)
 from .quantize import quantize_trades
 
 __all__ = ["BarBuilderBase", "TimeBarKit", "TickBarKit", "VolumeBarKit",
@@ -33,6 +36,11 @@ __all__ = ["BarBuilderBase", "TimeBarKit", "TickBarKit", "VolumeBarKit",
 
 _OHLCV = ("open", "high", "low", "close", "volume", "trades",
           "median_trade_size", "vwap")
+# bar scan name -> (kernel path, plain version)
+_ROWTAIL = (fused_scan.bar_scan_products, fused_scan.bar_scan_products_plain)
+_SCANS = {"rowtail": _ROWTAIL, "rowtail4": _ROWTAIL,
+          "planes": (planes_products, planes_products_plain)}
+SCANS = tuple(_SCANS)
 
 
 class BarBuilderBase(ABC):
@@ -44,10 +52,19 @@ class BarBuilderBase(ABC):
     ``sides`` int8 (+1 buy, -1 sell; None when unknown) are host arrays of
     one length. ``device`` is where the kit works ("cuda" unless the caller
     asks for the CPU); ``plain`` runs every kernel's plain version instead.
+
+    ``medians`` names the bar products' median engine (``bar/fused.py
+    median_engine``): "sort" (the default; exact for any amount), "rowsort"
+    (the same sort), "hist" (kernel H) or "select" (kernel F's int32 fill);
+    the last two are exact for nonnegative amounts. ``scan`` names the bar
+    scan: "rowtail" (the default) or "rowtail4" (both kernel B, as the JAX
+    kits' two rowtail kernels compute one function) or "planes" (the
+    running state of every trade, kernels C and V, gathered at the bars).
+    An unknown name raises, and so does "host" (not ported).
     """
 
     def __init__(self, timestamps, prices, amounts, sides=None, *,
-                 device="cuda", plain=False):
+                 device="cuda", plain=False, medians="sort", scan="rowtail"):
         ts = np.ascontiguousarray(timestamps, dtype=np.int64)
         px = np.ascontiguousarray(prices, dtype=np.float64)
         amt = np.ascontiguousarray(amounts, dtype=np.float32)
@@ -69,6 +86,10 @@ class BarBuilderBase(ABC):
         self._prices = None
         self._ts_first, self._ts_last = int(ts[0]), int(ts[-1])
         self._plain = bool(plain)
+        if scan not in _SCANS:
+            raise ValueError(f"unknown bar scan {scan!r}; choose one of {SCANS}")
+        self._bar_scan = _SCANS[scan][self._plain]
+        self._medians = median_engine(medians, plain=self._plain)
         self._close_ts = None
         self._ci = None
         self._products = None
@@ -82,11 +103,6 @@ class BarBuilderBase(ABC):
     def _cumsum_cols(self):
         return (prefix_scan.fast_cumsum_cols_plain if self._plain
                 else prefix_scan.fast_cumsum_cols)
-
-    @property
-    def _bar_scan(self):
-        return (fused_scan.bar_scan_products_plain if self._plain
-                else fused_scan.bar_scan_products)
 
     def _event_scan(self, name: str):
         return getattr(event_scan, f"{name}_plain" if self._plain else name)
@@ -127,7 +143,7 @@ class BarBuilderBase(ABC):
             self._products = bar_products_final(
                 t.ticks, t.units, self._ci, t.sides, tick_size=t.tick_size,
                 amount_scale=t.amount_scale, amounts_f32=t.amounts,
-                scan=self._bar_scan, cumsum=self._cumsum)
+                scan=self._bar_scan, medians=self._medians)
         return self._products
 
     def build_ohlcv(self) -> dict:

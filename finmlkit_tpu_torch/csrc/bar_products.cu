@@ -29,82 +29,23 @@
 // the per-tile block scan. A bar longer than one tile runs its tiles in order
 // inside one block, so one very long bar serialises that block.
 //
-// Bit-exactness with the TPU:
-// - the float32 imbalance values are rounded from int64 in two steps,
-//   hi * 2^32 + float(lo) (fused_scan.py:148-153, bar/fused.py:249-257), with
-//   explicit round-to-nearest intrinsics so that no FMA contraction changes a
-//   result;
-// - "prev" of trade i is trade i-1, wrapping to trade n-1 for i == 0 (the
-//   jnp.roll of _prep_planes), and does not reset at bar starts;
-// - a single-trade bar's spread counts when its side != 0;
-// - int32 sums wrap mod 2^32 like the TPU's int32 prefixes.
+// Bit-exactness with the TPU: see bar_scan.cuh, which kernel V shares.
 #include <climits>
 #include <cuda_runtime.h>
 
+#include "bar_scan.cuh"
+
 namespace {
+
+using fmk::kF32Big;
+using fmk::kFull;
+using fmk::Run;
+using fmk::u64;
 
 constexpr int kThreads = 256;
 constexpr int kItems = 4;
 constexpr int kTile = kThreads * kItems;  // trades per tile
 constexpr int kWarps = kThreads / 32;
-constexpr unsigned kFull = 0xffffffffu;
-constexpr float kF32Big = 3.0e38f;  // bar/fused.py _F32BIG
-typedef unsigned long long u64;
-
-// int64 -> float32 as the TPU kernel's _pair_to_f32: hi*2^32 + f32(lo).
-__device__ __forceinline__ float pair_f32(u64 x) {
-  const int hi = static_cast<int>(static_cast<long long>(x) >> 32);
-  const int lo = static_cast<int>(static_cast<unsigned>(x & 0xffffffffull));
-  const float lo_f =
-      __fadd_rn(__int2float_rn(lo), lo < 0 ? 4294967296.0f : 0.0f);
-  return __fadd_rn(__fmul_rn(__int2float_rn(hi), 4294967296.0f), lo_f);
-}
-
-// Running in-bar imbalances: volume units, dollar units, ticks.
-struct Run {
-  u64 cv, cd;
-  unsigned ct;
-};
-
-__device__ __forceinline__ Run add(Run a, Run b) {
-  return {a.cv + b.cv, a.cd + b.cd, a.ct + b.ct};
-}
-
-__device__ __forceinline__ Run shfl_up(Run v, int o) {
-  return {__shfl_up_sync(kFull, v.cv, o), __shfl_up_sync(kFull, v.cd, o),
-          __shfl_up_sync(kFull, v.ct, o)};
-}
-
-// Block-wide exclusive scan of one Run per thread; *total gets the block sum.
-__device__ Run block_exclusive_scan(Run v, Run* warp_tot, Run* total) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const Run zero = {0ull, 0ull, 0u};
-  Run x = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const Run y = shfl_up(x, o);
-    if (lane >= o) x = add(x, y);
-  }
-  Run excl = shfl_up(x, 1);
-  if (lane == 0) excl = zero;
-  if (lane == 31) warp_tot[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    Run w = lane < kWarps ? warp_tot[lane] : zero;
-#pragma unroll
-    for (int o = 1; o < kWarps; o <<= 1) {
-      const Run y = shfl_up(w, o);
-      if (lane >= o) w = add(w, y);
-    }
-    if (lane < kWarps) warp_tot[lane] = w;
-  }
-  __syncthreads();
-  const Run base = warp > 0 ? warp_tot[warp - 1] : zero;
-  *total = warp_tot[kWarps - 1];
-  __syncthreads();
-  return add(base, excl);
-}
 
 // Per-thread, then per-block, accumulators of one bar.
 struct Bar {
@@ -181,45 +122,34 @@ bar_products_kernel(const int* __restrict__ ticks,
       Run c = {0ull, 0ull, 0u};
       traded[j] = false;
       if (i <= e) {
-        const int tk = ticks[i];
-        const u64 u = static_cast<u64>(units[i]);
-        const signed char sd = sides[i];
-        const long long ip = i == 0 ? n - 1 : i - 1;
-        const int ptk = ticks[ip];
-        const signed char psd = sides[ip];
-        const u64 d = static_cast<u64>(static_cast<long long>(tk)) * u;
-        acc.vol += u;
-        acc.dol += d;
-        if (sd == 1) {
-          acc.vb += u; acc.db += d; acc.tb += 1;
-          c = {u, d, 1u};
-        } else if (sd == -1) {
-          acc.vs += u; acc.ds += d; acc.ts += 1;
-          c = {0ull - u, 0ull - d, 0u - 1u};
+        const fmk::Trade t = fmk::load_trade(ticks, units, sides, i, n, single);
+        acc.vol += t.units;
+        acc.dol += t.dollars;
+        if (t.side == 1) {
+          acc.vb += t.units; acc.db += t.dollars; acc.tb += 1;
+        } else if (t.side == -1) {
+          acc.vs += t.units; acc.ds += t.dollars; acc.ts += 1;
         }
-        traded[j] = sd != 0;
-        const bool change = single ? sd != 0 : sd != psd;
-        const unsigned diff =
-            static_cast<unsigned>(tk) - static_cast<unsigned>(ptk);
-        const unsigned mag =
-            static_cast<int>(diff) < 0 ? 0u - diff : diff;  // int32 abs, wraps
-        const int spread = change ? static_cast<int>(mag) : 0;
-        acc.sp += static_cast<unsigned>(spread);
-        acc.hi = max(acc.hi, tk);
-        acc.lo = min(acc.lo, tk);
-        acc.spmax = max(acc.spmax, spread);
+        c = fmk::contribution(t);
+        traded[j] = t.side != 0;
+        acc.sp += static_cast<unsigned>(t.spread);
+        acc.hi = max(acc.hi, t.tick);
+        acc.lo = min(acc.lo, t.tick);
+        acc.spmax = max(acc.spmax, t.spread);
       }
-      run = add(run, c);
+      run = fmk::add(run, c);
       part[j] = run;
     }
     Run tile_total;
-    const Run base = add(carry, block_exclusive_scan(run, warp_run, &tile_total));
+    const Run base = fmk::add(carry, fmk::block_exclusive_scan<kWarps>(
+                                        run, Run{0ull, 0ull, 0u}, fmk::RunAdd(),
+                                        warp_run, &tile_total));
 #pragma unroll
     for (int j = 0; j < kItems; ++j) {
       if (traded[j]) {
-        const Run r = add(base, part[j]);
-        const float fv = pair_f32(r.cv);
-        const float fd = pair_f32(r.cd);
+        const Run r = fmk::add(base, part[j]);
+        const float fv = fmk::pair_f32(r.cv);
+        const float fd = fmk::pair_f32(r.cd);
         acc.cvmin = fminf(acc.cvmin, fv);
         acc.cvmax = fmaxf(acc.cvmax, fv);
         acc.cdmin = fminf(acc.cdmin, fd);
@@ -228,7 +158,7 @@ bar_products_kernel(const int* __restrict__ ticks,
         acc.ctmax = max(acc.ctmax, static_cast<int>(r.ct));
       }
     }
-    carry = add(carry, tile_total);
+    carry = fmk::add(carry, tile_total);
   }
 
   const int lane = threadIdx.x & 31;

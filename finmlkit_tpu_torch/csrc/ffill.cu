@@ -1,12 +1,17 @@
 // Kernel F: forward fill. out[i] = values[j], j the last position <= i where
-// valid[j] != 0; positions before the first valid one take values[0].
+// valid[j] != 0; positions before the first valid one take values[0], or 0
+// with the zero_before flag.
 //
-// Replaces the TPU kernel of finmlkit_tpu/ops/pallas_scan.py:
-//   K5  _ffill_2d  (_ffill_kernel)  last-valid fill of float32 values, moved
-//                                   there as int32 bits in (rows, 128) planes
-//                                   with the carry in scratch memory.
-// Here the payload is 32 or 64 bits (float32 or float64, moved as bits: the
-// output is a selection, bit-exact, NaN included) and the stream is flat.
+// Replaces the TPU kernels
+//   K5  finmlkit_tpu/ops/pallas_scan.py _ffill_2d (_ffill_kernel): last-valid
+//       fill of float32 values, moved there as int32 bits in (rows, 128)
+//       planes with the carry in scratch memory;
+//   L1  finmlkit_tpu/ops/segment_select.py _fill_last_planes
+//       (_fill_last_kernel): the segmented last-fill of int32 values at
+//       marks, 0 before the first mark (zero_before = 1, 4-byte payload).
+// Here the payload is 32 or 64 bits (float32, float64 or int32, moved as
+// bits: the output is a selection, bit-exact, NaN included) and the stream
+// is flat.
 // Blocks run in no order, so the fill is kernel S's three launches with the
 // combine "the later valid index wins" (a max over valid positions):
 //   1. every block writes the last valid index of its tile (-1 if none);
@@ -115,13 +120,14 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 fill_tiles_kernel(const T* __restrict__ values,
                   const unsigned char* __restrict__ valid, T* __restrict__ out,
-                  const long long* __restrict__ tot, long long n) {
+                  const long long* __restrict__ tot, long long n,
+                  bool zero_before) {
   __shared__ T stage[kTile];
   __shared__ unsigned char mask[kTile];
   __shared__ long long warp_tot[kWarps];
   const long long start = static_cast<long long>(blockIdx.x) * kTile;
   const long long carried = blockIdx.x > 0 ? tot[blockIdx.x - 1] : -1;
-  const T carry = values[carried > 0 ? carried : 0];
+  const T carry = carried >= 0 ? values[carried] : (zero_before ? T(0) : values[0]);
 #pragma unroll
   for (int i = 0; i < kItems; ++i) {
     const int j = i * kThreads + threadIdx.x;
@@ -161,7 +167,7 @@ fill_tiles_kernel(const T* __restrict__ values,
 
 template <typename T>
 int launch(const void* values, const unsigned char* valid, void* out,
-           long long* tot, long long n, cudaStream_t stream) {
+           long long* tot, long long n, bool zero_before, cudaStream_t stream) {
   const long long tiles = (n + kTile - 1) / kTile;
   const unsigned grid = static_cast<unsigned>(tiles);
   if (tiles > 1) {
@@ -169,7 +175,8 @@ int launch(const void* values, const unsigned char* valid, void* out,
     scan_tiles_max_kernel<<<1, kThreads, 0, stream>>>(tot, tiles);
   }
   fill_tiles_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(values), valid, static_cast<T*>(out), tot, n);
+      static_cast<const T*>(values), valid, static_cast<T*>(out), tot, n,
+      zero_before);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -179,17 +186,20 @@ int launch(const void* values, const unsigned char* valid, void* out,
 // scratch values for the tiles' last valid indices.
 extern "C" int fmk_ffill_tile() { return kTile; }
 
-// Kernel F over n values of `bytes` bytes each (4 or 8), valid a uint8 mask.
-// Returns cudaGetLastError().
+// Kernel F over n values of `bytes` bytes each (4 or 8), valid a uint8 mask;
+// zero_before != 0 writes 0 before the first valid position. Returns
+// cudaGetLastError().
 extern "C" int fmk_ffill(int bytes, const void* values, const void* valid,
-                         void* out, void* scratch, long long n, void* stream) {
+                         void* out, void* scratch, long long n, int zero_before,
+                         void* stream) {
   if (n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* m = static_cast<const unsigned char*>(valid);
   auto* tot = static_cast<long long*>(scratch);
   switch (bytes) {
-    case 4: return launch<unsigned int>(values, m, out, tot, n, s);
-    case 8: return launch<unsigned long long>(values, m, out, tot, n, s);
+    case 4: return launch<unsigned int>(values, m, out, tot, n, zero_before != 0, s);
+    case 8:
+      return launch<unsigned long long>(values, m, out, tot, n, zero_before != 0, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

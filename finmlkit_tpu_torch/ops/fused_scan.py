@@ -1,9 +1,12 @@
-"""Per-bar products of the trade stream: kernel B (``csrc/bar_products.cu``).
+"""The bar scans of the trade stream: kernels B (``csrc/bar_products.cu``),
+V (``csrc/bar_planes.cu``) and P (``csrc/io_floor.cu``).
 
 Counterpart of ``finmlkit_tpu/ops/fused_scan.py``. Kernel B replaces the TPU
 rowtail scans ``bar_scan_rowtails_v4`` (K1a) and ``bar_scan_rowtails`` (K1b,
 v2), and absorbs the plane preparation and the boundary fixup that surround
 them in ``finmlkit_tpu/bar/fused.py`` (``_prep_planes``, ``_boundary_state``).
+It also serves ``bar_scan_rowtails_v3`` (K1d), a TPU layout experiment whose
+output is K1b's bit for bit (``ops/fused_scan.py:1290-1301``).
 It reads the trade arrays as they are (int32 ticks, int64 units, int8 sides,
 int64 close indices) and writes, per bar, what ``_fused_packed_v2_jit``
 returns:
@@ -18,15 +21,26 @@ Bar k holds trades ``(ci[k], ci[k+1]]``. An empty bar gets zero sums and
 counts, sentinel extrema (``I32MIN``/``I32MAX``/``±F32BIG``) and the ticks at
 the clamped positions ``ci[k]+1`` and ``ci[k+1]``; the JAX package leaves the
 previous bar's extrema there instead, and the finals mask both.
+
+:func:`bar_scan_planes` is the full-plane scan (K1c, ``bar_scan_planes`` v1):
+the running state of every trade, the 9 global prefixes from kernel C and
+the 9 in-bar running extrema from kernel V. :func:`bar_scan_io_floor` and its
+two variants are the streaming-floor probes (P1-P3), all served by kernel P.
 """
 import torch
 
 from .. import _build
+from .prefix_scan import fast_cumsum_cols
 
 __all__ = ["bar_scan_products", "bar_scan_products_plain", "pair_to_f32",
-           "I32MIN", "I32MAX", "F32BIG"]
+           "prep_planes_plain", "bar_scan_planes", "bar_scan_planes_plain",
+           "bar_planes_extrema", "planes_prefix_inputs",
+           "bar_scan_io_floor", "bar_scan_io_floor_k", "bar_scan_io_floor_stacked",
+           "io_floor_plain", "I32MIN", "I32MAX", "F32BIG"]
 
-LAUNCHES = 0  # kernel launches by bar_scan_products in this process
+LAUNCHES = 0         # kernel B launches by bar_scan_products in this process
+PLANES_LAUNCHES = 0  # kernel V launches by bar_scan_planes
+IO_FLOOR_LAUNCHES = 0  # kernel P launches by the bar_scan_io_floor probes
 
 I32MIN = -2147483648
 I32MAX = 2147483647
@@ -58,6 +72,24 @@ def _check_inputs(ticks, units, sides, ci):
         raise ValueError("need at least one trade and one bar (len(ci) >= 2)")
 
 
+def _valid(ci, n):
+    """The trades inside some bar: ``(ci[0], ci[-1]]``."""
+    idx = torch.arange(n, device=ci.device)
+    return (idx > ci[0]) & (idx <= ci[-1])
+
+
+def _spread(ticks, sides, ci, valid):
+    """Tick-sign-change spread of every trade (``bar/fused.py _prep_planes``):
+    the previous trade wraps to trade n-1 and does not reset at bar starts; a
+    single-trade bar compares its side with 0; 0 outside every bar."""
+    n = ticks.shape[0]
+    single = torch.zeros(n + 1, dtype=torch.bool, device=ticks.device)
+    single[torch.where(ci[1:] - ci[:-1] == 1, ci[1:], n)] = True
+    change = torch.where(single[:n], sides != 0, sides != torch.roll(sides, 1))
+    zero32 = torch.zeros((), dtype=torch.int32, device=ticks.device)
+    return torch.where(valid & change, (ticks - torch.roll(ticks, 1)).abs(), zero32)
+
+
 def bar_scan_products_plain(ticks, units, sides, ci):
     """Plain PyTorch version of :func:`bar_scan_products`, on any device.
 
@@ -70,13 +102,12 @@ def bar_scan_products_plain(ticks, units, sides, ci):
     n, nb = ticks.shape[0], ci.shape[0] - 1
     i64 = torch.int64
     idx = torch.arange(n, device=dev)
-    valid = (idx > ci[0]) & (idx <= ci[-1])
+    valid = _valid(ci, n)
     # bar k holds (ci[k], ci[k+1]]: the first k with ci[k+1] >= i
     bar = torch.searchsorted(ci[1:].contiguous(), idx)
     bar = torch.where(valid, bar, nb)  # slot nb collects the outside trades
     bar_c = bar.clamp(max=nb - 1)
     starts = ci[:-1] + 1
-    counts = ci[1:] - ci[:-1]
     zero64 = torch.zeros((), dtype=i64, device=dev)
 
     is_buy = valid & (sides == 1)
@@ -107,14 +138,7 @@ def bar_scan_products_plain(ticks, units, sides, ci):
     p64 = torch.stack([bar_sum(u), bar_sum(d), bar_sum(ub), bar_sum(us),
                        bar_sum(db), bar_sum(ds)])
 
-    # tick-sign-change spread (bar/fused.py _prep_planes): the previous trade
-    # wraps to trade n-1 and does not reset at bar starts; a single-trade
-    # bar compares its side with 0
-    single = valid & (counts == 1)[bar_c]
-    change = torch.where(single, sides != 0, sides != torch.roll(sides, 1))
-    zero32 = torch.zeros((), dtype=torch.int32, device=dev)
-    spread = torch.where(valid & change, (ticks - torch.roll(ticks, 1)).abs(),
-                         zero32)
+    spread = _spread(ticks, sides, ci, valid)
 
     ct = in_bar_running(is_buy.to(i64) - is_sell.to(i64)).to(torch.int32)
     cv = pair_to_f32(in_bar_running(ub - us))
@@ -140,6 +164,22 @@ def bar_scan_products_plain(ticks, units, sides, ci):
     return p64, p32, pf
 
 
+def _cuda_inputs(ticks, units, sides, ci, what, extra_blocks=0):
+    """Contiguous CUDA inputs of a one-block-per-bar kernel; raises on a
+    device other than CUDA, too many bars, or close indices the kernels
+    cannot take."""
+    if ticks.device.type != "cuda":
+        raise ValueError(f"{what} runs on cpu or cuda, not {ticks.device}")
+    n, nb = ticks.shape[0], ci.shape[0] - 1
+    if nb + extra_blocks >= 2**31:
+        raise ValueError(f"{nb} bars exceed the kernel's grid")
+    ticks, units, sides, ci = (t.contiguous() for t in (ticks, units, sides, ci))
+    ok = (ci[0] >= -1) & (ci[-1] < n) & torch.all(ci[1:] >= ci[:-1])
+    if not bool(ok):
+        raise ValueError("ci must be sorted with -1 <= ci[0] and ci[-1] < n")
+    return ticks, units, sides, ci
+
+
 def bar_scan_products(ticks, units, sides, ci):
     """Per-bar products ``(p64, p32, pf)`` of the trade stream.
 
@@ -151,16 +191,10 @@ def bar_scan_products(ticks, units, sides, ci):
     _check_inputs(ticks, units, sides, ci)
     if ticks.device.type == "cpu":
         return bar_scan_products_plain(ticks, units, sides, ci)
-    if ticks.device.type != "cuda":
-        raise ValueError(f"bar_scan_products runs on cpu or cuda, not {ticks.device}")
+    ticks, units, sides, ci = _cuda_inputs(ticks, units, sides, ci,
+                                           "bar_scan_products")
     dev = ticks.device
     n, nb = ticks.shape[0], ci.shape[0] - 1
-    if nb >= 2**31:
-        raise ValueError(f"{nb} bars exceed the kernel's grid")
-    ticks, units, sides, ci = (t.contiguous() for t in (ticks, units, sides, ci))
-    ok = (ci[0] >= -1) & (ci[-1] < n) & torch.all(ci[1:] >= ci[:-1])
-    if not bool(ok):
-        raise ValueError("ci must be sorted with -1 <= ci[0] and ci[-1] < n")
     out64 = torch.empty((6, nb), dtype=torch.int64, device=dev)
     out32 = torch.empty((10, nb), dtype=torch.int32, device=dev)
     outf = torch.empty((4, nb), dtype=torch.float32, device=dev)
@@ -174,3 +208,225 @@ def bar_scan_products(ticks, units, sides, ci):
     LAUNCHES += 1
     _build.check(rc, "bar_scan_products")
     return out64, out32, outf
+
+
+# ---------------------------------------------------------------------------
+# Full planes (K1c): kernel C for the prefixes, kernel V for the extrema
+# ---------------------------------------------------------------------------
+
+def prep_planes_plain(ticks, units, sides, ci):
+    """The 8 int32 input streams of the TPU bar scans (``bar/fused.py
+    _prep_planes``), flat, without the ``(rows, 128)`` shape or padding:
+    ticks, units low and high words, dollars (ticks * units) low and high
+    words, sides, flags (bit 0: inside some bar; bit 1: a bar opens here, at
+    every ``ci[k] + 1 < n``) and the spread. Units, dollars, sides and spread
+    are 0 outside every bar."""
+    _check_inputs(ticks, units, sides, ci)
+    n = ticks.shape[0]
+    valid = _valid(ci, n)
+    u = torch.where(valid, units, 0)
+    d = ticks.to(torch.int64) * u
+    return (ticks, u.to(torch.int32), (u >> 32).to(torch.int32),
+            d.to(torch.int32), (d >> 32).to(torch.int32),
+            torch.where(valid, sides.to(torch.int32), 0),
+            valid.to(torch.int32) | (_open_marks(ci, n).to(torch.int32) << 1),
+            _spread(ticks, sides, ci, valid))
+
+
+def _open_marks(ci, n):
+    """Bool mask of the bar-open positions, every ``ci[k] + 1 < n``."""
+    marks = torch.zeros(n + 1, dtype=torch.bool, device=ci.device)
+    marks[torch.where(ci + 1 < n, (ci + 1).clamp(min=0), n)] = True
+    return marks[:n]
+
+
+def planes_prefix_inputs(ticks, units, sides, ci):
+    """The rows whose prefix sums are the planes' global prefixes, built from
+    the trades in place: int64 ``(6, n)`` buy units, sell units, buy dollars,
+    sell dollars, units, dollars; int32 ``(3, n)`` buy ticks, sell ticks,
+    spread; all 0 outside every bar."""
+    n = ticks.shape[0]
+    valid = _valid(ci, n)
+    side = torch.where(valid, sides, 0)
+    buy, sell = side == 1, side == -1
+    in64 = torch.empty((6, n), dtype=torch.int64, device=ticks.device)
+    u, d = in64[4], in64[5]
+    torch.mul(units, valid, out=u)
+    torch.mul(ticks, u, out=d)
+    for row, (x, m) in enumerate(((u, buy), (u, sell), (d, buy), (d, sell))):
+        torch.mul(x, m, out=in64[row])
+    in32 = torch.empty((3, n), dtype=torch.int32, device=ticks.device)
+    in32[0], in32[1] = buy, sell
+    in32[2] = _spread(ticks, sides, ci, valid)
+    return in64, in32
+
+
+def _seg_extremum(v, seg, how):
+    """Running max or min of ``v`` (int32 or float32) that restarts where
+    ``seg`` (a nondecreasing int64 segment id) steps: ``torch.cummax`` or
+    ``cummin`` of the int64 key ``(±seg << 32) | order-preserving bits``."""
+    if v.dtype == torch.float32:
+        bits = v.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        order = torch.where(bits >> 31 == 1, ~bits & 0xFFFFFFFF, bits | 0x80000000)
+    else:
+        order = v.to(torch.int64) + 2**31
+    if how == "max":
+        key = torch.cummax((seg << 32) | order, 0).values
+    else:
+        key = torch.cummin(((-seg) << 32) | order, 0).values
+    low = key & 0xFFFFFFFF
+    if v.dtype == torch.float32:
+        bits = torch.where(low >> 31 == 1, low & 0x7FFFFFFF, ~low & 0xFFFFFFFF)
+        return bits.to(torch.int32).view(torch.float32)
+    return (low - 2**31).to(torch.int32)
+
+
+def bar_scan_planes_plain(ticks, units, sides, ci):
+    """Plain PyTorch version of :func:`bar_scan_planes`, on any device: the
+    TPU kernel's definitions over the streams of :func:`planes_prefix_inputs`,
+    with ``torch.cumsum`` for the prefixes and ``torch.cummax``/``cummin`` on
+    segment-keyed values for the running extrema."""
+    _check_inputs(ticks, units, sides, ci)
+    tk, n = ticks, ticks.shape[0]
+    in64, in32 = planes_prefix_inputs(ticks, units, sides, ci)
+    pre64 = torch.cumsum(in64, 1)
+    pre32 = torch.cumsum(in32, 1, dtype=torch.int32)
+    valid, mark, spread = _valid(ci, n), _open_marks(ci, n), in32[2]
+    traded = valid & (sides != 0)
+    seg = torch.cumsum(mark, 0)
+    idx = torch.arange(n, device=tk.device)
+    last = torch.cummax(torch.where(mark, idx, -1), 0).values
+
+    def in_bar(p, x):
+        """Running in-bar value: the prefix minus its value just before the
+        bar's first trade (0 before the first mark)."""
+        e = p - x
+        base = torch.where(last >= 0, e[last.clamp(min=0)], torch.zeros_like(e[:1]))
+        return p - base
+
+    ct = in_bar(pre32[0] - pre32[1], in32[0] - in32[1])
+    cv = pair_to_f32(in_bar(pre64[0] - pre64[1], in64[0] - in64[1]))
+    cd = pair_to_f32(in_bar(pre64[2] - pre64[3], in64[2] - in64[3]))
+    ext32 = torch.stack([
+        _seg_extremum(torch.where(valid, tk, I32MIN), seg, "max"),
+        _seg_extremum(torch.where(valid, tk, I32MAX), seg, "min"),
+        _seg_extremum(torch.where(valid, spread, -1), seg, "max"),
+        _seg_extremum(torch.where(traded, ct, I32MAX), seg, "min"),
+        _seg_extremum(torch.where(traded, ct, I32MIN), seg, "max")])
+    extf = torch.stack([
+        _seg_extremum(torch.where(traded, cv, F32BIG), seg, "min"),
+        _seg_extremum(torch.where(traded, cv, -F32BIG), seg, "max"),
+        _seg_extremum(torch.where(traded, cd, F32BIG), seg, "min"),
+        _seg_extremum(torch.where(traded, cd, -F32BIG), seg, "max")])
+    return pre64, pre32, ext32, extf
+
+
+def bar_scan_planes(ticks, units, sides, ci):
+    """The running scan state of every trade, ``(pre64, pre32, ext32,
+    extf)``:
+
+    - ``pre64`` int64 ``(6, n)``: prefix sums of buy units, sell units, buy
+      dollars, sell dollars, units and dollars (wrapping);
+    - ``pre32`` int32 ``(3, n)``: prefix sums of buy ticks, sell ticks and the
+      spread (wrapping);
+    - ``ext32`` int32 ``(5, n)``: the running high, low and max spread of the
+      bar so far, and the min and max of its running tick imbalance;
+    - ``extf`` float32 ``(4, n)``: the min and max of the bar's running
+      volume and dollar imbalances.
+
+    Outside every bar the inputs count 0 and the extrema hold the sentinels
+    (``I32MIN``, ``I32MAX``, -1, ``I32MAX``, ``I32MIN``, ``±F32BIG``), as in
+    the TPU kernel. On CUDA tensors this launches kernel C twice (one
+    launch per dtype) and kernel V once; on CPU tensors it runs
+    :func:`bar_scan_planes_plain`.
+    """
+    _check_inputs(ticks, units, sides, ci)
+    if ticks.device.type == "cpu":
+        return bar_scan_planes_plain(ticks, units, sides, ci)
+    ticks, units, sides, ci = _cuda_inputs(ticks, units, sides, ci,
+                                           "bar_scan_planes", extra_blocks=2)
+    in64, in32 = planes_prefix_inputs(ticks, units, sides, ci)
+    pre64, pre32 = fast_cumsum_cols(in64), fast_cumsum_cols(in32)
+    del in64, in32
+    return (pre64, pre32, *bar_planes_extrema(ticks, units, sides, ci))
+
+
+def bar_planes_extrema(ticks, units, sides, ci):
+    """Kernel V alone: the ``(ext32, extf)`` planes of :func:`bar_scan_planes`
+    (on CPU tensors, those of :func:`bar_scan_planes_plain`)."""
+    global PLANES_LAUNCHES
+    _check_inputs(ticks, units, sides, ci)
+    if ticks.device.type == "cpu":
+        return bar_scan_planes_plain(ticks, units, sides, ci)[2:]
+    ticks, units, sides, ci = _cuda_inputs(ticks, units, sides, ci,
+                                           "bar_planes_extrema", extra_blocks=2)
+    dev = ticks.device
+    n, nb = ticks.shape[0], ci.shape[0] - 1
+    ext32 = torch.empty((5, n), dtype=torch.int32, device=dev)
+    extf = torch.empty((4, n), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _build.library().fmk_bar_planes(
+            ticks.data_ptr(), units.data_ptr(), sides.data_ptr(), ci.data_ptr(),
+            n, nb, ext32.data_ptr(), extf.data_ptr(), stream)
+    PLANES_LAUNCHES += 1
+    _build.check(rc, "bar_planes_extrema")
+    return ext32, extf
+
+
+# ---------------------------------------------------------------------------
+# Streaming-floor probes (P1-P3): kernel P
+# ---------------------------------------------------------------------------
+
+def io_floor_plain(streams) -> torch.Tensor:
+    """Plain PyTorch version of the probes, on any device: the int32 sum
+    (wrapping) of a ``(k, n)`` tensor's rows or of a sequence of k streams,
+    one ``torch.sum``."""
+    x = streams if torch.is_tensor(streams) else torch.stack(list(streams))
+    return torch.sum(x, 0, dtype=torch.int32)
+
+
+def _io_floor(rows, what) -> torch.Tensor:
+    global IO_FLOOR_LAUNCHES
+    if not 1 <= len(rows) <= 8:
+        raise ValueError(f"{what} sums 1 to 8 streams, got {len(rows)}")
+    x0 = rows[0]
+    for x in rows:
+        if x.dim() != 1 or x.dtype != torch.int32 or x.shape != x0.shape \
+                or x.device != x0.device or not x.is_contiguous():
+            raise TypeError(f"{what} takes contiguous 1-D int32 streams of one "
+                            "length and device")
+    if x0.device.type == "cpu":
+        return io_floor_plain(rows)
+    if x0.device.type != "cuda":
+        raise ValueError(f"{what} runs on cpu or cuda, not {x0.device}")
+    out = torch.empty_like(x0)
+    ptrs = [x.data_ptr() for x in rows] + [0] * (8 - len(rows))
+    with torch.cuda.device(x0.device):
+        stream = torch.cuda.current_stream(x0.device).cuda_stream
+        rc = _build.library().fmk_io_floor(*ptrs, len(rows), out.data_ptr(),
+                                           x0.shape[0], stream)
+    IO_FLOOR_LAUNCHES += 1
+    _build.check(rc, what)
+    return out
+
+
+def bar_scan_io_floor(ticks, ulo, uhi, dlo, dhi, side, flags, spread):
+    """P1: the int32 sum of the bar scan's 8 input streams (those of
+    :func:`prep_planes_plain`), the floor of a kernel that reads them. Kernel
+    P on CUDA tensors, :func:`io_floor_plain` on CPU tensors."""
+    return _io_floor((ticks, ulo, uhi, dlo, dhi, side, flags, spread),
+                     "bar_scan_io_floor")
+
+
+def bar_scan_io_floor_k(x, k: int = 1):
+    """P2: the sum of ``k`` copies of one int32 stream (k <= 8)."""
+    return _io_floor((x,) * k, "bar_scan_io_floor_k")
+
+
+def bar_scan_io_floor_stacked(x):
+    """P3: the sum over the rows of one ``(8, n)`` int32 stack."""
+    if x.dim() != 2 or x.shape[0] != 8:
+        raise ValueError(f"bar_scan_io_floor_stacked takes an (8, n) stack, "
+                         f"got {tuple(x.shape)}")
+    return _io_floor(tuple(x.contiguous()), "bar_scan_io_floor_stacked")

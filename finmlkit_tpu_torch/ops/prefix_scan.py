@@ -14,18 +14,23 @@ scans' do.
 
 Kernel F (``csrc/ffill.cu``) is the forward fill of ``fast_ffill``: it
 replaces ``_ffill_2d`` (K5), which moved float32 values as int32 bits through
-``(rows, 128)`` planes; here float32 and float64 move as their own bits.
+``(rows, 128)`` planes; here float32 and float64 move as their own bits. With
+its zero-before flag it is also ``fill_last``, the segmented last-fill of
+int32 values at marks of the radix-select median engine: it replaces
+``_fill_last_planes`` (L1, ``finmlkit_tpu/ops/segment_select.py``).
 """
 import torch
 
 from .. import _build
 
 __all__ = ["fast_cumsum", "fast_cumsum_plain", "fast_cumsum_cols",
-           "fast_cumsum_cols_plain", "fast_ffill", "fast_ffill_plain"]
+           "fast_cumsum_cols_plain", "fast_ffill", "fast_ffill_plain",
+           "fill_last", "fill_last_plain"]
 
 LAUNCHES = 0        # kernel S launches by fast_cumsum in this process
 COLS_LAUNCHES = 0   # kernel C launches by fast_cumsum_cols in this process
 FFILL_LAUNCHES = 0  # kernel F launches by fast_ffill in this process
+FILL_LAST_LAUNCHES = 0  # kernel F launches by fill_last in this process
 
 _DTYPE_CODE = {torch.int32: 0, torch.int64: 1, torch.float32: 2,
                torch.float64: 3}
@@ -128,6 +133,34 @@ def fast_ffill_plain(values: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return values[last.clamp(0, n - 1)]
 
 
+def _launch_ffill(values, valid, zero_before: bool, what: str) -> torch.Tensor:
+    """Kernel F over a CUDA ``values`` tensor of 4- or 8-byte elements."""
+    if values.device.type != "cuda":
+        raise ValueError(f"{what} runs on cpu or cuda, not {values.device}")
+    values, valid = values.contiguous(), valid.contiguous()
+    out = torch.empty_like(values)
+    n = values.shape[0]
+    if n == 0:
+        return out
+    lib = _build.library()
+    tiles = (n + lib.fmk_ffill_tile() - 1) // lib.fmk_ffill_tile()
+    scratch = torch.empty(tiles, dtype=torch.int64, device=values.device)
+    with torch.cuda.device(values.device):
+        stream = torch.cuda.current_stream(values.device).cuda_stream
+        rc = lib.fmk_ffill(values.element_size(), values.data_ptr(),
+                           valid.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                           n, int(zero_before), stream)
+    _build.check(rc, what)
+    return out
+
+
+def _check_mask(values, valid, what: str) -> None:
+    if valid.shape != values.shape or valid.dtype != torch.bool \
+            or valid.device != values.device:
+        raise ValueError(f"{what}: the mask must be a bool tensor of the "
+                         "values' shape and device")
+
+
 def fast_ffill(values: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Forward fill: ``out[i] = values[j]``, ``j`` the last position ``<= i``
     where ``valid`` is true; positions before the first valid one take
@@ -142,27 +175,45 @@ def fast_ffill(values: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     if values.dim() != 1 or values.dtype not in (torch.float32, torch.float64):
         raise TypeError("fast_ffill takes a 1-D float32 or float64 tensor, got "
                         f"{values.dtype} of shape {tuple(values.shape)}")
-    if valid.shape != values.shape or valid.dtype != torch.bool \
-            or valid.device != values.device:
-        raise ValueError("valid must be a bool tensor of the values' shape "
-                         "and device")
+    _check_mask(values, valid, "fast_ffill")
     if values.device.type == "cpu":
         return fast_ffill_plain(values, valid)
-    if values.device.type != "cuda":
-        raise ValueError(f"fast_ffill runs on cpu or cuda, not {values.device}")
-    values, valid = values.contiguous(), valid.contiguous()
-    out = torch.empty_like(values)
+    out = _launch_ffill(values, valid, False, "fast_ffill")
+    if values.numel():
+        FFILL_LAUNCHES += 1
+    return out
+
+
+def fill_last_plain(values: torch.Tensor, marks: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fill_last`, on any device: the running
+    max of the position-tagged marks and a gather, 0 before the first mark
+    (``finmlkit_tpu/ops/segment_select.py:95-100``)."""
     n = values.shape[0]
     if n == 0:
-        return out
-    lib = _build.library()
-    tiles = (n + lib.fmk_ffill_tile() - 1) // lib.fmk_ffill_tile()
-    scratch = torch.empty(tiles, dtype=torch.int64, device=values.device)
-    FFILL_LAUNCHES += 1
-    with torch.cuda.device(values.device):
-        stream = torch.cuda.current_stream(values.device).cuda_stream
-        rc = lib.fmk_ffill(values.element_size(), values.data_ptr(),
-                           valid.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-                           n, stream)
-    _build.check(rc, "fast_ffill")
+        return values.clone()
+    idx = torch.arange(n, device=values.device)
+    last = torch.cummax(torch.where(marks, idx, -1), 0).values
+    return torch.where(last >= 0, values[last.clamp(min=0)],
+                       torch.zeros((), dtype=values.dtype, device=values.device))
+
+
+def fill_last(values: torch.Tensor, marks: torch.Tensor) -> torch.Tensor:
+    """Segmented last-fill: ``out[j] = values[i]``, ``i`` the last position
+    ``<= j`` where ``marks`` is true, and 0 before the first mark.
+
+    ``values`` is a 1-D int32 tensor, ``marks`` a bool tensor of its length.
+    On a CUDA tensor this launches kernel F with its zero-before flag (the
+    int32 values move as 4-byte bits); on a CPU tensor it runs
+    :func:`fill_last_plain`.
+    """
+    global FILL_LAST_LAUNCHES
+    if values.dim() != 1 or values.dtype != torch.int32:
+        raise TypeError("fill_last takes a 1-D int32 tensor, got "
+                        f"{values.dtype} of shape {tuple(values.shape)}")
+    _check_mask(values, marks, "fill_last")
+    if values.device.type == "cpu":
+        return fill_last_plain(values, marks)
+    out = _launch_ffill(values, marks, True, "fill_last")
+    if values.numel():
+        FILL_LAST_LAUNCHES += 1
     return out

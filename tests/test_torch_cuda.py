@@ -1,4 +1,4 @@
-"""Kernels B, S, C, F and E on the card against their plain versions.
+"""Kernels B, S, C, F, E, H, V and P on the card against their plain versions.
 
 These tests need an NVIDIA GPU and ``nvcc``; elsewhere they skip. The card's
 host has no JAX, so run them there without the suite's conftest:
@@ -10,9 +10,9 @@ import torch
 
 from finmlkit_tpu_torch.bar.aggregate_q import bar_trade_size_features
 from finmlkit_tpu_torch.bar.footprint_q import comp_bar_footprints_q
-from finmlkit_tpu_torch.bar.fused import median_pairs
+from finmlkit_tpu_torch.bar.fused import median_engine, median_pairs, planes_products
 from finmlkit_tpu_torch.bar.indexers import dollar_bar_indexer_q
-from finmlkit_tpu_torch.ops import event_scan, fused_scan, prefix_scan
+from finmlkit_tpu_torch.ops import event_scan, fused_scan, prefix_scan, segment_hist
 from finmlkit_tpu_torch.testing import adversarial_trades, assert_close, assert_exact
 
 pytestmark = pytest.mark.cuda
@@ -229,3 +229,97 @@ def test_event_scan_edges(cuda):
     u = torch.tensor([5, 1, 1, 7], dtype=torch.int64, device=cuda)
     assert event_scan.volume_scan(u, 3, 10).tolist() == [1, 3]
     assert event_scan.volume_scan(u, 3, 0).numel() == 0
+
+
+ENGINE_CASES = [dict(n=300_000, seed=21, first=-1, long_bar=100_000),
+                dict(n=50_000, seed=22, first=9, mean_bar=3),
+                dict(n=7, seed=23, first=-1, mean_bar=2)]
+
+
+@pytest.mark.parametrize("case", ENGINE_CASES)
+def test_hist_passes_match_plain(cuda, case):
+    ticks, units, sides, amounts, ci = (
+        torch.from_numpy(a).to(cuda) for a in adversarial_trades(**case))
+    bits = amounts.view(torch.int32)
+    g = torch.Generator(device=cuda).manual_seed(case["seed"])
+    base = (bits[(ci[:-1] + 1).clamp(0, len(bits) - 1)]
+            - torch.randint(0, 1 << 20, (len(ci) - 1,), device=cuda, generator=g,
+                            dtype=torch.int32))
+    for s in segment_hist.SHIFTS:
+        before = segment_hist.LAUNCHES
+        got = segment_hist.hist_pass(bits, ci, base, s)
+        assert segment_hist.LAUNCHES == before + 1
+        assert_exact(got, segment_hist.hist_pass_plain(bits, ci, base, s), f"s={s}")
+    for got, want in zip(segment_hist.less_pass(bits, ci, base),
+                         segment_hist.less_pass_plain(bits, ci, base)):
+        assert_exact(got, want, "less")
+
+
+@pytest.mark.parametrize("case", ENGINE_CASES)
+@pytest.mark.parametrize("engine", ["hist", "select"])
+def test_median_engines_match_plain_and_sort(cuda, case, engine):
+    _, _, _, amounts, ci = (torch.from_numpy(a).to(cuda)
+                            for a in adversarial_trades(**case))
+    counters = (segment_hist.LAUNCHES, prefix_scan.FILL_LAST_LAUNCHES)
+    got = median_engine(engine)(amounts, ci)
+    launched = (segment_hist.LAUNCHES - counters[0],
+                prefix_scan.FILL_LAST_LAUNCHES - counters[1])
+    assert launched == ((9, 0) if engine == "hist" else (0, 4))
+    want = median_engine(engine, plain=True)(amounts, ci)
+    for a, b in zip(got, want):
+        assert_exact(a, b, engine)
+    ne = ci[1:] > ci[:-1]
+    for a, b in zip(got, median_pairs(amounts, ci)):
+        assert_exact(a[ne], b[ne], f"{engine} vs sort")
+
+
+@pytest.mark.parametrize("n", [1, 2047, 2048, 2049, 8193, 5_000_001])
+@pytest.mark.parametrize("mask", ["random", "leading_invalid", "all_valid",
+                                  "none_valid"])
+def test_fill_last_matches_plain(cuda, n, mask):
+    _, m = _ffill_case(n, torch.float32, mask, cuda, n + 1)
+    g = torch.Generator(device=cuda).manual_seed(n)
+    v = torch.randint(-2**31, 2**31 - 1, (n,), dtype=torch.int32, device=cuda,
+                      generator=g)
+    before = prefix_scan.FILL_LAST_LAUNCHES
+    got = prefix_scan.fill_last(v, m)
+    assert prefix_scan.FILL_LAST_LAUNCHES == before + 1
+    assert_exact(got, prefix_scan.fill_last_plain(v, m))
+
+
+@pytest.mark.parametrize("case", [
+    dict(n=300_000, seed=31, first=-1, long_bar=100_000),
+    dict(n=50_000, seed=32, first=9, mean_bar=3),
+    dict(n=7, seed=33, first=-1, mean_bar=2),
+])
+def test_planes_match_plain(cuda, case):
+    ticks, units, sides, _, ci = (
+        torch.from_numpy(a).to(cuda) for a in adversarial_trades(**case))
+    before = (fused_scan.PLANES_LAUNCHES, prefix_scan.COLS_LAUNCHES)
+    got = fused_scan.bar_scan_planes(ticks, units, sides, ci)
+    assert (fused_scan.PLANES_LAUNCHES, prefix_scan.COLS_LAUNCHES) == \
+        (before[0] + 1, before[1] + 2)
+    want = fused_scan.bar_scan_planes_plain(ticks, units, sides, ci)
+    for name, a, b in zip(("pre64", "pre32", "ext32", "extf"), got, want):
+        assert_exact(a, b, name)
+    ne = ci[1:] > ci[:-1]
+    for a, b in zip(planes_products(ticks, units, sides, ci),
+                    fused_scan.bar_scan_products(ticks, units, sides, ci)):
+        assert_exact(a[:, ne], b[:, ne])
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 4097, 1_000_003])
+def test_io_floor_matches_plain(cuda, n):
+    g = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randint(-2**31, 2**31 - 1, (8, n), dtype=torch.int32, device=cuda,
+                      generator=g)
+    streams = [r.clone() for r in x]
+    before = fused_scan.IO_FLOOR_LAUNCHES
+    assert_exact(fused_scan.bar_scan_io_floor(*streams),
+                 fused_scan.io_floor_plain(streams), "P1")
+    for k in (1, 2, 4, 8):
+        assert_exact(fused_scan.bar_scan_io_floor_k(streams[0], k),
+                     fused_scan.io_floor_plain([streams[0]] * k), f"P2 k={k}")
+    assert_exact(fused_scan.bar_scan_io_floor_stacked(x),
+                 fused_scan.io_floor_plain(x), "P3")
+    assert fused_scan.IO_FLOOR_LAUNCHES == before + 6

@@ -15,7 +15,9 @@ of stream-wide prefixes in the port, as in the TPU kernel it ports, and exact
 integers rounded once in ``aggregate_q``: within 2^-22 of the largest signed
 volume (dollar) prefix of the stream, two float32 ulps of it (measured: at
 most 1.24 half-ulps); against the JAX kit's fused path (``FMKT_FUSED=
-interpret``) they are exact.
+interpret``) they are exact, whatever the median engine and bar scan
+(``FMKT_MEDIANS`` and ``FMKT_SCAN`` on the JAX side, ``medians`` and ``scan``
+on the port's).
 Trade-size features within rtol 1e-6 of the float64 path, footprints within
 the ``_q`` path's float32 rounding (``tests/test_torch_pipeline.py``).
 """
@@ -26,7 +28,7 @@ import torch
 
 from finmlkit_tpu.bar import TradesData
 from finmlkit_tpu.bar import kit as jkit
-from finmlkit_tpu_torch.bar import kit
+from finmlkit_tpu_torch.bar import fused, kit
 from finmlkit_tpu_torch.testing import assert_close, assert_exact
 from tests.conftest import generate_trades
 from tests.test_torch_pipeline import assert_footprints_match_q
@@ -172,3 +174,48 @@ def test_kit_checks_inputs(trades):
     if not torch.cuda.is_available():
         with pytest.raises((RuntimeError, AssertionError)):
             kit.TickBarKit(ts, px, amt, side, 100)
+
+
+@pytest.mark.parametrize("medians,scan", [("hist", "rowtail"), ("select", "rowtail"),
+                                          ("sort", "planes")])
+def test_kit_engines_match_jax_fused_path(trades, monkeypatch, medians, scan):
+    # the JAX kit's fused path with the engine and scan chosen by its
+    # environment switches (Pallas kernels in interpret mode) against the
+    # port's kit with the same choice by keyword: every column bit for bit
+    for key, value in (("FMKT_FUSED", "interpret"), ("FMKT_MEDIANS", medians),
+                       ("FMKT_SCAN", scan)):
+        monkeypatch.setenv(key, value)
+    ts, px, amt, side = trades
+    jk = jkit.TimeBarKit(TradesData(ts, px, amt, side=side), pd.Timedelta(seconds=30))
+    pk = kit.TimeBarKit(ts, px, amt, side, 30.0, device="cpu", medians=medians,
+                        scan=scan)
+    o, po = jk.build_ohlcv(), pk.build_ohlcv()
+    d, pd_ = jk.build_directional_features(), pk.build_directional_features()
+    assert len(o) > 10
+    for df, got in ((o, po), (d, pd_)):
+        for c in df.columns:
+            assert_exact(got[c], df[c].values, f"{medians}/{scan} {c}")
+
+
+def test_kit_engine_and_scan_names_are_checked(trades):
+    ts, px, amt, side = trades
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        kit.TimeBarKit(ts, px, amt, side, 30.0, device="cpu", medians="host")
+    with pytest.raises(ValueError, match="median engine"):
+        kit.TimeBarKit(ts, px, amt, side, 30.0, device="cpu", medians="nth_element")
+    with pytest.raises(ValueError, match="bar scan"):
+        kit.TimeBarKit(ts, px, amt, side, 30.0, device="cpu", scan="rows")
+    pk = kit.TimeBarKit(ts, px, amt, side, 30.0, device="cpu")
+    ref = pk.build_ohlcv()
+    t = pk.trades
+    for bad, err in (("host", NotImplementedError), ("radix", ValueError)):
+        with pytest.raises(err):
+            fused.bar_products_final(t.ticks, t.units, pk._ci, t.sides,
+                                     tick_size=t.tick_size, amount_scale=t.amount_scale,
+                                     amounts_f32=t.amounts, medians=bad)
+    # rowtail4 is kernel B as rowtail is; plain=True runs the plain engines
+    for kw in (dict(scan="rowtail4"), dict(medians="select", plain=True),
+               dict(medians="hist", scan="planes", plain=True)):
+        got = kit.TimeBarKit(ts, px, amt, side, 30.0, device="cpu", **kw).build_ohlcv()
+        for c in ref:
+            assert_exact(got[c], ref[c], f"{kw} {c}")
