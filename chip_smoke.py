@@ -13,10 +13,11 @@ time bars' products through every median engine and bar scan. Phases:
 
 1. environment: torch, CUDA, nvcc, triton, the card's name and power limit;
 2. build the kernels (``build/finmlkit_tpu_torch/``);
-3. kernel S against its plain version (lengths 1, 8191, 8193, 39,171,930) and
-   kernel C against its plain version (1, 2 and 5 rows of 1, 2047, 2049 and
-   39,171,930 values): int32 and int64 exact (int64 rows that wrap past 2^63
-   beside rows that do not), float32 rtol 1e-5, float64 rtol 1e-12;
+3. kernel S against its plain version (lengths 1, 4097, 8191, 8193,
+   39,171,930) and kernel C against its plain version (1, 2 and 5 rows of 1,
+   2047, 2049, 4097 and 39,171,930 values): int32 and int64 exact (int64
+   rows that wrap past 2^63 beside rows that do not), float32 rtol 1e-5,
+   float64 rtol 1e-12, floats equal from run to run;
 4. kernel B and the medians against their plain versions on adversarial
    streams (empty, single-trade and side-0 trades, ci[0] >= 0, units above
    2^31, a bar of about 1M trades): exact; the hist and select engines
@@ -48,9 +49,11 @@ time bars' products through every median engine and bar scan. Phases:
    sigma equal bit for bit (CUSUM closes may differ only at near ties, within
    1e-12 of lam); tick closes against arange, volume and imbalance closes
    against their integer rules and CUSUM closes against the float64 rule in
-   numpy; F launched once and E at least four times; kernel F against its
-   plain version on the month's sigma and phase 3's lengths, kernel E's four
-   scans alone; stage times, peak device memory. B, S and C are timed here
+   numpy; F launched once and each of E's four scans at least once; kernel F
+   against its plain version on the month's sigma and phase 3's lengths,
+   kernel E's four scans alone at their default chunk counts and at 1, 33,
+   132 and 528 chunks (the same closes at each, timed); stage times, peak
+   device memory. B, S and C are timed here
    when phases 5 and 6 are skipped;
 8. the engines on the month's 1-minute time bars (phase 5's close indices,
    or recomputed): ``bar_products_final`` with the median engines sort, hist
@@ -84,9 +87,9 @@ import time
 import numpy as np
 
 N_MONTH = 39_171_929
-SCAN_LENGTHS = (1, 8191, 8193, N_MONTH + 1)
+SCAN_LENGTHS = (1, 4097, 8191, 8193, N_MONTH + 1)
 COLS_ROWS = (1, 2, 5)
-COLS_LENGTHS = (1, 2047, 2049, N_MONTH + 1)
+COLS_LENGTHS = (1, 2047, 2049, 4097, N_MONTH + 1)
 DOLLAR_BARS = 40_000      # bench.py config 2: threshold = total dollars / 40000
 # phase 7: bench.py config 6 (bench.py:852-958), plus tick and volume bars
 INFO_TICKS = 1000         # tick bars of 1000 trades
@@ -100,6 +103,8 @@ FFILL_MASKS = ("all_valid", "none_valid", "leading_invalid")
 ENGINES = ("sort", "hist", "select")
 SCANS = ("rowtail", "planes")
 IO_FLOOR_K = (1, 2, 4, 8)
+E_MODES = {"cusum": 0, "imbalance": 1, "run": 2, "volume": 3}  # kernel E's modes
+E_CHUNKS = (1, 33, 132, 528)   # kernel E's chunk counts timed and held to its default
 # the least time of a kernel: its bytes (each input read once, each output
 # written once) at the H100 SXM's 3.35 TB/s, or its operations at its float32
 # vector peak of 67 TFLOP/s (NVIDIA's data sheet), whichever is larger; every
@@ -119,9 +124,11 @@ KERNELS = {
           "prefix_scan.cu", "finmlkit_tpu/ops/pallas_scan.py:249 and :287"),
     "F": ("F ffill (replaces K5; L1 in its int32 mode)", "ffill.cu",
           "finmlkit_tpu/ops/pallas_scan.py:84 and finmlkit_tpu/ops/segment_select.py:73"),
-    "E": ("E event_scan (the four boundary scans; replaces XLA while_loops, not "
-          "a TPU kernel)", "event_scan.cu",
-          "finmlkit_tpu/bar/indexers.py:368, :508 and :680"),
+    **{f"E {scan}": (f"E event_scan, {scan} bars (replaces an XLA while_loop, "
+                     "not a TPU kernel)", "event_scan.cu",
+                     f"finmlkit_tpu/bar/indexers.py:{line}")
+       for scan, line in (("cusum", 508), ("imbalance", 680), ("run", 680),
+                          ("volume", 368))},
     "H": ("H segment_hist (replaces H1 and H2)", "segment_hist.cu",
           "finmlkit_tpu/ops/segment_hist.py:106 and :167"),
     "V": ("V bar_planes with C's prefixes (replaces K1c)", "bar_planes.cu",
@@ -248,6 +255,7 @@ def phase_scan():
                 assert_exact(got, want, what)
             else:
                 err = assert_close(got, want, rtol=tol, what=what)
+                assert_exact(fast_cumsum(x), got, f"{what} run to run")
                 worst = max(worst, err / max(float(want.abs().max()), 1e-300))
     say(f"phase 3 ok: S == plain on int32/int64 exact, float32/float64 within "
         f"rtol (largest error relative to the prefix {worst:.3g}), lengths "
@@ -273,6 +281,7 @@ def phase_scan():
                     assert_exact(got, want, what)
                 else:
                     err = assert_close(got, want, rtol=tol, what=what)
+                    assert_exact(fast_cumsum_cols(x), got, f"{what} run to run")
                     worst = max(worst, err / max(float(want.abs().max()), 1e-300))
             del x32, x64, f32, f64, got, want
     say(f"phase 3 ok: C == plain on int32/int64 exact, float32/float64 within "
@@ -486,9 +495,10 @@ def phase_month(card, month):
     run_slice(*args)                      # warm: allocator, build, caches
     run_slice(*args, plain=True)
     fused_scan.LAUNCHES = 0
-    prefix_scan.LAUNCHES = 0
+    prefix_scan.LAUNCHES = prefix_scan.FLOAT_LAUNCHES = 0
     k_out, st = run_slice(*args)          # the main path's counted run
-    launches = {"B": fused_scan.LAUNCHES, "S": prefix_scan.LAUNCHES}
+    launches = {"B": fused_scan.LAUNCHES, "S": prefix_scan.LAUNCHES,
+                "S float": prefix_scan.FLOAT_LAUNCHES}
     if launches["B"] < 1 or launches["S"] < 1:
         fail(f"a kernel of the main path did not launch: {launches}")
     stages = {False: [st], True: []}
@@ -574,7 +584,7 @@ def phase_month(card, month):
             f"(min {t.min():.2f}, max {t.max():.2f}, 7 runs; index -> weights "
             f"inside: median {np.median(inner):.2f} ms) = "
             f"{n_trades / med * 1e3:,.0f} trades/s [{card}]")
-    return kernels
+    return launches, kernels
 
 
 def kernels_b_s(card, tr, ci, launches, s_inputs=()):
@@ -596,21 +606,28 @@ def kernels_b_s(card, tr, ci, launches, s_inputs=()):
     s_ms, s_plain = cuda_ms(lambda: fast_cumsum(marks)), \
         cuda_ms(lambda: fast_cumsum_plain(marks))
     s_lib = cuda_ms(lambda: torch.cumsum(marks, 0, dtype=marks.dtype))
+    units = tr.units                                    # the int64 month stream
+    s64_ms, s64_lib = cuda_ms(lambda: fast_cumsum(units)), \
+        cuda_ms(lambda: torch.cumsum(units, 0))
     # B reads 13 bytes a trade and the close indices, writes 104 bytes a bar
     b_bound = bound(13 * n_trades + 8 * (n_bars + 1) + 104 * n_bars,
                     40 * n_trades)
     s_bound = bound(8 * n_trades, n_trades)
     s_err = max(assert_close(fast_cumsum(x), fast_cumsum_plain(x), rtol=1e-12,
-                             what="S at the path's shapes") for x in (marks, *s_inputs))
+                             what="S at the path's shapes")
+                for x in (marks, units, *s_inputs))
     b_err = max(float((a.double() - b.double()).abs().max()) for a, b in
                 zip(bar_scan_products(*pargs), bar_scan_products_plain(*pargs)))
     say(f"kernel B ({n_bars:,} bars) {b_ms:.3f} ms vs plain {b_plain:.3f} ms, "
         f"bound {b_bound[0]:.3f} ms; kernel S (int32, {n_trades:,}) {s_ms:.3f} "
         f"ms vs plain {s_plain:.3f} ms, torch.cumsum {s_lib:.3f} ms, bound "
-        f"{s_bound[0]:.3f} ms [{card}]")
+        f"{s_bound[0]:.3f} ms; S (int64) {s64_ms:.3f} ms, torch.cumsum "
+        f"{s64_lib:.3f} ms, bound {2 * s_bound[0]:.3f} ms [{card}]")
     return {
         "B": kernel_entry("B", launches["B"], b_err, b_ms, b_plain, b_bound, None),
-        "S": kernel_entry("S", launches["S"], s_err, s_ms, s_plain, s_bound, s_lib),
+        "S": kernel_entry("S", launches["S"], s_err, s_ms, s_plain, s_bound, s_lib,
+                          int64_ms=s64_ms, int64_library_ms=s64_lib,
+                          int64_bound_ms=2 * s_bound[0]),
     }
 
 
@@ -639,7 +656,7 @@ def kernel_c(card, tr, ci, low_t, launches):
         f"plain {c_plain['int64']:.3f} ms, torch.cumsum(x, 1) {c_lib:.3f} ms, "
         f"bound {c_bound[0]:.3f} ms [{card}]")
     return kernel_entry("C", launches["C"], c_err, c_ms["int64"], c_plain["int64"],
-                        c_bound, c_lib)
+                        c_bound, c_lib, int32_ms=c_ms["int32"])
 
 
 def run_dollar(tr, thr, plain=False):
@@ -782,10 +799,11 @@ def phase_dollar(card, month, with_bs=False, profile=False):
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     fused_scan.LAUNCHES = 0
-    prefix_scan.LAUNCHES = 0
+    prefix_scan.LAUNCHES = prefix_scan.FLOAT_LAUNCHES = 0
     prefix_scan.COLS_LAUNCHES = 0
     k_out, st = run_dollar(tr, thr)                # the path's counted run
     launches = {"B": fused_scan.LAUNCHES, "S": prefix_scan.LAUNCHES,
+                "S float": prefix_scan.FLOAT_LAUNCHES,
                 "C": prefix_scan.COLS_LAUNCHES}
     peak = torch.cuda.max_memory_allocated()
     if launches["C"] < 2 or launches["S"] < 1 or launches["B"] < 1:
@@ -1054,8 +1072,10 @@ def phase_info(card, month, need):
 
     def counters():
         return {"B": fused_scan.LAUNCHES, "S": prefix_scan.LAUNCHES,
+                "S float": prefix_scan.FLOAT_LAUNCHES,
                 "C": prefix_scan.COLS_LAUNCHES, "F": prefix_scan.FFILL_LAUNCHES,
-                "E": event_scan.LAUNCHES}
+                **{f"E {scan}": event_scan.MODE_LAUNCHES[mode]
+                   for scan, mode in E_MODES.items()}}
 
     kits = info_kits(month)
     run_info(kits, event)                      # warm: allocator, caches
@@ -1065,17 +1085,21 @@ def phase_info(card, month, need):
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     fused_scan.LAUNCHES = prefix_scan.LAUNCHES = prefix_scan.COLS_LAUNCHES = 0
-    prefix_scan.FFILL_LAUNCHES = event_scan.LAUNCHES = 0
+    prefix_scan.FLOAT_LAUNCHES = prefix_scan.FFILL_LAUNCHES = event_scan.LAUNCHES = 0
+    event_scan.MODE_LAUNCHES[:] = [0, 0, 0, 0]
     k_out, k_st = run_info(kits, event)        # the path's counted run
     launches = counters()
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     tr = kits["cusum"].trades
     del kits
-    if launches["F"] != 1 or launches["E"] < 4 or min(
-            launches[k] for k in ("B", "S", "C")) < 1:
+    if launches["F"] != 1 or min(launches[k] for k in (
+            "B", "S", "C", *(f"E {scan}" for scan in E_MODES))) < 1:
         fail(f"a kernel of the information-bar path did not launch as it "
-             f"should (F once, E at least 4 times): {launches}")
+             f"should (F once, each of E's scans at least once): {launches}")
+    if launches["S"] < sum(launches[f"E {scan}"] for scan in E_MODES):
+        fail(f"kernel S launched fewer times than kernel E, whose every scan "
+             f"compacts its closes with S: {launches}")
     t0 = time.perf_counter()
     p_out, p_st = run_info(info_kits(month, plain=True), event)
     t_plain = time.perf_counter() - t0
@@ -1153,9 +1177,9 @@ def phase_info(card, month, need):
 
     sig = torch.from_numpy(month["sigma"]).cuda()
     kernels = {"F": kernel_f(card, sig, launches),
-               "E": kernel_e(card, tr, torch.from_numpy(price).cuda(), sig,
-                             thr_units, counts, launches,
-                             cusum_may_differ=bool(ties_kp))}
+               **kernel_e(card, tr, torch.from_numpy(price).cuda(), sig,
+                          thr_units, counts, launches,
+                          cusum_may_differ=bool(ties_kp))}
     del sig
     ci_cusum = torch.from_numpy(cis["cusum"]).cuda()
     if "C" in need:
@@ -1201,48 +1225,76 @@ def kernel_f(card, sigma, launches):
 
 def kernel_e(card, tr, price, sigma, thr_units, counts, launches,
              cusum_may_differ):
-    """Kernel E alone: its four scans at phase 7's inputs, each timed (three
-    calls) and held to its plain version (one timed call). Returns its
-    ``kernels`` entry, with the four scans' times summed."""
+    """Kernel E alone: its four scans at phase 7's inputs, each at its default
+    chunk count and at each of ``E_CHUNKS`` (1 is the sequential walk), every
+    one timed (three calls) with the walk's counts and giving the same closes,
+    and held to its plain version (one timed call; CUSUM closes may differ
+    only where phase 7 found near ties). Returns one ``kernels`` entry a scan,
+    with the default's counts: 256-trade segments skipped and scanned, pass-2
+    chunks that did not merge, chunks fixed up."""
     import torch
     from finmlkit_tpu_torch.bar.indexers import cusum_scan_inputs
     from finmlkit_tpu_torch.ops import event_scan as es
-    n = tr.ticks.shape[0]
+    from finmlkit_tpu_torch.testing import assert_exact
+    n, dev = tr.ticks.shape[0], tr.ticks.device
     rets, lam, can_close, fv, _ = cusum_scan_inputs(
         tr.timestamps, price, sigma, CUSUM_FLOOR, CUSUM_MULT)
     w = tr.sides.to(torch.float64)
     run = tuple(RUN_EMA[k] for k in ("expected_ticks_init", "expected_rate_init",
                                      "alpha_ticks", "alpha_rate"))
-    scans = {   # kernel, plain version, arguments (every buffer holds n closes)
-        "cusum": (es.cusum_scan, es.cusum_scan_plain, (rets, lam, can_close, fv, n)),
-        "imbalance": (es.info_scan, es.info_scan_plain,
-                      (w, 1.0, IMB_THETA, 0.0, 0.0, n, False)),
-        "run": (es.info_scan, es.info_scan_plain, (w, *run, n, True)),
-        "volume": (es.volume_scan, es.volume_scan_plain, (tr.units, thr_units, n)),
+    scans = {   # plain version, its arguments (every buffer holds n closes),
+        # kernel E's start and inputs, bytes read a trade
+        "cusum": (es.cusum_scan_plain, (rets, lam, can_close, fv, n), fv + 1,
+                  dict(x=rets, lam=lam, can_close=can_close), 17),
+        "imbalance": (es.info_scan_plain, (w, 1.0, IMB_THETA, 0.0, 0.0, n, False),
+                      1, dict(x=w, e_t=1.0, e_r=IMB_THETA), 8),
+        "run": (es.info_scan_plain, (w, *run, n, True), 1,
+                dict(x=w, **dict(zip(("e_t", "e_r", "alpha_t", "alpha_r"), run))), 8),
+        "volume": (es.volume_scan_plain, (tr.units, thr_units, n), 1,
+                   dict(units=tr.units, thr=thr_units), 8),
     }
-    e_ms, e_plain, e_err = {}, {}, 0.0
-    for name, (kernel, plain, args) in scans.items():
-        e_ms[name] = cuda_ms(lambda: kernel(*args), reps=3)
+    entries = {}
+    for name, (plain, args, start, kw, nbytes) in scans.items():
+        def scan(c, stats=None):
+            return es._launch(E_MODES[name], n, start, n, dev, chunks=c,
+                              stats=stats, **kw)
+        chunks = es._default_chunks(E_MODES[name], dev)
+        stats = torch.zeros(4, dtype=torch.int64, device=dev)
+        got = scan(chunks, stats)
+        ms = cuda_ms(lambda: scan(chunks), reps=3)
+        sweep = {}
+        for c in E_CHUNKS:
+            st = torch.zeros(4, dtype=torch.int64, device=dev)
+            assert_exact(scan(c, st), got, f"E {name}: {c} chunks against {chunks}")
+            sweep[str(c)] = [cuda_ms(lambda: scan(c), reps=3), *st.tolist()]
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
         want = plain(*args)
         b.record()
         b.synchronize()
-        e_plain[name] = a.elapsed_time(b)
-        got = kernel(*args)
-        if got.shape == want.shape:
-            e_err = max(e_err, float((got - want).abs().max()) if len(got) else 0.0)
-        elif name != "cusum" or not cusum_may_differ:
-            fail(f"E {name} alone: {len(got)} closes vs plain {len(want)}")
-    # bytes: CUSUM 17 a trade (rets, lam, can_close), imbalance, run and
-    # volume 8 each, 8 per close written; some 10 operations a trade a scan
-    e_bound = bound(41 * n + 8 * sum(counts[k] for k in scans), 40 * n)
-    say("kernel E alone (ms, kernel | plain): " + ", ".join(
-        f"{k} {e_ms[k]:.2f} | {e_plain[k]:.1f}" for k in scans)
-        + f"; bound of the four {e_bound[0]:.3f} ms [{card}]")
-    return kernel_entry("E", launches["E"], e_err, sum(e_ms.values()),
-                        sum(e_plain.values()), e_bound, None)
+        same = got.shape == want.shape and bool((got == want).all())
+        if not same and (name != "cusum" or not cusum_may_differ):
+            fail(f"E {name} alone: {len(got)} closes differ from the plain "
+                 f"version's {len(want)}")
+        skipped, scanned, unmerged, fixed = stats.tolist()
+        # some 10 operations a trade; 8 bytes a close written
+        e_bound = bound(nbytes * n + 8 * counts[name], 10 * n)
+        m = min(len(got), len(want))    # the error: closes that differ
+        err = float(int((got[:m] != want[:m]).sum()) + abs(len(got) - len(want)))
+        entries[f"E {name}"] = kernel_entry(
+            f"E {name}", launches[f"E {name}"], err, ms, a.elapsed_time(b),
+            e_bound, None, chunks=chunks, segments_skipped=skipped,
+            segments_scanned=scanned, pass2_unmerged=unmerged,
+            chunks_fixed_up=fixed, by_chunks=sweep)
+        say(f"kernel E {name}: {ms:.3f} ms at {chunks} chunks (default), plain "
+            f"{a.elapsed_time(b):.1f} ms, bound {e_bound[0]:.3f} ms; segments "
+            f"skipped {skipped:,} of {skipped + scanned:,} walked, pass-2 chunks "
+            f"unmerged {unmerged}, chunks fixed up {fixed}; same closes at every "
+            f"count, ms [skipped, scanned, unmerged, fixed up] by chunks: "
+            + ", ".join(f"{c}: {v[0]:.3f} {v[1:]}" for c, v in sweep.items())
+            + f" [{card}]")
+    return entries
 
 
 def phase_engines(card, month, need):
@@ -1277,8 +1329,8 @@ def phase_engines(card, month, need):
                                   scan=scans[sc], **kw)
 
     def counters():
-        return {"B": fs.LAUNCHES, "S": ps.LAUNCHES, "C": ps.COLS_LAUNCHES,
-                "F": ps.FFILL_LAUNCHES + ps.FILL_LAST_LAUNCHES,
+        return {"B": fs.LAUNCHES, "S": ps.LAUNCHES, "S float": ps.FLOAT_LAUNCHES,
+                "C": ps.COLS_LAUNCHES, "F": ps.FFILL_LAUNCHES + ps.FILL_LAST_LAUNCHES,
                 "H": sh.LAUNCHES, "V": fs.PLANES_LAUNCHES}
 
     def timed(m, sc):
@@ -1295,7 +1347,8 @@ def phase_engines(card, month, need):
     torch.cuda.synchronize()
     base_mem = torch.cuda.memory_allocated()
     fs.LAUNCHES = fs.PLANES_LAUNCHES = sh.LAUNCHES = 0
-    ps.LAUNCHES = ps.COLS_LAUNCHES = ps.FFILL_LAUNCHES = ps.FILL_LAST_LAUNCHES = 0
+    ps.LAUNCHES = ps.FLOAT_LAUNCHES = ps.COLS_LAUNCHES = 0
+    ps.FFILL_LAUNCHES = ps.FILL_LAST_LAUNCHES = 0
     outs, per, peak, ms = {}, {}, {}, {}
     for m, sc in combos:                       # the path's counted run
         before = counters()
@@ -1307,7 +1360,7 @@ def phase_engines(card, month, need):
     launches = counters()
     for (m, sc), got in per.items():
         want = {"B": int(sc == "rowtail"), "S": int(m in ("sort", "select")),
-                "C": 2 * (sc == "planes"), "F": 4 * (m == "select"),
+                "S float": 0, "C": 2 * (sc == "planes"), "F": 4 * (m == "select"),
                 "H": 9 * (m == "hist"), "V": int(sc == "planes")}
         if got != want:
             fail(f"engines {m}/{sc} launched {got}, expected {want}")
@@ -1535,6 +1588,8 @@ def main():
     kernels = {}
 
     def merge(path, launches, entries):
+        launches = dict(launches)
+        s_float = launches.pop("S float", None)  # S's launches on float streams
         for name, n in launches.items():
             if name in kernels:                 # timed by an earlier phase
                 kernels[name]["launches"] += n
@@ -1543,11 +1598,12 @@ def main():
             else:
                 kernels[name] = dict(entries[name], launches_by_path={})
             kernels[name]["launches_by_path"][path] = n
+        if s_float is not None:
+            kernels["S"].setdefault("float_launches_by_path", {})[path] = s_float
 
     month = make_month(N_MONTH) if phases & {5, 6, 7, 8} else None
     if 5 in phases:
-        entries = phase_month(card, month)
-        merge("time", {k: v["launches"] for k, v in entries.items()}, entries)
+        merge("time", *phase_month(card, month))
     if 6 in phases:
         merge("dollar", *phase_dollar(card, month, with_bs=5 not in phases,
                                       profile=args.profile))

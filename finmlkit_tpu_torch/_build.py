@@ -23,21 +23,24 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _F64 = ctypes.c_double
-# C entry points: name -> argtypes. Each returns cudaGetLastError() as int.
+# C entry points: name -> argtypes. Each returns cudaGetLastError() as int,
+# but those of _SIZES, which return a number of bytes as int64.
 _SIGNATURES = {
-    "fmk_scan_tile": [],
+    "fmk_scan_scratch_bytes": [ctypes.c_int, _I64, _I64],
     "fmk_prefix_scan": [ctypes.c_int, _P, _P, _P, _I64, _P],
     "fmk_prefix_scan_rows": [ctypes.c_int, _P, _P, _P, _I64, _I64, _P],
     "fmk_bar_products": [_P, _P, _P, _P, _I64, _I64, _P, _P, _P, _P],
     "fmk_ffill_tile": [],
     "fmk_ffill": [ctypes.c_int, _P, _P, _P, _P, _I64, ctypes.c_int, _P],
+    "fmk_event_scratch_bytes": [ctypes.c_int, _I64, _I64, _I64],
     "fmk_event_scan": [ctypes.c_int, _P, _P, _P, _P, _I64, _I64, _F64, _F64,
-                       _F64, _F64, _I64, _P, _I64, _P, _P],
+                       _F64, _F64, _I64, _P, _I64, _P, _I64, _P, _P, _P],
     "fmk_hist_pass": [_P, _P, _P, ctypes.c_int, _I64, _P, _P],
     "fmk_less_pass": [_P, _P, _P, _I64, _P, _P, _P],
     "fmk_bar_planes": [_P, _P, _P, _P, _I64, _I64, _P, _P, _P],
     "fmk_io_floor": [_P] * 8 + [ctypes.c_int, _P, _I64, _P],
 }
+_SIZES = {"fmk_scan_scratch_bytes", "fmk_event_scratch_bytes"}
 
 _lib = None
 build_seconds = None  # wall time of the nvcc run in this process, if any
@@ -111,7 +114,7 @@ def library() -> ctypes.CDLL:
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = _I64 if name in _SIZES else ctypes.c_int
         lib.fmk_error_string.argtypes = [ctypes.c_int]
         lib.fmk_error_string.restype = ctypes.c_char_p
         _lib = lib

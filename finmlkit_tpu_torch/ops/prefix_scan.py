@@ -9,8 +9,10 @@ with a row index in the grid: it replaces ``_cumsum_3d`` (K4a) and
 one launch. The TPU's ``(rows, 128)`` planes, block padding and hi/lo pairs
 (``as_pair=True``) are gone: the wrappers take the tensor as it is.
 
-Integer prefixes wrap modulo 2^32 or 2^64 (two's complement), as the TPU pair
-scans' do.
+An integer stream or stack is ONE launch, a single-pass scan with a decoupled
+look-back; its prefixes wrap modulo 2^32 or 2^64 (two's complement), as the
+TPU pair scans' do. A float stream keeps three launches in a fixed order, so
+that it repeats bit for bit from run to run.
 
 Kernel F (``csrc/ffill.cu``) is the forward fill of ``fast_ffill``: it
 replaces ``_ffill_2d`` (K5), which moved float32 values as int32 bits through
@@ -27,7 +29,9 @@ __all__ = ["fast_cumsum", "fast_cumsum_plain", "fast_cumsum_cols",
            "fast_cumsum_cols_plain", "fast_ffill", "fast_ffill_plain",
            "fill_last", "fill_last_plain"]
 
-LAUNCHES = 0        # kernel S launches by fast_cumsum in this process
+LAUNCHES = 0        # kernel S launches in this process: fast_cumsum's, and the
+                    # one in each kernel E scan (ops/event_scan.py)
+FLOAT_LAUNCHES = 0  # of fast_cumsum's, those on float streams (three passes)
 COLS_LAUNCHES = 0   # kernel C launches by fast_cumsum_cols in this process
 FFILL_LAUNCHES = 0  # kernel F launches by fast_ffill in this process
 FILL_LAST_LAUNCHES = 0  # kernel F launches by fill_last in this process
@@ -74,14 +78,13 @@ def _launch(x: torch.Tensor, rows: int, n: int, what: str) -> torch.Tensor:
     if n == 0 or rows == 0:
         return out
     lib = _build.library()
-    tile = lib.fmk_scan_tile()
-    tiles = (n + tile - 1) // tile
-    partial = torch.empty(rows * tiles, dtype=x.dtype, device=x.device)
+    code = _DTYPE_CODE[x.dtype]
+    scratch = torch.empty(lib.fmk_scan_scratch_bytes(code, rows, n),
+                          dtype=torch.uint8, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.fmk_prefix_scan_rows(_DTYPE_CODE[x.dtype], x.data_ptr(),
-                                      out.data_ptr(), partial.data_ptr(),
-                                      rows, n, stream)
+        rc = lib.fmk_prefix_scan_rows(code, x.data_ptr(), out.data_ptr(),
+                                      scratch.data_ptr(), rows, n, stream)
     _build.check(rc, what)
     return out
 
@@ -92,12 +95,13 @@ def fast_cumsum(x: torch.Tensor) -> torch.Tensor:
     On a CUDA tensor this launches kernel S; on a CPU tensor it runs
     :func:`fast_cumsum_plain`.
     """
-    global LAUNCHES
+    global LAUNCHES, FLOAT_LAUNCHES
     _check(x, 1, "fast_cumsum")
     if x.device.type == "cpu":
         return fast_cumsum_plain(x)
     if x.numel():
         LAUNCHES += 1
+        FLOAT_LAUNCHES += x.dtype.is_floating_point
     return _launch(x, 1, x.numel(), "fast_cumsum")
 
 

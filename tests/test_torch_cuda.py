@@ -25,24 +25,42 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n", [1, 2047, 2048, 2049, 8193, 5_000_001])
+# the one-pass tiles hold 4096 int32 or 2048 int64 values, the float tiles 2048
+SCAN_NS = [1, 2047, 2048, 2049, 4095, 4096, 4097, 2048 * 37 - 1, 2048 * 37 + 1,
+           5_000_001, 39_171_930]
+
+
+def _scan_input(shape, dtype, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    if dtype.is_floating_point:
+        return torch.rand(shape, dtype=dtype, device=device, generator=g)
+    x = torch.randint(-1000, 1000, shape, dtype=dtype, device=device, generator=g)
+    x.view(-1)[::3] = torch.iinfo(dtype).max // 2 + 1000  # near 2^31 or 2^63: wraps
+    return x
+
+
+def _check_scan(got, want, again):
+    """Integers exactly the plain version's; floats within rtol of it and
+    equal to themselves, bit for bit, over five more runs."""
+    if got.dtype.is_floating_point:
+        assert_close(got, want, rtol=1e-5 if got.dtype == torch.float32 else 1e-12)
+        for _ in range(5):
+            assert_exact(again(), got, "float scan run to run")
+    else:
+        assert_exact(got, want)
+
+
+@pytest.mark.parametrize("n", SCAN_NS)
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64, torch.float32,
                                    torch.float64])
 def test_scan_matches_plain(cuda, dtype, n):
-    g = torch.Generator(device=cuda).manual_seed(n)
-    if dtype.is_floating_point:
-        x = torch.rand(n, dtype=dtype, device=cuda, generator=g)
-    else:
-        x = torch.randint(-1000, 1000, (n,), dtype=dtype, device=cuda, generator=g)
-        x[::3] = torch.iinfo(dtype).max // 2  # wraps
-    before = prefix_scan.LAUNCHES
+    x = _scan_input((n,), dtype, cuda, n)
+    before = (prefix_scan.LAUNCHES, prefix_scan.FLOAT_LAUNCHES)
     got = prefix_scan.fast_cumsum(x)
-    assert prefix_scan.LAUNCHES == before + 1
-    want = prefix_scan.fast_cumsum_plain(x)
-    if dtype.is_floating_point:
-        assert_close(got, want, rtol=1e-5 if dtype == torch.float32 else 1e-12)
-    else:
-        assert_exact(got, want)
+    assert (prefix_scan.LAUNCHES, prefix_scan.FLOAT_LAUNCHES) == \
+        (before[0] + 1, before[1] + dtype.is_floating_point)
+    _check_scan(got, prefix_scan.fast_cumsum_plain(x),
+                lambda: prefix_scan.fast_cumsum(x))
 
 
 @pytest.mark.parametrize("case", [
@@ -71,25 +89,18 @@ def test_bar_products_reject_unsorted_ci(cuda):
         fused_scan.bar_scan_products(ticks, units, sides, ci.flip(0))
 
 
-@pytest.mark.parametrize("n", [1, 2047, 2048, 2049, 5_000_001])
-@pytest.mark.parametrize("c", [1, 2, 5])
+@pytest.mark.parametrize("c,n", [(c, n) for c in (1, 2, 5)
+                                 for n in (1, 2047, 2048, 2049, 4097, 5_000_001)]
+                         + [(65_535, 5), (65_535, 4097)])
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64, torch.float32,
                                    torch.float64])
 def test_cols_scan_matches_plain(cuda, dtype, c, n):
-    g = torch.Generator(device=cuda).manual_seed(n + c)
-    if dtype.is_floating_point:
-        x = torch.rand((c, n), dtype=dtype, device=cuda, generator=g)
-    else:
-        x = torch.randint(-1000, 1000, (c, n), dtype=dtype, device=cuda, generator=g)
-        x[0, ::3] = torch.iinfo(dtype).max // 2  # row 0 wraps, the others not
+    x = _scan_input((c, n), dtype, cuda, n + c)
     before = prefix_scan.COLS_LAUNCHES
     got = prefix_scan.fast_cumsum_cols(x)
     assert prefix_scan.COLS_LAUNCHES == before + 1
-    want = prefix_scan.fast_cumsum_cols_plain(x)
-    if dtype.is_floating_point:
-        assert_close(got, want, rtol=1e-5 if dtype == torch.float32 else 1e-12)
-    else:
-        assert_exact(got, want)
+    _check_scan(got, prefix_scan.fast_cumsum_cols_plain(x),
+                lambda: prefix_scan.fast_cumsum_cols(x))
 
 
 @pytest.mark.parametrize("case", [
@@ -159,6 +170,11 @@ def test_ffill_matches_plain(cuda, dtype, n, mask):
     assert_exact(got, prefix_scan.fast_ffill_plain(v, m))
 
 
+# kernel E's chunk counts held against its default: the sequential walk, a
+# few long chunks, many short ones (a 1M-trade stream has 489 tiles)
+CHUNKS = (1, 7, 200)
+
+
 def _sides(n, device, seed):
     g = torch.Generator(device=device).manual_seed(seed)
     s = torch.where(torch.rand(n, device=device, generator=g) < 0.5, 1, -1)
@@ -181,12 +197,19 @@ def test_info_scan_matches_plain(cuda, case, run_mode):
         n = 100_000
         w, args = w[:n], (1.0, 1.0, 0.0, 0.0)
     mb = 50 if case == "capped" else n
-    before = event_scan.LAUNCHES
+    before = (event_scan.LAUNCHES, prefix_scan.LAUNCHES)
     got = event_scan.info_scan(w, *args, mb, run_mode)
-    assert event_scan.LAUNCHES == before + 1
+    assert (event_scan.LAUNCHES, prefix_scan.LAUNCHES) == \
+        (before[0] + 1, before[1] + 1)   # E, and S for its compaction
     want = event_scan.info_scan_plain(w, *args, mb, run_mode)
     assert_exact(got, want)
     assert len(want) > 25
+    e_t, e_r, a_t, a_r = args
+    for chunks in CHUNKS:
+        assert_exact(event_scan._launch(
+            event_scan._RUN if run_mode else event_scan._IMBALANCE, n, 1, mb,
+            cuda, x=w, e_t=e_t, e_r=e_r, alpha_t=a_t, alpha_r=a_r,
+            chunks=chunks), got, f"{chunks} chunks against the default")
 
 
 @pytest.mark.parametrize("thr", [1, 10**7, 10**9, 10**12])
@@ -197,10 +220,15 @@ def test_volume_scan_matches_plain(cuda, thr):
                           generator=g)
     units[::50] = 10**9
     mb = n if thr > 1 else 200_000      # thr 1: a bar per trade, capped
-    before = event_scan.LAUNCHES
+    before = (event_scan.LAUNCHES, prefix_scan.LAUNCHES)
     got = event_scan.volume_scan(units, thr, mb)
-    assert event_scan.LAUNCHES == before + 1
+    assert (event_scan.LAUNCHES, prefix_scan.LAUNCHES) == \
+        (before[0] + 1, before[1] + 1)
     assert_exact(got, event_scan.volume_scan_plain(units, thr, mb))
+    for chunks in CHUNKS:
+        assert_exact(event_scan._launch(event_scan._VOLUME, n, 1, mb, cuda,
+                                        units=units, thr=thr, chunks=chunks),
+                     got, f"{chunks} chunks against the default")
 
 
 @pytest.mark.parametrize("start", [0, 4097])
@@ -215,12 +243,18 @@ def test_cusum_scan_matches_plain(cuda, start, max_bars):
                                      generator=g))
     can_close = torch.rand(n, device=cuda, generator=g) < 0.9
     mb = n if max_bars is None else max_bars
-    before = event_scan.LAUNCHES
+    before = (event_scan.LAUNCHES, prefix_scan.LAUNCHES)
     got = event_scan.cusum_scan(rets, lam, can_close, start, mb)
-    assert event_scan.LAUNCHES == before + 1
+    assert (event_scan.LAUNCHES, prefix_scan.LAUNCHES) == \
+        (before[0] + 1, before[1] + 1)
     want = event_scan.cusum_scan_plain(rets, lam, can_close, start, mb)
     assert_exact(got, want)
     assert len(want) > 25
+    for chunks in CHUNKS:
+        assert_exact(event_scan._launch(event_scan._CUSUM, n, start + 1, mb,
+                                        cuda, x=rets, lam=lam,
+                                        can_close=can_close, chunks=chunks),
+                     got, f"{chunks} chunks against the default")
 
 
 def test_event_scan_edges(cuda):
