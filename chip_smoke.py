@@ -22,10 +22,10 @@ time bars' products through every median engine and bar scan. Phases:
    streams (empty, single-trade and side-0 trades, ci[0] >= 0, units above
    2^31, a bar of about 1M trades): exact; the hist and select engines
    (kernels H and F) against their plain versions and their brackets against
-   the sort engine's on non-empty bars, the full planes (kernels C and V)
-   against their plain version and their products against B's on non-empty
-   bars, every engine and scan's finals against the default's: exact; B, H
-   and V timed on one bar of the 1M trades alone;
+   the sort engine's on non-empty bars, the full planes (kernel V) against
+   their plain version and their products against B's on non-empty bars,
+   every engine and scan's finals against the default's: exact; B, H and the
+   planes call timed on one bar of the 1M trades alone;
 5. the time-bar path through the kernels and through the plain versions on
    the card: bars, integers, medians and finals exact, labels and touch
    indices exact, weights within rtol 1e-12 of their prefix magnitude; each
@@ -57,15 +57,15 @@ time bars' products through every median engine and bar scan. Phases:
    when phases 5 and 6 are skipped;
 8. the engines on the month's 1-minute time bars (phase 5's close indices,
    or recomputed): ``bar_products_final`` with the median engines sort, hist
-   and select times the scans rowtail (kernel B) and planes (kernels C and
-   V), finals bit-identical to the default's; H launched 9 times a hist call,
-   F 4 times a select call, V once and C twice a planes call; kernel H
+   and select times the scans rowtail (kernel B) and planes (kernel V),
+   finals bit-identical to the default's; H launched 9 times a hist call,
+   F 4 times a select call, V once and C never a planes call; kernel H
    against its plain version on every pass of the run, F's int32 fill on
    every fill of the select engine, the planes against the plain planes and
    their products against B's on non-empty bars, all exact; the floor probes
    P1, P2 (k = 1, 2, 4, 8) and P3 (kernel P) against ``torch.sum``, exact;
-   each kernel alone timed with its bound, each engine and scan's stage time
-   and peak device memory. B, S and C are timed here when no earlier phase
+   each kernel alone timed with its bound (V's six passes also one by one),
+   each engine and scan's stage time and peak device memory. B, S and C are timed here when no earlier phase
    timed them.
 
 Run from the repository root: ``python3 chip_smoke.py``; ``--phases 1,2,6``
@@ -120,7 +120,7 @@ KERNELS = {
           "bar_products.cu", "finmlkit_tpu/ops/fused_scan.py:1261, :1319 and :1288"),
     "S": ("S prefix_scan (replaces K2 and K3)", "prefix_scan.cu",
           "finmlkit_tpu/ops/pallas_scan.py:141 and :182"),
-    "C": ("C prefix_scan_rows (replaces K4a and K4b; K1c's prefixes)",
+    "C": ("C prefix_scan_rows (replaces K4a and K4b)",
           "prefix_scan.cu", "finmlkit_tpu/ops/pallas_scan.py:249 and :287"),
     "F": ("F ffill (replaces K5; L1 in its int32 mode)", "ffill.cu",
           "finmlkit_tpu/ops/pallas_scan.py:84 and finmlkit_tpu/ops/segment_select.py:73"),
@@ -131,7 +131,7 @@ KERNELS = {
                           ("volume", 368))},
     "H": ("H segment_hist (replaces H1 and H2)", "segment_hist.cu",
           "finmlkit_tpu/ops/segment_hist.py:106 and :167"),
-    "V": ("V bar_planes with C's prefixes (replaces K1c)", "bar_planes.cu",
+    "V": ("V bar_planes, a segmented scan over tiles (replaces K1c)", "bar_planes.cu",
           "finmlkit_tpu/ops/fused_scan.py:1342"),
     "P": ("P io_floor (replaces P1, P2 and P3)", "io_floor.cu",
           "finmlkit_tpu/ops/fused_scan.py:1185, :1213 and :1236"),
@@ -361,10 +361,11 @@ def check_engines_and_planes(ticks, units, sides, amounts, ci, what):
 
 
 def long_bar_times(n_long):
-    """Kernels B, H (one histogram pass, one less pass) and V on one bar of
-    ``n_long`` trades: one block walks it alone."""
+    """Kernels B and H (one histogram pass, one less pass), where one block
+    walks the bar alone, and the planes call (kernel V, tiles of 2048
+    trades) on one bar of ``n_long`` trades."""
     import torch
-    from finmlkit_tpu_torch.ops.fused_scan import bar_planes_extrema, bar_scan_products
+    from finmlkit_tpu_torch.ops.fused_scan import bar_scan_planes, bar_scan_products
     from finmlkit_tpu_torch.ops import segment_hist as sh
     from finmlkit_tpu_torch.testing import adversarial_trades
     ticks, units, sides, amounts, _ = (torch.from_numpy(a).cuda() for a in
@@ -376,8 +377,8 @@ def long_bar_times(n_long):
     t = {"B": cuda_ms(lambda: bar_scan_products(ticks, units, sides, ci)),
          "H hist pass": cuda_ms(lambda: sh._launch_hist(bits, ci, zero, 28)),
          "H less pass": cuda_ms(lambda: sh._launch_less(bits, ci, bits[:1])),
-         "V": cuda_ms(lambda: bar_planes_extrema(ticks, units, sides, ci))}
-    say(f"one bar of {n_long:,} trades, one block each (ms): " + ", ".join(
+         "V planes call": cuda_ms(lambda: bar_scan_planes(ticks, units, sides, ci))}
+    say(f"one bar of {n_long:,} trades (ms): " + ", ".join(
         f"{k} {v:.3f}" for k, v in t.items()) + f"; B's bytes bound "
         f"{bound(13 * n_long, 0)[0]:.4f} ms")
 
@@ -916,6 +917,23 @@ def profile_dollar(card, tr, thr, fp, e2e_ms):
         f"median {e2e_ms:.2f} ms, idle share about "
         f"{max(0.0, 1 - busy / e2e_ms):.1%} [{card}]")
 
+def trace_device_ms(fn):
+    """One warm call of ``fn`` under torch.profiler: the device time of each
+    kernel it launched (ms, by name, largest first) and their sum."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                 key=lambda e: -e.self_device_time_total)
+    times = {e.key[:60]: e.self_device_time_total / 1e3 for e in dev}
+    return times, sum(times.values())
+
+
 def info_sigma(n, seed=0):
     """The CUSUM bars' sigma: 2e-5 a trade (bench.py:861), NaN at the first
     1,000 trades and at 1% of the trades drawn from the seed, so that kernel
@@ -1360,7 +1378,7 @@ def phase_engines(card, month, need):
     launches = counters()
     for (m, sc), got in per.items():
         want = {"B": int(sc == "rowtail"), "S": int(m in ("sort", "select")),
-                "S float": 0, "C": 2 * (sc == "planes"), "F": 4 * (m == "select"),
+                "S float": 0, "C": 0, "F": 4 * (m == "select"),
                 "H": 9 * (m == "hist"), "V": int(sc == "planes")}
         if got != want:
             fail(f"engines {m}/{sc} launched {got}, expected {want}")
@@ -1378,7 +1396,7 @@ def phase_engines(card, month, need):
         for key_ in combos:
             ms[key_].append(timed(*key_)[1])
     say(f"engines: {nb:,} time bars, launches {launches} (per call as expected: "
-        f"H 9 a hist call, F 4 a select call, V 1 and C 2 a planes call); every "
+        f"H 9 a hist call, F 4 a select call, V 1 and C 0 a planes call); every "
         f"engine and scan's finals == sort/rowtail's bit for bit")
     say("engine stage ms (bar_products_final, median of 3) and peak device "
         "memory above the trades: " + "; ".join(
@@ -1451,7 +1469,7 @@ def phase_engines(card, month, need):
         f"one fill {f_ms:.3f} ms vs plain {f_plain:.3f} ms, bound "
         f"{f_bound[0]:.3f} ms [{card}]")
 
-    # --- the planes (kernels C and V) against the plain planes, exact ---
+    # --- the planes (kernel V) against the plain planes, exact ---
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     planes = fs.bar_scan_planes(*trade_args)
@@ -1469,24 +1487,38 @@ def phase_engines(card, month, need):
     del planes
     v_ms = cuda_ms(lambda: fs.bar_scan_planes(*trade_args))
     v_plain = cuda_ms(lambda: fs.bar_scan_planes_plain(*trade_args), reps=2)
-    v_alone = cuda_ms(lambda: fs.bar_planes_extrema(*trade_args))
+    # the kernel alone (ci checked once, buffers made once), then each of its
+    # passes alone on the state the passes before it left
+    v_args = fs._cuda_inputs(*trade_args, "phase 8")
+    bufs = fs._planes_buffers(n, ci.device)
+    fs._planes_kernel(*v_args, bufs)
+    v_kernel = cuda_ms(lambda: fs._planes_kernel(*v_args, bufs))
+    v_pass = {name: cuda_ms(lambda p=p: fs._planes_kernel(*v_args, bufs, passes=1 << p))
+              for p, name in enumerate(fs.PLANES_PASSES)}
+    del bufs
+    v_trace, v_busy = trace_device_ms(lambda: fs.bar_scan_planes(*trade_args))
     # the planes: 13 bytes a trade in, 6 int64 + 3 int32 prefixes and 5 int32 +
-    # 4 float32 extrema out (96 bytes a trade); V alone writes 36 of them
+    # 4 float32 extrema out (96 bytes a trade)
     v_bound = bound(13 * n + 8 * (nb + 1) + 96 * n, 60 * n)
-    v_alone_bound = bound(13 * n + 8 * (nb + 1) + 36 * n, 40 * n)
+    planes_gib = (planes_peak - base_mem) / 2**30
     say(f"planes == plain planes bit for bit, products == B on {int(ne.sum()):,} "
-        f"non-empty bars; bar_scan_planes (C twice, V once) {v_ms:.3f} ms vs "
-        f"plain {v_plain:.3f} ms, bound {v_bound[0]:.3f} ms; V alone {v_alone:.3f} "
-        f"ms, bound {v_alone_bound[0]:.3f} ms; peak device memory "
-        f"{(planes_peak - base_mem) / 2**30:.2f} GiB above the trades for the "
-        f"planes, {(plain_peak - base_mem) / 2**30:.2f} GiB with the plain planes "
-        f"[{card}]")
+        f"non-empty bars; bar_scan_planes (V once) {v_ms:.3f} ms vs plain "
+        f"{v_plain:.3f} ms, bound {v_bound[0]:.3f} ms; the kernel alone "
+        f"{v_kernel:.3f} ms, its passes " + ", ".join(
+            f"{k} {v:.3f}" for k, v in v_pass.items())
+        + f" ms; peak device memory {planes_gib:.2f} GiB above the trades for "
+        f"the planes, {(plain_peak - base_mem) / 2**30:.2f} GiB with the plain "
+        f"planes [{card}]")
+    say(f"one planes call under torch.profiler: device busy {v_busy:.3f} ms; "
+        "device ms by kernel: " + ", ".join(f"{k} {v:.3f}" for k, v in v_trace.items())
+        + f" [{card}]")
 
     kernels = {
         "H": kernel_entry("H", launches["H"], 0.0, h_ms, h_plain, h_bound, h_lib,
                           h_pass_ms=h_pass_ms, h_wrapped_ms=h_wrapped),
         "V": kernel_entry("V", launches["V"], 0.0, v_ms, v_plain, v_bound, None,
-                          v_alone_ms=v_alone, v_alone_bound_ms=v_alone_bound[0]),
+                          kernel_alone_ms=v_kernel, pass_ms=v_pass,
+                          traced_ms=v_trace, peak_gib_above_trades=planes_gib),
         "F": kernel_entry("F", launches["F"], 0.0, f_ms, f_plain, f_bound, None,
                           int32_fill_ms=f_ms, int32_fill_plain_ms=f_plain,
                           int32_fill_bound_ms=f_bound[0]),
@@ -1553,6 +1585,7 @@ def phase_engines(card, month, need):
     kernels["P"] = kernel_entry(
         "P", floor_launches["P"], 0.0, p_ms["P1"], p_plain, p_bound, p_lib,
         p2_ms={str(k): p_ms[f"P2 k={k}"] for k in IO_FLOOR_K}, p3_ms=p_ms["P3"],
+        p3_library_ms=p_lib,
         p2_plain_ms={str(k): v for k, v in p2_plain.items()},
         p2_library_ms={str(k): v for k, v in p2_lib.items()})
     return launches, kernels, floor_launches

@@ -22,8 +22,8 @@ compiled by ``nvcc`` for ``sm_90a`` at first use (``_build.py``) and bound with
 - kernel **H** (``csrc/segment_hist.cu``, ``ops.segment_hist``): the
   per-bar histogram and "less" passes of the hist median engine;
 - kernel **V** (``csrc/bar_planes.cu``, ``ops.fused_scan.bar_scan_planes``):
-  every trade's in-bar running extrema, the full planes with kernel C's
-  prefixes;
+  the full planes, every trade's prefixes and in-bar running extrema, as one
+  segmented scan over fixed tiles of trades;
 - kernel **P** (``csrc/io_floor.cu``, ``ops.fused_scan.bar_scan_io_floor``):
   the streaming-floor probes.
 

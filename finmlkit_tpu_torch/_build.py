@@ -37,10 +37,13 @@ _SIGNATURES = {
                        _F64, _F64, _I64, _P, _I64, _P, _I64, _P, _P, _P],
     "fmk_hist_pass": [_P, _P, _P, ctypes.c_int, _I64, _P, _P],
     "fmk_less_pass": [_P, _P, _P, _I64, _P, _P, _P],
-    "fmk_bar_planes": [_P, _P, _P, _P, _I64, _I64, _P, _P, _P],
+    "fmk_planes_scratch_bytes": [_I64],
+    "fmk_bar_planes": [_P] * 4 + [_I64, _I64] + [_P] * 5 + [ctypes.c_int, _P],
     "fmk_io_floor": [_P] * 8 + [ctypes.c_int, _P, _I64, _P],
+    "fmk_io_floor_stacked": [_P, ctypes.c_int, _I64, _P, _P],
 }
-_SIZES = {"fmk_scan_scratch_bytes", "fmk_event_scratch_bytes"}
+_SIZES = {"fmk_scan_scratch_bytes", "fmk_event_scratch_bytes",
+          "fmk_planes_scratch_bytes"}
 
 _lib = None
 build_seconds = None  # wall time of the nvcc run in this process, if any

@@ -8,7 +8,7 @@ of the trades. Its stages:
 1. the bar scan (``scan``) reads the trades and writes the per-bar integer
    and float32 products: kernel B (``ops.fused_scan.bar_scan_products``) by
    default, or :func:`planes_products`, the full running state of every
-   trade (kernels C and V) gathered at the bar boundaries, as the JAX
+   trade (kernel V) gathered at the bar boundaries, as the JAX
    package's ``scan="planes"`` (``fused_packed_device``);
 2. a median engine (``medians``) gives the two middle trade sizes of every
    bar: ``"sort"`` (:func:`median_pairs`: bar ids from kernel S over the
@@ -228,7 +228,7 @@ def gather_planes(planes, ticks, ci):
 
 
 def planes_products(ticks, units, sides, ci):
-    """Per-bar products through the full planes (kernels C and V on CUDA
+    """Per-bar products through the full planes (kernel V on CUDA
     tensors), with :func:`bar_scan_products`'s signature and layout: the
     ``scan`` of :func:`bar_products_final` that the kits call ``"planes"``."""
     return gather_planes(fused_scan.bar_scan_planes(ticks, units, sides, ci),

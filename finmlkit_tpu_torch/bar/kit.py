@@ -59,7 +59,7 @@ class BarBuilderBase(ABC):
     the last two are exact for nonnegative amounts. ``scan`` names the bar
     scan: "rowtail" (the default) or "rowtail4" (both kernel B, as the JAX
     kits' two rowtail kernels compute one function) or "planes" (the
-    running state of every trade, kernels C and V, gathered at the bars).
+    running state of every trade, kernel V, gathered at the bars).
     An unknown name raises, and so does "host" (not ported).
     """
 

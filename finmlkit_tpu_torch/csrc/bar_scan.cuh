@@ -1,6 +1,7 @@
-// What kernels B (bar_products.cu) and V (bar_planes.cu) share: one trade's
-// contributions to a bar, and the block-wide scan that carries the in-bar
-// running imbalances through a tile.
+// What kernels B (bar_products.cu) and V (bar_planes.cu) share: the float32
+// rounding of the imbalances and the block-wide scan; and B's view of one
+// trade's contributions to a bar, whose rules V follows on its shared-memory
+// tiles.
 //
 // Bit-exactness with the TPU kernels (finmlkit_tpu/ops/fused_scan.py):
 // - the float32 imbalance values are rounded from int64 in two steps,

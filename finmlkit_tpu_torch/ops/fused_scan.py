@@ -23,23 +23,22 @@ the clamped positions ``ci[k]+1`` and ``ci[k+1]``; the JAX package leaves the
 previous bar's extrema there instead, and the finals mask both.
 
 :func:`bar_scan_planes` is the full-plane scan (K1c, ``bar_scan_planes`` v1):
-the running state of every trade, the 9 global prefixes from kernel C and
-the 9 in-bar running extrema from kernel V. :func:`bar_scan_io_floor` and its
+the running state of every trade, its 9 global prefixes and 9 in-bar running
+extrema, from kernel V, a segmented scan over fixed tiles of trades. :func:`bar_scan_io_floor` and its
 two variants are the streaming-floor probes (P1-P3), all served by kernel P.
 """
 import torch
 
 from .. import _build
-from .prefix_scan import fast_cumsum_cols
 
 __all__ = ["bar_scan_products", "bar_scan_products_plain", "pair_to_f32",
            "prep_planes_plain", "bar_scan_planes", "bar_scan_planes_plain",
-           "bar_planes_extrema", "planes_prefix_inputs",
+           "bar_scan_planes_tiles", "planes_prefix_inputs",
            "bar_scan_io_floor", "bar_scan_io_floor_k", "bar_scan_io_floor_stacked",
            "io_floor_plain", "I32MIN", "I32MAX", "F32BIG"]
 
 LAUNCHES = 0         # kernel B launches by bar_scan_products in this process
-PLANES_LAUNCHES = 0  # kernel V launches by bar_scan_planes
+PLANES_LAUNCHES = 0  # kernel V calls by bar_scan_planes (all its passes count 1)
 IO_FLOOR_LAUNCHES = 0  # kernel P launches by the bar_scan_io_floor probes
 
 I32MIN = -2147483648
@@ -211,7 +210,7 @@ def bar_scan_products(ticks, units, sides, ci):
 
 
 # ---------------------------------------------------------------------------
-# Full planes (K1c): kernel C for the prefixes, kernel V for the extrema
+# Full planes (K1c): kernel V
 # ---------------------------------------------------------------------------
 
 def prep_planes_plain(ticks, units, sides, ci):
@@ -336,42 +335,173 @@ def bar_scan_planes(ticks, units, sides, ci):
 
     Outside every bar the inputs count 0 and the extrema hold the sentinels
     (``I32MIN``, ``I32MAX``, -1, ``I32MAX``, ``I32MIN``, ``±F32BIG``), as in
-    the TPU kernel. On CUDA tensors this launches kernel C twice (one
-    launch per dtype) and kernel V once; on CPU tensors it runs
-    :func:`bar_scan_planes_plain`.
+    the TPU kernel. On CUDA tensors this launches kernel V once: a segmented
+    scan over fixed tiles of trades (:func:`bar_scan_planes_tiles` models its
+    decomposition); on CPU tensors it runs :func:`bar_scan_planes_plain`.
     """
+    global PLANES_LAUNCHES
     _check_inputs(ticks, units, sides, ci)
     if ticks.device.type == "cpu":
         return bar_scan_planes_plain(ticks, units, sides, ci)
     ticks, units, sides, ci = _cuda_inputs(ticks, units, sides, ci,
-                                           "bar_scan_planes", extra_blocks=2)
-    in64, in32 = planes_prefix_inputs(ticks, units, sides, ci)
-    pre64, pre32 = fast_cumsum_cols(in64), fast_cumsum_cols(in32)
-    del in64, in32
-    return (pre64, pre32, *bar_planes_extrema(ticks, units, sides, ci))
+                                           "bar_scan_planes")
+    n = ticks.shape[0]
+    if n >= 2**31 - _PLANES_TILE:
+        raise ValueError(f"{n} trades exceed the planes kernel's int32 counts")
+    bufs = _planes_buffers(n, ticks.device)
+    _planes_kernel(ticks, units, sides, ci, bufs)
+    PLANES_LAUNCHES += 1
+    return bufs[:4]
 
 
-def bar_planes_extrema(ticks, units, sides, ci):
-    """Kernel V alone: the ``(ext32, extf)`` planes of :func:`bar_scan_planes`
-    (on CPU tensors, those of :func:`bar_scan_planes_plain`)."""
-    global PLANES_LAUNCHES
-    _check_inputs(ticks, units, sides, ci)
-    if ticks.device.type == "cpu":
-        return bar_scan_planes_plain(ticks, units, sides, ci)[2:]
-    ticks, units, sides, ci = _cuda_inputs(ticks, units, sides, ci,
-                                           "bar_planes_extrema", extra_blocks=2)
+_PLANES_TILE = 1024          # trades a tile of kernel V (csrc/bar_planes.cu kTile)
+PLANES_PASSES = ("marks", "reduce", "scan", "float reduce", "float scan", "write")
+
+
+def _planes_buffers(n, device):
+    """Kernel V's outputs ``(pre64, pre32, ext32, extf)`` and its scratch."""
+    return (torch.empty((6, n), dtype=torch.int64, device=device),
+            torch.empty((3, n), dtype=torch.int32, device=device),
+            torch.empty((5, n), dtype=torch.int32, device=device),
+            torch.empty((4, n), dtype=torch.float32, device=device),
+            torch.empty(_build.library().fmk_planes_scratch_bytes(n),
+                        dtype=torch.uint8, device=device))
+
+
+def _planes_kernel(ticks, units, sides, ci, bufs, passes=(1 << len(PLANES_PASSES)) - 1):
+    """Kernel V's passes named by the bit mask ``passes`` (bit p: pass p of
+    :data:`PLANES_PASSES`) on checked contiguous CUDA inputs, into the
+    buffers of :func:`_planes_buffers`. One pass alone reads what the passes
+    before it left in the scratch."""
     dev = ticks.device
-    n, nb = ticks.shape[0], ci.shape[0] - 1
-    ext32 = torch.empty((5, n), dtype=torch.int32, device=dev)
-    extf = torch.empty((4, n), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _build.library().fmk_bar_planes(
             ticks.data_ptr(), units.data_ptr(), sides.data_ptr(), ci.data_ptr(),
-            n, nb, ext32.data_ptr(), extf.data_ptr(), stream)
-    PLANES_LAUNCHES += 1
-    _build.check(rc, "bar_planes_extrema")
-    return ext32, extf
+            ticks.shape[0], ci.shape[0] - 1, *(b.data_ptr() for b in bufs),
+            passes, stream)
+    _build.check(rc, "bar_scan_planes")
+
+
+def bar_scan_planes_tiles(ticks, units, sides, ci, tile: int):
+    """CPU model of kernel V's decomposition, in plain torch on any device:
+    the planes of :func:`bar_scan_planes_plain`, bit for bit, built as the
+    kernel builds them from tiles of ``tile`` trades.
+
+    1. Each tile's summary: its 9 sums, whether a bar opens in it, and its
+       last segment's (from its last open, or from its start) in-bar sums and
+       5 integer running extrema, the tick imbalance's relative to the
+       segment's own start.
+    2. An exclusive scan of the summaries under the segmented operator (sums
+       add; an open on the right restarts the in-bar state): every tile's
+       entry prefixes, in-bar sums and integer extrema, exact.
+    3. Each tile's float extrema of its last segment, from that segment's
+       exact entry sums. They are not carried as int64 extrema and rounded
+       once: ``pair_to_f32`` drops at -2^56, and an in-bar sum may wrap.
+    4. An exclusive scan of those: every tile's entry float extrema.
+    5. Each tile re-walked from its entry state.
+    """
+    _check_inputs(ticks, units, sides, ci)
+    dev = ticks.device
+    ticks, units, sides, ci = (t.cpu() for t in (ticks, units, sides, ci))
+    n = ticks.shape[0]
+    i32, i64 = torch.int32, torch.int64
+    in64, in32 = planes_prefix_inputs(ticks, units, sides, ci)
+    valid, mark = _valid(ci, n), _open_marks(ci, n)
+    traded = valid & (sides != 0)
+    run = (in32[0] - in32[1], in64[0] - in64[1], in64[2] - in64[3])  # ct, cv, cd
+    vals32 = torch.stack([torch.where(valid, ticks, I32MIN),
+                          torch.where(valid, ticks, I32MAX),
+                          torch.where(valid, in32[2], -1)])
+    how32 = ("max", "min", "max", "min", "max")
+    howf = ("min", "max", "min", "max")
+    bounds = [(a, min(a + tile, n)) for a in range(0, n, tile)]
+    zero32, zero64 = torch.zeros((), dtype=i32), torch.zeros((), dtype=i64)
+    ext_id = torch.tensor([I32MIN, I32MAX, I32MIN, I32MAX, I32MIN], dtype=i32)
+    fid = torch.tensor([F32BIG, -F32BIG, F32BIG, -F32BIG], dtype=torch.float32)
+
+    def pick(x, how):
+        return x.max() if how == "max" else x.min()
+
+    def last_open(a, b):
+        opens = torch.nonzero(mark[a:b]).reshape(-1)
+        return bool(len(opens)), a + int(opens[-1]) if len(opens) else a
+
+    def combine(x, y):
+        """Two stretches' summaries, ``x`` before ``y``."""
+        s64, s32 = x["s64"] + y["s64"], x["s32"] + y["s32"]
+        if y["o"]:
+            return dict(y, s64=s64, s32=s32)
+        e = y["e"].clone()
+        shift = (e != ext_id) & torch.tensor([False, False, False, True, True])
+        e = torch.where(shift, e + x["r"][0], e)
+        e = torch.stack([pick(torch.stack([u, v]), h)
+                         for u, v, h in zip(x["e"], e, how32)])
+        return dict(o=x["o"], s64=s64, s32=s32, e=e,
+                    r=tuple(u + v for u, v in zip(x["r"], y["r"])))
+
+    # 1. summaries
+    tiles = []
+    for a, b in bounds:
+        o, s = last_open(a, b)
+        ct = torch.cumsum(run[0][s:b], 0, dtype=i32)
+        tr = traded[s:b]
+        e = [pick(vals32[k, s:b], how32[k]) for k in range(3)]
+        e += [torch.where(tr, ct, I32MAX).min(), torch.where(tr, ct, I32MIN).max()]
+        tiles.append(dict(o=o, s64=in64[:, a:b].sum(1), s32=in32[:, a:b].sum(1, dtype=i32),
+                          r=(ct[-1], run[1][s:b].sum(), run[2][s:b].sum()),
+                          e=torch.stack(e)))
+    # 2. the entry state of every tile
+    entry = [dict(o=False, s64=torch.zeros(6, dtype=i64), s32=torch.zeros(3, dtype=i32),
+                  r=(zero32, zero64, zero64), e=ext_id)]
+    for x in tiles[:-1]:
+        entry.append(combine(entry[-1], x))
+
+    def in_bar(k, a, b, base):
+        """In-bar running sums over [a, b) from ``base`` at ``a``."""
+        idx = torch.arange(b - a)
+        p = torch.cumsum(run[k][a:b], 0, dtype=run[k].dtype)
+        lm = torch.cummax(torch.where(mark[a:b], idx, -1), 0).values
+        e = p - run[k][a:b]
+        return torch.where(lm >= 0, p - e[lm.clamp(min=0)], base + p)
+
+    def floats(a, b, base_cv, base_cd):
+        return [pair_to_f32(in_bar(k, a, b, base)) for k, base in
+                ((1, base_cv), (1, base_cv), (2, base_cd), (2, base_cd))]
+
+    # 3. float extrema of each tile's last segment; 4. their entries
+    fentry = [(False, fid)]
+    for (a, b), x, t in zip(bounds[:-1], tiles, entry):
+        o, s = last_open(a, b)
+        base = (zero64, zero64) if o else t["r"][1:]
+        fe = torch.stack([pick(torch.where(traded[s:b], v, fid[k]), howf[k])
+                          for k, v in enumerate(floats(s, b, *base))])
+        po, pfe = fentry[-1]
+        if not o:
+            fe = torch.where(torch.tensor([True, False, True, False]),
+                             torch.minimum(pfe, fe), torch.maximum(pfe, fe))
+        fentry.append((po or o, fe))
+    # 5. every tile from its entry state
+    pre64 = torch.empty((6, n), dtype=i64)
+    pre32 = torch.empty((3, n), dtype=i32)
+    ext32 = torch.empty((5, n), dtype=i32)
+    extf = torch.empty((4, n), dtype=torch.float32)
+    for (a, b), t, (_, fe) in zip(bounds, entry, fentry):
+        pre64[:, a:b] = t["s64"][:, None] + torch.cumsum(in64[:, a:b], 1)
+        pre32[:, a:b] = t["s32"][:, None] + torch.cumsum(in32[:, a:b], 1, dtype=i32)
+        seg = torch.cumsum(mark[a:b], 0)
+        ct = in_bar(0, a, b, t["r"][0])
+        tr = traded[a:b]
+        v32 = [vals32[0, a:b], vals32[1, a:b], vals32[2, a:b],
+               torch.where(tr, ct, I32MAX), torch.where(tr, ct, I32MIN)]
+        vf = [torch.where(tr, v, fid[k]) for k, v in
+              enumerate(floats(a, b, t["r"][1], t["r"][2]))]
+        for out, vs, hows, carry in ((ext32, v32, how32, t["e"]), (extf, vf, howf, fe)):
+            for k, (v, h) in enumerate(zip(vs, hows)):
+                x = _seg_extremum(v, seg, h)
+                joined = torch.maximum(x, carry[k]) if h == "max" else torch.minimum(x, carry[k])
+                out[k, a:b] = torch.where(seg == 0, joined, x)
+    return pre64.to(dev), pre32.to(dev), ext32.to(dev), extf.to(dev)
 
 
 # ---------------------------------------------------------------------------
@@ -425,8 +555,25 @@ def bar_scan_io_floor_k(x, k: int = 1):
 
 
 def bar_scan_io_floor_stacked(x):
-    """P3: the sum over the rows of one ``(8, n)`` int32 stack."""
+    """P3: the sum over the rows of one ``(8, n)`` int32 stack. Kernel P reads
+    the stack through its one pointer with 16-byte loads, whatever the rows'
+    alignment; :func:`io_floor_plain` on CPU tensors."""
+    global IO_FLOOR_LAUNCHES
+    what = "bar_scan_io_floor_stacked"
     if x.dim() != 2 or x.shape[0] != 8:
-        raise ValueError(f"bar_scan_io_floor_stacked takes an (8, n) stack, "
-                         f"got {tuple(x.shape)}")
-    return _io_floor(tuple(x.contiguous()), "bar_scan_io_floor_stacked")
+        raise ValueError(f"{what} takes an (8, n) stack, got {tuple(x.shape)}")
+    if x.dtype != torch.int32:
+        raise TypeError(f"{what} takes int32, got {x.dtype}")
+    if x.device.type == "cpu":
+        return io_floor_plain(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} runs on cpu or cuda, not {x.device}")
+    x = x.contiguous()
+    out = torch.empty(x.shape[1], dtype=torch.int32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _build.library().fmk_io_floor_stacked(x.data_ptr(), x.shape[0],
+                                                   x.shape[1], out.data_ptr(), stream)
+    IO_FLOOR_LAUNCHES += 1
+    _build.check(rc, what)
+    return out

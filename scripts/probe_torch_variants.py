@@ -1,0 +1,220 @@
+#!/usr/bin/env python3
+"""Variants of the port's kernels V (``csrc/bar_planes.cu``) and P3
+(``csrc/io_floor.cu``) timed on one NVIDIA GPU at the month's shapes.
+
+Each kernel V variant is the source with a few edits (tile shape, launch
+bounds) or an ablation that skips part of the write pass (its outputs are
+then wrong, and the line says so); each is built by its own ``nvcc``, run
+pass by pass on the synthetic month's one-minute bars (``chip_smoke.py``'s
+month) and held to ``bar_scan_planes_plain``. P3 is timed against a
+grid-stride loop of the same loads and against ``torch.sum(x, 0)`` on an
+``(8, n)`` int32 stack with n odd, in turns.
+
+Run from the repository root on a machine with a card:
+``python3 scripts/probe_torch_variants.py [V variant names, comma-separated]``.
+It prints each kernel's registers and spills (ptxas), then one line a
+variant and the card's name and power limit.
+"""
+import ctypes
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+import chip_smoke as cs  # noqa: E402
+from finmlkit_tpu_torch import _build  # noqa: E402
+from finmlkit_tpu_torch.bar.indexers import time_bar_indexer  # noqa: E402
+from finmlkit_tpu_torch.ops import fused_scan as fs  # noqa: E402
+
+CSRC = ROOT / "finmlkit_tpu_torch" / "csrc"
+OUT = ROOT / "build" / "variants"
+WRITE_END = "                                 warp_f, &ftotal);\n"
+
+
+def _sub(pattern, repl):
+    def edit(src):
+        out, k = re.subn(pattern, repl, src)
+        assert k == 1, pattern
+        return out
+    return edit
+
+
+THREADS = r"constexpr int kThreads = 256;"
+ITEMS = r"constexpr int kItems = 4;"
+WRITE_LB = r"__launch_bounds__\(kThreads, 768 / kThreads\)\nplanes_write"
+V_VARIANTS = {
+    "as built": [],
+    "128 threads x 8 trades": [_sub(THREADS, "constexpr int kThreads = 128;"),
+                               _sub(ITEMS, "constexpr int kItems = 8;")],
+    "128 threads x 8 trades, write at 128 registers": [
+        _sub(THREADS, "constexpr int kThreads = 128;"), _sub(ITEMS, "constexpr int kItems = 8;"),
+        _sub(WRITE_LB, "__launch_bounds__(kThreads, 4)\nplanes_write")],
+    "128 threads x 4 trades": [_sub(THREADS, "constexpr int kThreads = 128;")],
+    "write, 2 blocks an SM": [_sub(WRITE_LB, "__launch_bounds__(kThreads, 2)\nplanes_write")],
+    "write, 4 blocks an SM": [_sub(WRITE_LB, "__launch_bounds__(kThreads, 4)\nplanes_write")],
+    # ablations of the write pass: its outputs are wrong
+    "write without its stores": [_sub(r"if \(w0 \+ p < n\) row\[w0 \+ p\] =",
+                                      "if (w0 + p < 0) row[w0 + p] =")],
+    "write without its rows": [_sub(re.escape(WRITE_END), WRITE_END +
+                                    "  if (in.ct != 0x7fffffffu || fin.cvmin != 1.0f) return;\n")],
+    "write without its Sum scan": [_sub(
+        r"fmk::block_exclusive_scan<kWarps>\(x, sum_id\(\), comb, warp_sum, &total\)\)",
+        "x); (void)total")],
+}
+
+P3_GRID_STRIDE = r"""
+#include <cuda_runtime.h>
+namespace {
+__device__ int wadd(int a, int b) { return (int)((unsigned)a + (unsigned)b); }
+__device__ int4 add4(int4 a, int4 b) {
+  return {wadd(a.x, b.x), wadd(a.y, b.y), wadd(a.z, b.z), wadd(a.w, b.w)};
+}
+__device__ int4 pick4(int4 lo, int4 hi, int m) {
+  switch (m) {
+    case 0: return lo;
+    case 1: return {lo.y, lo.z, lo.w, hi.x};
+    case 2: return {lo.z, lo.w, hi.x, hi.y};
+    default: return {lo.w, hi.x, hi.y, hi.z};
+  }
+}
+__global__ void __launch_bounds__(256) k(const int4* __restrict__ base, int head,
+                                         int* __restrict__ out, long long n) {
+  const long long n4 = n / 4;
+  for (long long q = (long long)blockIdx.x * 256 + threadIdx.x; q < n4;
+       q += (long long)gridDim.x * 256) {
+    int4 acc = {0, 0, 0, 0};
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const long long e = head + r * n;
+      const int m = (int)(e & 3);
+      const long long a = (e >> 2) + q;
+      const int4 lo = base[a];
+      acc = add4(acc, pick4(lo, m ? base[a + 1] : lo, m));
+    }
+    reinterpret_cast<int4*>(out)[q] = acc;
+  }
+}
+}  // namespace
+// rows 8, n = 4 n4 + r: only the first 4 n4 values of out are written
+extern "C" int p3_grid_stride(const void* x, long long n, void* out, void* stream) {
+  const auto addr = (unsigned long long)x;
+  k<<<132 * 16, 256, 0, (cudaStream_t)stream>>>((const int4*)(addr & ~15ull),
+                                                (int)((addr & 15ull) / 4), (int*)out, n);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def nvcc(src_dir, out):
+    """Builds every .cu of src_dir into one library; returns ptxas's report."""
+    cus = sorted(str(p) for p in Path(src_dir).glob("*.cu"))
+    r = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-shared", "-o",
+                        str(out), *cus], capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(r.stdout + r.stderr)
+    return r.stdout + r.stderr
+
+
+def ptxas_summary(log):
+    """(kernel, 'N registers, S bytes spilled') of each kernel of bar_planes."""
+    rows, fn = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\w*?_cu_\w+?\d+(planes_[a-z_]+|tiles_scan\w{0,12})",
+                      line)
+        if m:
+            fn = m.group(1)
+        elif fn and "spill stores" in line:
+            spill = line.split("bytes spill stores")[0].split(",")[-1].strip()
+        elif fn and "Used" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            rows.append((fn, f"{regs} registers, {spill} bytes spilled"))
+            fn = None
+    return rows
+
+
+def main():
+    names = sys.argv[1].split(",") if len(sys.argv) > 1 else list(V_VARIANTS)
+    if not torch.cuda.is_available():
+        cs.fail("no CUDA device")
+    card = cs.phase_env()
+    libs = {}
+    for i, name in enumerate(names):
+        d = OUT / f"v{i}"
+        d.mkdir(parents=True, exist_ok=True)
+        src = (CSRC / "bar_planes.cu").read_text()
+        for edit in V_VARIANTS[name]:
+            src = edit(src)
+        (d / "bar_planes.cu").write_text(src)
+        (d / "bar_scan.cuh").write_text((CSRC / "bar_scan.cuh").read_text())
+        for fn, what in ptxas_summary(nvcc(d, d / "lib.so")):
+            cs.say(f"{name}: {fn} {what}")
+        lib = ctypes.CDLL(str(d / "lib.so"))
+        lib.fmk_planes_scratch_bytes.argtypes = [ctypes.c_longlong]
+        lib.fmk_planes_scratch_bytes.restype = ctypes.c_longlong
+        lib.fmk_bar_planes.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2
+                                       + [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p])
+        libs[name] = lib
+    (OUT / "p3").mkdir(parents=True, exist_ok=True)
+    (OUT / "p3" / "p3.cu").write_text(P3_GRID_STRIDE)
+    nvcc(OUT / "p3", OUT / "p3" / "lib.so")
+    p3 = ctypes.CDLL(str(OUT / "p3" / "lib.so"))
+    p3.p3_grid_stride.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                                  ctypes.c_void_p]
+
+    month = cs.make_month(cs.N_MONTH)
+    tr, ts = month["tr"], month["ts"]
+    ci = time_bar_indexer(tr.timestamps, 60.0, ts_first=int(ts[0]),
+                          ts_last_i=int(ts[-1]))[1]
+    args = fs._cuda_inputs(tr.ticks, tr.units, tr.sides, ci, "variants")
+    n, nb = tr.ticks.shape[0], ci.shape[0] - 1
+    want = fs.bar_scan_planes_plain(*args)
+    stream = torch.cuda.current_stream().cuda_stream
+    for name, lib in libs.items():
+        outs = fs._planes_buffers(n, "cuda")[:4]
+        for o in outs:   # no earlier variant's result may pass for this one's
+            o.view(torch.uint8).fill_(0xA5)
+        scratch = torch.empty(lib.fmk_planes_scratch_bytes(n), dtype=torch.uint8,
+                              device="cuda")
+        ptrs = [a.data_ptr() for a in args] + [n, nb] + [o.data_ptr() for o in outs]
+
+        def run(passes=(1 << len(fs.PLANES_PASSES)) - 1):
+            rc = lib.fmk_bar_planes(*ptrs, scratch.data_ptr(), passes, stream)
+            if rc != 0:
+                raise RuntimeError(f"{name}: CUDA error {rc}")
+        run()
+        torch.cuda.synchronize()
+        exact = all(torch.equal(a, b) for a, b in zip(outs, want))
+        total = cs.cuda_ms(run, reps=10)
+        passes = [cs.cuda_ms(lambda p=p: run(1 << p), reps=10)
+                  for p in range(len(fs.PLANES_PASSES))]
+        cs.say(f"V {name}: planes == plain {exact}; all passes {total:.3f} ms; "
+               + ", ".join(f"{k} {t:.3f}" for k, t in zip(fs.PLANES_PASSES, passes))
+               + f" [{card}]")
+        del outs, scratch
+    del want
+
+    x = torch.randint(-2**31, 2**31 - 1, (8, n), dtype=torch.int32, device="cuda")
+    out = torch.empty(n, dtype=torch.int32, device="cuda")
+    p3.p3_grid_stride(x.data_ptr(), n, out.data_ptr(), stream)
+    head = 4 * (n // 4)
+    ok = torch.equal(out[:head], torch.sum(x[:, :head], 0, dtype=torch.int32))
+    times = {}
+    for _ in range(3):   # in turns
+        for key, fn in (("torch.sum(x, 0)", lambda: torch.sum(x, 0, dtype=torch.int32)),
+                        ("P3, one int4 a thread", lambda: fs.bar_scan_io_floor_stacked(x)),
+                        ("P3 loads in a grid-stride loop",
+                         lambda: p3.p3_grid_stride(x.data_ptr(), n, out.data_ptr(), stream))):
+            times.setdefault(key, []).append(cs.cuda_ms(fn, reps=20))
+    cs.say(f"P3 on (8, {n:,}) int32 (grid-stride == torch.sum {ok}), ms in 3 turns: "
+           + "; ".join(f"{k} " + " ".join(f"{t:.4f}" for t in v) for k, v in times.items())
+           + f" [{card}]")
+
+
+if __name__ == "__main__":
+    os.chdir(ROOT)
+    main()

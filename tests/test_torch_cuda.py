@@ -321,18 +321,32 @@ def test_fill_last_matches_plain(cuda, n, mask):
     assert_exact(got, prefix_scan.fill_last_plain(v, m))
 
 
+def _tile_edge_ci(n, tile=2048):
+    """Close indices whose opens fall on kernel V's tile edges (one repeated:
+    an empty bar), and trades after the last bar."""
+    edges = list(range(tile - 1, n - 10, tile))
+    return torch.tensor(sorted([-1] + edges + edges[2:3] + [n - 10]))
+
+
 @pytest.mark.parametrize("case", [
     dict(n=300_000, seed=31, first=-1, long_bar=100_000),
     dict(n=50_000, seed=32, first=9, mean_bar=3),
     dict(n=7, seed=33, first=-1, mean_bar=2),
+    dict(n=400_000, seed=34, first=5, long_bar=300_000),   # a bar over 146 tiles
+    dict(n=1000, seed=35, first=-1, mean_bar=40),          # n below one tile
+    dict(n=30_000, seed=36, edges=True),                   # opens on tile edges
 ])
 def test_planes_match_plain(cuda, case):
+    case = dict(case)
+    edges = case.pop("edges", False)
     ticks, units, sides, _, ci = (
         torch.from_numpy(a).to(cuda) for a in adversarial_trades(**case))
+    if edges:
+        ci = _tile_edge_ci(len(ticks)).to(cuda)
     before = (fused_scan.PLANES_LAUNCHES, prefix_scan.COLS_LAUNCHES)
     got = fused_scan.bar_scan_planes(ticks, units, sides, ci)
     assert (fused_scan.PLANES_LAUNCHES, prefix_scan.COLS_LAUNCHES) == \
-        (before[0] + 1, before[1] + 2)
+        (before[0] + 1, before[1])         # kernel V once, kernel C never
     want = fused_scan.bar_scan_planes_plain(ticks, units, sides, ci)
     for name, a, b in zip(("pre64", "pre32", "ext32", "extf"), got, want):
         assert_exact(a, b, name)
@@ -342,7 +356,7 @@ def test_planes_match_plain(cuda, case):
         assert_exact(a[:, ne], b[:, ne])
 
 
-@pytest.mark.parametrize("n", [1, 3, 4, 4097, 1_000_003])
+@pytest.mark.parametrize("n", [1, 3, 4, 4097, 4098, 4099, 1_000_002, 1_000_003])
 def test_io_floor_matches_plain(cuda, n):
     g = torch.Generator(device=cuda).manual_seed(n)
     x = torch.randint(-2**31, 2**31 - 1, (8, n), dtype=torch.int32, device=cuda,
@@ -356,4 +370,12 @@ def test_io_floor_matches_plain(cuda, n):
                      fused_scan.io_floor_plain([streams[0]] * k), f"P2 k={k}")
     assert_exact(fused_scan.bar_scan_io_floor_stacked(x),
                  fused_scan.io_floor_plain(x), "P3")
-    assert fused_scan.IO_FLOOR_LAUNCHES == before + 6
+    # the stack at a storage offset of 1 to 3 values: row 0 misaligned too
+    flat = torch.empty(8 * n + 3, dtype=torch.int32, device=cuda)
+    for off in (1, 2, 3):
+        y = flat[off:off + 8 * n].view(8, n)
+        y.copy_(x)
+        assert y.data_ptr() % 16 == 4 * off
+        assert_exact(fused_scan.bar_scan_io_floor_stacked(y),
+                     fused_scan.io_floor_plain(x), f"P3 at offset {off}")
+    assert fused_scan.IO_FLOOR_LAUNCHES == before + 9
