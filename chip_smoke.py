@@ -20,12 +20,14 @@ time bars' products through every median engine and bar scan. Phases:
    float64 rtol 1e-12, floats equal from run to run;
 4. kernel B and the medians against their plain versions on adversarial
    streams (empty, single-trade and side-0 trades, ci[0] >= 0, units above
-   2^31, a bar of about 1M trades): exact; the hist and select engines
+   2^31, a bar of about 1M trades, bars that open on B's tile edges, 10,000
+   empty bars inside one tile): exact; the hist and select engines
    (kernels H and F) against their plain versions and their brackets against
    the sort engine's on non-empty bars, the full planes (kernel V) against
    their plain version and their products against B's on non-empty bars,
-   every engine and scan's finals against the default's: exact; B, H and the
-   planes call timed on one bar of the 1M trades alone;
+   every engine and scan's finals against the default's: exact; B (alone
+   and the call), H and the planes call timed on one bar of the 1M trades
+   alone;
 5. the time-bar path through the kernels and through the plain versions on
    the card: bars, integers, medians and finals exact, labels and touch
    indices exact, weights within rtol 1e-12 of their prefix magnitude; each
@@ -38,7 +40,9 @@ time bars' products through every median engine and bar scan. Phases:
    recomputation of the integer rule; sampled footprint bars against
    ``np.add.at`` and sampled bars' trade-size features against numpy; C
    launched at least twice, S and B at least once; stage and end-to-end
-   times, peak device memory. Without phase 5, B and S are timed here;
+   times, peak device memory. Without phase 5, B and S are timed here
+   (B alone, with ``ci`` checked outside the timed window, each of its
+   passes, and the call);
 7. the information-driven bars on the same month through the kits, through
    the kernels and through the plain versions: tick bars of 1000 trades,
    volume bars at total volume / 40000, CUSUM bars (sigma 2e-5 with NaNs at
@@ -116,7 +120,8 @@ PEAK_OPS_PER_S = 67e12
 # name, source in finmlkit_tpu_torch/csrc and the functions it replaces (the
 # TPU kernels' defs, file:line) of each kernel of the ``kernels`` line
 KERNELS = {
-    "B": ("B bar_products (replaces K1a v4 and K1b v2; serves K1d v3)",
+    "B": ("B bar_products, a pass over tiles with an exact carry (replaces K1a v4 "
+          "and K1b v2; serves K1d v3)",
           "bar_products.cu", "finmlkit_tpu/ops/fused_scan.py:1261, :1319 and :1288"),
     "S": ("S prefix_scan (replaces K2 and K3)", "prefix_scan.cu",
           "finmlkit_tpu/ops/pallas_scan.py:141 and :182"),
@@ -294,14 +299,21 @@ def phase_products():
     from finmlkit_tpu_torch.bar.fused import median_pairs
     from finmlkit_tpu_torch.ops.fused_scan import (bar_scan_products,
                                                    bar_scan_products_plain)
+    from finmlkit_tpu_torch.ops.fused_scan import _TILE
     from finmlkit_tpu_torch.ops.prefix_scan import fast_cumsum_plain
-    from finmlkit_tpu_torch.testing import adversarial_trades, assert_exact
+    from finmlkit_tpu_torch.testing import adversarial_trades, assert_exact, tile_closes
     cases = [dict(n=3_000_000, seed=1, first=-1, long_bar=1_000_000),
              dict(n=400_000, seed=2, first=17, long_bar=40_000),
              dict(n=200_000, seed=3, first=0, mean_bar=3),
-             dict(n=12, seed=4, first=-1, mean_bar=2)]
+             dict(n=12, seed=4, first=-1, mean_bar=2),
+             # bars that open on kernel B's tile edges; 10,000 empty bars in a tile
+             dict(n=5 * _TILE + 13, seed=5, closes="edges"),
+             dict(n=5 * _TILE + 13, seed=6, closes="empty_run")]
     for c in cases:
-        arrs = adversarial_trades(**c)
+        kw = {k: v for k, v in c.items() if k != "closes"}
+        arrs = list(adversarial_trades(**kw))
+        if "closes" in c:
+            arrs[4] = tile_closes(c["closes"], c["n"], _TILE)
         ticks, units, sides, amounts, ci = (torch.from_numpy(a).cuda() for a in arrs)
         got = bar_scan_products(ticks, units, sides, ci)
         want = bar_scan_products_plain(ticks, units, sides, ci)
@@ -361,11 +373,11 @@ def check_engines_and_planes(ticks, units, sides, amounts, ci, what):
 
 
 def long_bar_times(n_long):
-    """Kernels B and H (one histogram pass, one less pass), where one block
-    walks the bar alone, and the planes call (kernel V, tiles of 2048
-    trades) on one bar of ``n_long`` trades."""
+    """Kernel B (alone and the call) and the planes call (kernel V), both over
+    fixed tiles of trades, and kernel H (one histogram pass, one less pass),
+    where one block walks the bar alone, on one bar of ``n_long`` trades."""
     import torch
-    from finmlkit_tpu_torch.ops.fused_scan import bar_scan_planes, bar_scan_products
+    from finmlkit_tpu_torch.ops import fused_scan as fs
     from finmlkit_tpu_torch.ops import segment_hist as sh
     from finmlkit_tpu_torch.testing import adversarial_trades
     ticks, units, sides, amounts, _ = (torch.from_numpy(a).cuda() for a in
@@ -373,11 +385,14 @@ def long_bar_times(n_long):
     ci = torch.tensor([-1, n_long - 1], device="cuda")
     bits = amounts.view(torch.int32)
     zero = torch.zeros(1, dtype=torch.int32, device="cuda")
-    # H's launches without the wrapper's check of ci (the engine checks once)
-    t = {"B": cuda_ms(lambda: bar_scan_products(ticks, units, sides, ci)),
+    args = fs._cuda_inputs(ticks, units, sides, ci, "phase 4")
+    bufs = fs._products_buffers(n_long, 1, ci.device)
+    # B and H without the wrappers' check of ci (the engine checks once)
+    t = {"B alone": cuda_ms(lambda: fs._products_kernel(*args, bufs), reps=20),
+         "B call": cuda_ms(lambda: fs.bar_scan_products(ticks, units, sides, ci), reps=20),
          "H hist pass": cuda_ms(lambda: sh._launch_hist(bits, ci, zero, 28)),
          "H less pass": cuda_ms(lambda: sh._launch_less(bits, ci, bits[:1])),
-         "V planes call": cuda_ms(lambda: bar_scan_planes(ticks, units, sides, ci))}
+         "V planes call": cuda_ms(lambda: fs.bar_scan_planes(ticks, units, sides, ci))}
     say(f"one bar of {n_long:,} trades (ms): " + ", ".join(
         f"{k} {v:.3f}" for k, v in t.items()) + f"; B's bytes bound "
         f"{bound(13 * n_long, 0)[0]:.4f} ms")
@@ -598,8 +613,17 @@ def kernels_b_s(card, tr, ci, launches, s_inputs=()):
     from finmlkit_tpu_torch.ops.prefix_scan import fast_cumsum, fast_cumsum_plain
     from finmlkit_tpu_torch.testing import assert_close
     n_trades, n_bars = tr.ticks.shape[0], ci.shape[0] - 1
+    from finmlkit_tpu_torch.ops import fused_scan as fs
     pargs = (tr.ticks, tr.units, tr.sides, ci)
-    b_ms, b_plain = cuda_ms(lambda: bar_scan_products(*pargs)), \
+    # B alone: ci checked once and the buffers made once, outside the timed
+    # window; then each of its passes on the state the passes before it left
+    b_args = fs._cuda_inputs(*pargs, "kernel B alone")
+    bufs = fs._products_buffers(n_trades, n_bars, ci.device)
+    b_ms = cuda_ms(lambda: fs._products_kernel(*b_args, bufs))
+    b_pass = {name: cuda_ms(lambda p=p: fs._products_kernel(*b_args, bufs, passes=1 << p))
+              for p, name in enumerate(fs.PRODUCTS_PASSES)}
+    del bufs
+    b_call, b_plain = cuda_ms(lambda: bar_scan_products(*pargs)), \
         cuda_ms(lambda: bar_scan_products_plain(*pargs))
     marks = torch.zeros(n_trades, dtype=torch.int32, device="cuda")
     marks.index_add_(0, (ci[1:] + 1).clamp(0, n_trades - 1),
@@ -619,13 +643,15 @@ def kernels_b_s(card, tr, ci, launches, s_inputs=()):
                 for x in (marks, units, *s_inputs))
     b_err = max(float((a.double() - b.double()).abs().max()) for a, b in
                 zip(bar_scan_products(*pargs), bar_scan_products_plain(*pargs)))
-    say(f"kernel B ({n_bars:,} bars) {b_ms:.3f} ms vs plain {b_plain:.3f} ms, "
-        f"bound {b_bound[0]:.3f} ms; kernel S (int32, {n_trades:,}) {s_ms:.3f} "
+    say(f"kernel B ({n_bars:,} bars) alone {b_ms:.3f} ms (passes " + ", ".join(
+        f"{k} {v:.3f}" for k, v in b_pass.items()) + f"), the call {b_call:.3f} ms "
+        f"vs plain {b_plain:.3f} ms, bound {b_bound[0]:.3f} ms; kernel S (int32, {n_trades:,}) {s_ms:.3f} "
         f"ms vs plain {s_plain:.3f} ms, torch.cumsum {s_lib:.3f} ms, bound "
         f"{s_bound[0]:.3f} ms; S (int64) {s64_ms:.3f} ms, torch.cumsum "
         f"{s64_lib:.3f} ms, bound {2 * s_bound[0]:.3f} ms [{card}]")
     return {
-        "B": kernel_entry("B", launches["B"], b_err, b_ms, b_plain, b_bound, None),
+        "B": kernel_entry("B", launches["B"], b_err, b_ms, b_plain, b_bound, None,
+                          call_ms=b_call, pass_ms=b_pass),
         "S": kernel_entry("S", launches["S"], s_err, s_ms, s_plain, s_bound, s_lib,
                           int64_ms=s64_ms, int64_library_ms=s64_lib,
                           int64_bound_ms=2 * s_bound[0]),

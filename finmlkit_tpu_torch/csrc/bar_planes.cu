@@ -367,9 +367,7 @@ __device__ FSum thread_floats(const View& v, u64 cv, u64 cd, FSum carry, FSum* w
 __global__ void planes_marks(const long long* __restrict__ ci, long long n,
                              long long n_bars, unsigned* __restrict__ bits) {
   const long long k = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (k > n_bars) return;
-  const long long pos = ci[k] + 1;
-  if (pos < n) atomicOr(&bits[pos >> 5], 1u << (pos & 31));
+  if (k <= n_bars) fmk::mark_open(ci, n, k, bits);
 }
 
 // Pass 1: the summary of each tile, and the float extrema of its last

@@ -1,7 +1,6 @@
 // What kernels B (bar_products.cu) and V (bar_planes.cu) share: the float32
-// rounding of the imbalances and the block-wide scan; and B's view of one
-// trade's contributions to a bar, whose rules V follows on its shared-memory
-// tiles.
+// rounding of the imbalances, the bitmap of the bar opens and the block-wide
+// scan.
 //
 // Bit-exactness with the TPU kernels (finmlkit_tpu/ops/fused_scan.py):
 // - the float32 imbalance values are rounded from int64 in two steps,
@@ -31,59 +30,13 @@ __device__ __forceinline__ float pair_f32(u64 x) {
   return __fadd_rn(__fmul_rn(__int2float_rn(hi), 4294967296.0f), lo_f);
 }
 
-// One trade of a bar: its tick, units, dollars (tick * units), side and
-// tick-sign-change spread.
-struct Trade {
-  int tick;
-  u64 units, dollars;
-  signed char side;
-  int spread;
-};
-
-// Trade i of n; `single` says that its bar holds only this trade.
-__device__ __forceinline__ Trade load_trade(const int* __restrict__ ticks,
-                                            const long long* __restrict__ units,
-                                            const signed char* __restrict__ sides,
-                                            long long i, long long n,
-                                            bool single) {
-  Trade t;
-  t.tick = ticks[i];
-  t.units = static_cast<u64>(units[i]);
-  t.side = sides[i];
-  t.dollars = static_cast<u64>(static_cast<long long>(t.tick)) * t.units;
-  const long long ip = i == 0 ? n - 1 : i - 1;
-  const bool change = single ? t.side != 0 : t.side != sides[ip];
-  const unsigned diff =
-      static_cast<unsigned>(t.tick) - static_cast<unsigned>(ticks[ip]);
-  const unsigned mag = static_cast<int>(diff) < 0 ? 0u - diff : diff;  // wraps
-  t.spread = change ? static_cast<int>(mag) : 0;
-  return t;
-}
-
-// Running in-bar imbalances: volume units, dollar units, ticks.
-struct Run {
-  u64 cv, cd;
-  unsigned ct;
-};
-
-__device__ __forceinline__ Run add(Run a, Run b) {
-  return {a.cv + b.cv, a.cd + b.cd, a.ct + b.ct};
-}
-
-struct RunAdd {
-  __device__ __forceinline__ Run operator()(Run a, Run b) const { return add(a, b); }
-};
-
-// A trade's signed contribution to the running imbalances.
-__device__ __forceinline__ Run contribution(const Trade& t) {
-  if (t.side == 1) return {t.units, t.dollars, 1u};
-  if (t.side == -1) return {0ull - t.units, 0ull - t.dollars, 0u - 1u};
-  return {0ull, 0ull, 0u};
-}
-
-__device__ __forceinline__ Run shfl_up(const Run& v, int o) {
-  return {__shfl_up_sync(kFull, v.cv, o), __shfl_up_sync(kFull, v.cd, o),
-          __shfl_up_sync(kFull, v.ct, o)};
+// The opens of the stream as a bitmap, one bit a trade (zeroed before): bar
+// k's first trade, ci[k] + 1, for k = 0 .. n_bars while it is below n. The
+// mark at ci[n_bars] + 1 opens the trades after the last bar.
+__device__ __forceinline__ void mark_open(const long long* __restrict__ ci, long long n,
+                                          long long k, unsigned* __restrict__ bits) {
+  const long long pos = ci[k] + 1;
+  if (pos < n) atomicOr(&bits[pos >> 5], 1u << (pos & 31));
 }
 
 // Block-wide exclusive scan of one value per thread under the associative

@@ -31,7 +31,8 @@ import torch
 
 from .. import _build
 
-__all__ = ["bar_scan_products", "bar_scan_products_plain", "pair_to_f32",
+__all__ = ["bar_scan_products", "bar_scan_products_plain", "bar_scan_products_tiles",
+           "pair_to_f32",
            "prep_planes_plain", "bar_scan_planes", "bar_scan_planes_plain",
            "bar_scan_planes_tiles", "planes_prefix_inputs",
            "bar_scan_io_floor", "bar_scan_io_floor_k", "bar_scan_io_floor_stacked",
@@ -163,15 +164,15 @@ def bar_scan_products_plain(ticks, units, sides, ci):
     return p64, p32, pf
 
 
-def _cuda_inputs(ticks, units, sides, ci, what, extra_blocks=0):
-    """Contiguous CUDA inputs of a one-block-per-bar kernel; raises on a
-    device other than CUDA, too many bars, or close indices the kernels
-    cannot take."""
+def _cuda_inputs(ticks, units, sides, ci, what):
+    """Contiguous CUDA inputs of the bar scans' kernels; raises on a device
+    other than CUDA, too many trades or bars, or close indices the kernels
+    cannot take. It waits for the card (the check of ``ci``)."""
     if ticks.device.type != "cuda":
         raise ValueError(f"{what} runs on cpu or cuda, not {ticks.device}")
     n, nb = ticks.shape[0], ci.shape[0] - 1
-    if nb + extra_blocks >= 2**31:
-        raise ValueError(f"{nb} bars exceed the kernel's grid")
+    if n >= 2**31 - _TILE or nb >= 2**31:
+        raise ValueError(f"{n} trades or {nb} bars exceed the kernels' int32 counts")
     ticks, units, sides, ci = (t.contiguous() for t in (ticks, units, sides, ci))
     ok = (ci[0] >= -1) & (ci[-1] < n) & torch.all(ci[1:] >= ci[:-1])
     if not bool(ok):
@@ -179,34 +180,189 @@ def _cuda_inputs(ticks, units, sides, ci, what, extra_blocks=0):
     return ticks, units, sides, ci
 
 
+_TILE = 2048                 # trades a tile of kernel B (csrc/bar_products.cu kTile)
+PRODUCTS_PASSES = ("marks", "tiles", "bars")
+
+
 def bar_scan_products(ticks, units, sides, ci):
     """Per-bar products ``(p64, p32, pf)`` of the trade stream.
 
-    On CUDA tensors this launches kernel B; on CPU tensors it runs
-    :func:`bar_scan_products_plain`. ``ci`` must be sorted, with
+    On CUDA tensors this launches kernel B once (its three passes count one):
+    a pass over fixed tiles of trades with an exact carry of the in-bar sums
+    (:func:`bar_scan_products_tiles` models its decomposition); on CPU tensors
+    it runs :func:`bar_scan_products_plain`. ``ci`` must be sorted, with
     ``-1 <= ci[0]`` and ``ci[-1] < len(ticks)``.
     """
     global LAUNCHES
     _check_inputs(ticks, units, sides, ci)
     if ticks.device.type == "cpu":
         return bar_scan_products_plain(ticks, units, sides, ci)
-    ticks, units, sides, ci = _cuda_inputs(ticks, units, sides, ci,
-                                           "bar_scan_products")
+    args = _cuda_inputs(ticks, units, sides, ci, "bar_scan_products")
+    bufs = _products_buffers(args[0].shape[0], ci.shape[0] - 1, ticks.device)
+    _products_kernel(*args, bufs)
+    LAUNCHES += 1
+    return bufs[:3]
+
+
+def _products_buffers(n, nb, device):
+    """Kernel B's outputs ``(p64, p32, pf)`` and its scratch."""
+    return (torch.empty((6, nb), dtype=torch.int64, device=device),
+            torch.empty((10, nb), dtype=torch.int32, device=device),
+            torch.empty((4, nb), dtype=torch.float32, device=device),
+            torch.empty(_build.library().fmk_products_scratch_bytes(n, nb),
+                        dtype=torch.uint8, device=device))
+
+
+def _products_kernel(ticks, units, sides, ci, bufs, passes=(1 << len(PRODUCTS_PASSES)) - 1):
+    """Kernel B's passes named by the bit mask ``passes`` (bit p: pass p of
+    :data:`PRODUCTS_PASSES`) on inputs checked by :func:`_cuda_inputs`, into
+    the buffers of :func:`_products_buffers`. One pass alone reads what the
+    passes before it left in the scratch."""
     dev = ticks.device
-    n, nb = ticks.shape[0], ci.shape[0] - 1
-    out64 = torch.empty((6, nb), dtype=torch.int64, device=dev)
-    out32 = torch.empty((10, nb), dtype=torch.int32, device=dev)
-    outf = torch.empty((4, nb), dtype=torch.float32, device=dev)
-    lib = _build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fmk_bar_products(ticks.data_ptr(), units.data_ptr(),
-                                  sides.data_ptr(), ci.data_ptr(), n, nb,
-                                  out64.data_ptr(), out32.data_ptr(),
-                                  outf.data_ptr(), stream)
-    LAUNCHES += 1
+        rc = _build.library().fmk_bar_products(
+            ticks.data_ptr(), units.data_ptr(), sides.data_ptr(), ci.data_ptr(),
+            ticks.shape[0], ci.shape[0] - 1, *(b.data_ptr() for b in bufs),
+            passes, stream)
     _build.check(rc, "bar_scan_products")
-    return out64, out32, outf
+
+
+def _order_key(f):
+    """float32 -> int32 key in the same order, for finite values (its own
+    inverse)."""
+    bits = f.view(torch.int32)
+    return torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF)
+
+
+def bar_scan_products_tiles(ticks, units, sides, ci, tile: int):
+    """CPU model of kernel B's decomposition, in plain torch on any device:
+    the products of :func:`bar_scan_products_plain`, bit for bit, built as
+    the kernel builds them from tiles of ``tile`` trades. A *segment* is the
+    part of one bar inside one tile; the opens are the marks of every
+    ``ci[k] + 1 < n``.
+
+    1. Each tile's summary: whether a bar opens in it, and its last segment's
+       in-bar sums ``(cv, cd, ct)``, exact.
+    2. An exclusive scan of the summaries (sums add; an open on the right
+       restarts): every tile's entry sums (the kernel's look-back).
+    3. Each segment walked once from its entry sums (0 at an open, the tile's
+       entry for its first segment), to its record of 24 words: the 6 int64
+       and 3 int32 sums, and 9 int32 extrema taken by max (the minima bit
+       inverted, the float extrema as order keys, ``I32MIN`` for none).
+    4. The records joined into one a bar: a segment that opens and closes in
+       its tile is stored; the others (a bar's part in a tile it did not
+       open in, or did not close in) are joined by add and max into a
+       record that starts at the identity, as the kernel's atomics join them.
+    5. The products decoded from the records, empty bars from the identity.
+    """
+    _check_inputs(ticks, units, sides, ci)
+    dev = ticks.device
+    ticks, units, sides, ci = (t.cpu() for t in (ticks, units, sides, ci))
+    n, nb = ticks.shape[0], ci.shape[0] - 1
+    i32, i64 = torch.int32, torch.int64
+    mark = _open_marks(ci, n)
+    nxt = torch.cat([mark[1:], torch.ones(1, dtype=torch.bool)])
+    buy, sell, traded = sides == 1, sides == -1, sides != 0
+    zero64 = torch.zeros((), dtype=i64)
+    d = ticks.to(i64) * units
+    run = (buy.to(i32) - sell.to(i32),                           # ct, cv, cd
+           torch.where(buy, units, torch.where(sell, -units, zero64)),
+           torch.where(buy, d, torch.where(sell, -d, zero64)))
+    # no validity: every trade of a bar is valid, and the segments outside
+    # every bar are dropped whole
+    change = torch.where(mark & nxt, sides != 0, sides != torch.roll(sides, 1))
+    spread = torch.where(change, (ticks - torch.roll(ticks, 1)).abs(),
+                         torch.zeros((), dtype=i32))
+    bar_of = torch.searchsorted(ci, torch.arange(n) - 1, right=True) - 1
+    bounds = [(a, min(a + tile, n)) for a in range(0, n, tile)]
+
+    def opens_in(a, b):
+        return [a + int(p) for p in torch.nonzero(mark[a:b]).reshape(-1)]
+
+    def combine(x, y):
+        """Two stretches' summaries ``(o, ct, cv, cd)``, ``x`` before ``y``."""
+        if y[0]:
+            return y
+        return (x[0],) + tuple(u + v for u, v in zip(x[1:], y[1:]))
+
+    # 1. summaries; 2. the entry sums of every tile
+    entry = [(False, torch.zeros((), dtype=i32), zero64, zero64)]
+    for a, b in bounds[:-1]:
+        ops = opens_in(a, b)
+        s = ops[-1] if ops else a
+        entry.append(combine(entry[-1], (bool(ops),) + tuple(r[s:b].sum().to(r.dtype)
+                                                           for r in run)))
+
+    def none_to_min(x, ok):
+        return x if ok else torch.tensor(I32MIN, dtype=i32)
+
+    def record(s, e, base):
+        """The 24 words of the segment [s, e) from the in-bar sums ``base``
+        ``(ct, cv, cd)`` at s."""
+        tr = traded[s:e]
+        absolute = [b + torch.cumsum(r[s:e], 0, dtype=r.dtype) for b, r in zip(base, run)]
+        ok = bool(tr.any())
+        ct, cv, cd = (x[tr] for x in absolute)
+        cvf, cdf = pair_to_f32(cv), pair_to_f32(cd)
+        seg = slice(s, e)
+        w64 = torch.stack([units[seg].sum(), d[seg].sum(), units[seg][buy[seg]].sum(),
+                           d[seg][buy[seg]].sum(), run[1][seg].sum(), run[2][seg].sum()])
+        w32 = torch.stack([buy[seg].sum(), run[0][seg].to(i64).sum(),
+                           spread[seg].to(i64).sum()]).to(i32)
+        m = [ticks[seg].max(), ~ticks[seg].min(), spread[seg].max()]
+        m += [none_to_min(x, ok) for x in (
+            ~ct.min() if ok else 0, ct.max() if ok else 0,
+            _order_key(cvf.max()) if ok else 0, ~_order_key(cvf.min()) if ok else 0,
+            _order_key(cdf.max()) if ok else 0, ~_order_key(cdf.min()) if ok else 0)]
+        return w64, w32, torch.stack([torch.as_tensor(x, dtype=i32) for x in m])
+
+    # 3. every segment; 4. joined into the bars' records
+    r64 = torch.zeros((nb, 6), dtype=i64)
+    r32 = torch.zeros((nb, 3), dtype=i32)
+    rmax = torch.full((nb, 9), I32MIN, dtype=i32)
+    stored, joined = set(), set()
+    for (a, b), (_, *base) in zip(bounds, entry):
+        ops = opens_in(a, b)
+        closes = b == n or bool(mark[b])
+        starts = ([a] if not ops or ops[0] != a else []) + ops
+        for j, s in enumerate(starts):
+            e = starts[j + 1] if j + 1 < len(starts) else b
+            k = int(bar_of[s])
+            if not 0 <= k < nb:
+                continue             # outside every bar
+            opened = bool(mark[s])
+            w64, w32, wm = record(s, e, base if not opened else
+                                  (torch.zeros((), dtype=i32), zero64, zero64))
+            if opened and (e < b or closes):
+                assert k not in stored and k not in joined
+                stored.add(k)
+                r64[k], r32[k], rmax[k] = w64, w32, wm
+            else:
+                assert k not in stored
+                joined.add(k)
+                r64[k] += w64
+                r32[k] += w32
+                rmax[k] = torch.maximum(rmax[k], wm)
+    # 5. the products
+    first = (ci[:-1] + 1).clamp(0, n - 1)
+    last = ci[1:].clamp(0, n - 1)
+    vol, dol, vb, db, cvs, cds = r64.T
+    tb, cts, sp = r32.T
+    hi, nlo, spmax, nctmin, ctmax, kvmax, nkvmin, kdmax, nkdmin = rmax.T
+
+    def fl(word, sentinel):
+        """A float extremum from its word: the key, bit inverted for a minimum."""
+        key = ~word if sentinel > 0 else word
+        return torch.where(word == I32MIN, torch.tensor(sentinel, dtype=torch.float32),
+                           _order_key(key).view(torch.float32))
+
+    p64 = torch.stack([vol, dol, vb, vb - cvs, db, db - cds])
+    p32 = torch.stack([ticks[first], hi, ~nlo, ticks[last], tb, tb - cts, sp, spmax,
+                       ~nctmin, ctmax])
+    pf = torch.stack([fl(nkvmin, F32BIG), fl(kvmax, -F32BIG),
+                      fl(nkdmin, F32BIG), fl(kdmax, -F32BIG)])
+    return p64.to(dev), p32.to(dev), pf.to(dev)
 
 
 # ---------------------------------------------------------------------------
@@ -345,16 +501,12 @@ def bar_scan_planes(ticks, units, sides, ci):
         return bar_scan_planes_plain(ticks, units, sides, ci)
     ticks, units, sides, ci = _cuda_inputs(ticks, units, sides, ci,
                                            "bar_scan_planes")
-    n = ticks.shape[0]
-    if n >= 2**31 - _PLANES_TILE:
-        raise ValueError(f"{n} trades exceed the planes kernel's int32 counts")
-    bufs = _planes_buffers(n, ticks.device)
+    bufs = _planes_buffers(ticks.shape[0], ticks.device)
     _planes_kernel(ticks, units, sides, ci, bufs)
     PLANES_LAUNCHES += 1
     return bufs[:4]
 
 
-_PLANES_TILE = 1024          # trades a tile of kernel V (csrc/bar_planes.cu kTile)
 PLANES_PASSES = ("marks", "reduce", "scan", "float reduce", "float scan", "write")
 
 

@@ -6,7 +6,8 @@ differ beyond what the comparison allows.
 import numpy as np
 import torch
 
-__all__ = ["to_numpy", "assert_exact", "assert_close", "assert_window_close"]
+__all__ = ["to_numpy", "assert_exact", "assert_close", "assert_window_close",
+           "adversarial_trades", "tile_closes", "TILE_CLOSES"]
 
 
 def to_numpy(x) -> np.ndarray:
@@ -96,3 +97,38 @@ def adversarial_trades(n: int, seed: int, first: int = -1, long_bar: int = 0,
         pos = min(pos, end)
         ci.append(pos)
     return ticks, units, sides, amounts, np.asarray(ci, np.int64)
+
+
+TILE_CLOSES = ("edges", "mid_span", "empty_run", "single_edges", "anchor_inside")
+
+
+def tile_closes(name: str, n: int, tile: int) -> np.ndarray:
+    """Close indices over ``n`` trades (n >= 4 * tile, tile >= 32) that put the bars
+    where a kernel cutting the stream into tiles of ``tile`` trades meets
+    its edges (``TILE_CLOSES`` names them):
+
+    - ``edges``: a bar opens at every tile start (one start twice: an empty
+      bar), trades after the last bar;
+    - ``mid_span``: a bar opens mid-tile and spans three tiles and more;
+    - ``empty_run``: 10,000 empty bars inside one tile;
+    - ``single_edges``: single-trade bars at trade 0 and at the last and
+      first trades around two tile edges;
+    - ``anchor_inside``: ``ci[0]`` inside a tile, earlier trades in no bar.
+    """
+    if name == "edges":
+        e = list(range(tile - 1, n - 10, tile))
+        ci = [-1] + e + e[2:3] + [n - 10]
+    elif name == "mid_span":
+        a = tile // 2 + 3
+        ci = [-1, tile // 4, a, a + 3 * tile + tile // 8, n - 7]
+    elif name == "empty_run":
+        ci = [-1, tile // 16, tile + tile // 8] + [tile + tile // 4] * 10_000 + [
+            tile + tile // 2, n - 1]
+    elif name == "single_edges":
+        ci = [-1, 0, tile - 2, tile - 1, tile, 3 * tile - 2, 3 * tile - 1, 3 * tile,
+              n - 3]
+    elif name == "anchor_inside":
+        ci = [tile + 7, tile + tile // 2, 2 * tile + 1, 3 * tile + tile // 2, n - 2]
+    else:
+        raise KeyError(name)
+    return np.asarray(sorted(ci), np.int64)

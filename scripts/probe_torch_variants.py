@@ -14,7 +14,22 @@ Run from the repository root on a machine with a card:
 ``python3 scripts/probe_torch_variants.py [V variant names, comma-separated]``.
 It prints each kernel's registers and spills (ptxas), then one line a
 variant and the card's name and power limit.
+
+``python3 scripts/probe_torch_variants.py B [names]`` probes kernel B
+(``csrc/bar_products.cu``) instead: the variants of ``B_VARIANTS`` named (by
+default "as built") and each ``name=dir`` whose directory holds another
+``bar_products.cu`` and ``bar_scan.cuh`` (a ``git archive`` of an earlier
+commit, say), each built by its own ``nvcc``, on the month's one-minute bars and on one bar of 1M trades.
+Each is held to ``bar_scan_products_plain`` and timed alone (``ci`` checked
+once, outside the timed window) in turns, pass by pass where it has passes,
+and traced once under ``torch.profiler``: device time, registers, blocks and
+warps an SM and the estimated achieved occupancy of each of its kernels, and
+the rate of its bytes (13 a trade read, the close indices, 104 a bar
+written), and the package's call on the month in its parts (the check of
+``ci``, the buffers, the kernel). The chrome traces go to
+``build/variants/b_trace_<i>_<shape>.json``.
 """
+import json
 import ctypes
 import os
 import re
@@ -120,12 +135,16 @@ def nvcc(src_dir, out):
     return r.stdout + r.stderr
 
 
-def ptxas_summary(log):
-    """(kernel, 'N registers, S bytes spilled') of each kernel of bar_planes."""
+V_KERNELS = r"planes_[a-z_]+|tiles_scan\w{0,12}"
+B_KERNELS = r"products_[a-z_]+|bar_products_kernel"
+
+
+def ptxas_summary(log, kernels=V_KERNELS):
+    """(kernel, 'N registers, S bytes spilled') of each kernel whose name
+    matches ``kernels``."""
     rows, fn = [], None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\w*?_cu_\w+?\d+(planes_[a-z_]+|tiles_scan\w{0,12})",
-                      line)
+        m = re.search(r"Compiling entry function '\w*?_cu_\w+?\d+(" + kernels + ")", line)
         if m:
             fn = m.group(1)
         elif fn and "spill stores" in line:
@@ -137,7 +156,169 @@ def ptxas_summary(log):
     return rows
 
 
+B_BLOCKS = r"constexpr int kBlocksPerSM = 3;"
+B_VARIANTS = {
+    "as built": [],
+    "2 blocks an SM": [_sub(B_BLOCKS, "constexpr int kBlocksPerSM = 2;")],
+    "4 blocks an SM": [_sub(B_BLOCKS, "constexpr int kBlocksPerSM = 4;")],
+    "tiles of 4096": [_sub(r"constexpr int kItems = 8;", "constexpr int kItems = 16;"),
+                      _sub(B_BLOCKS, "constexpr int kBlocksPerSM = 1;")],
+    "1024-trade tiles of 4 a thread at 4 blocks an SM": [
+        _sub(r"constexpr int kItems = 8;", "constexpr int kItems = 4;"),
+        _sub(B_BLOCKS, "constexpr int kBlocksPerSM = 4;")],
+    "1024-trade tiles of 128 threads at 6 blocks an SM": [
+        _sub(r"constexpr int kThreads = 256;", "constexpr int kThreads = 128;"),
+        _sub(B_BLOCKS, "constexpr int kBlocksPerSM = 6;")],
+    # ablations of the tiles pass: its outputs are wrong
+    "without the look-back": [_sub(r"\? look_back\(status, tile\) :", "? run_id() :")],
+    "without the joins": [_sub(r"j < owners; j \+= kWarps\)", "j < -1; j += kWarps)")],
+    "without walk 2": [_sub(r"for \(int j = 0; j < kItems; \+\+j\) \{\n    if \(i0 \+ j >= n\) break;",
+                            "for (int j = 0; j < 0; ++j) {\n    if (i0 + j >= n) break;")],
+    "the loads alone": [_sub(
+        r"\n  // walk 1: this thread's in-bar sums; then the tile's, exclusive a thread",
+        "\n  {\n    unsigned acc = open ^ next_open ^ static_cast<unsigned>(ptick + pside);\n"
+        "#pragma unroll\n    for (int j = 0; j < kItems; ++j)\n"
+        "      acc ^= tk[j] ^ side_of(j) ^ static_cast<unsigned>(un[j] ^ (un[j] >> 32));\n"
+        "    if (acc == 0x9e3779b9u) rec.r32[0] = acc;\n    return;\n  }\n"
+        "  // walk 1: this thread's in-bar sums; then the tile's, exclusive a thread")],
+    "without the float extrema": [_sub(
+        r"const float fv = fmk::pair_f32\(r.cv\), fd = fmk::pair_f32\(r.cd\);",
+        "const float fv = __int_as_float(r.ct), fd = fv;")],
+}
+
+
+def b_library(src_dir, out_dir, edits=()):
+    """Kernel B from ``src_dir`` (with ``edits``) built alone; returns a launcher
+    ``run(args, outs, scratch, passes)`` of its C entry, its scratch size in
+    bytes for ``(n, n_bars)`` (0 if none), ptxas's report of its kernels, and
+    whether it has passes (the tiled kernel) or not (the parent's)."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src = (Path(src_dir) / "bar_products.cu").read_text()
+    for edit in edits:
+        src = edit(src)
+    (out_dir / "bar_products.cu").write_text(src)
+    (out_dir / "bar_scan.cuh").write_text((Path(src_dir) / "bar_scan.cuh").read_text())
+    log = nvcc(out_dir, out_dir / "lib.so")
+    lib = ctypes.CDLL(str(out_dir / "lib.so"))
+    P, I64 = ctypes.c_void_p, ctypes.c_longlong
+    tiled = hasattr(lib, "fmk_products_scratch_bytes")
+    if tiled:
+        lib.fmk_products_scratch_bytes.argtypes = [I64, I64]
+        lib.fmk_products_scratch_bytes.restype = I64
+    lib.fmk_bar_products.argtypes = [P] * 4 + [I64, I64] + [P] * 3 + (
+        [P, ctypes.c_int] if tiled else []) + [P]
+
+    def run(args, outs, scratch, passes=-1):
+        n, nb = args[0].shape[0], args[3].shape[0] - 1
+        ptrs = [a.data_ptr() for a in args] + [n, nb] + [o.data_ptr() for o in outs]
+        if tiled:
+            ptrs += [scratch.data_ptr(), passes]
+        rc = lib.fmk_bar_products(*ptrs, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"kernel B from {src_dir}: CUDA error {rc}")
+
+    def scratch_bytes(n, nb):
+        return lib.fmk_products_scratch_bytes(n, nb) if tiled else 0
+    return run, scratch_bytes, ptxas_summary(log, B_KERNELS), tiled
+
+
+def kernel_args(trace_path):
+    """Device ms, registers, blocks and warps an SM and the estimated achieved
+    occupancy of each kernel in a chrome trace of torch.profiler."""
+    events = json.loads(Path(trace_path).read_text())["traceEvents"]
+    rows = {}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        a = e.get("args", {})
+        r = rows.setdefault(e["name"][:50], dict(ms=0.0, launches=0))
+        r["ms"] += e.get("dur", 0) / 1e3
+        r["launches"] += 1
+        for key in ("registers per thread", "blocks per SM", "warps per SM",
+                    "est. achieved occupancy %", "grid", "block", "shared memory"):
+            if key in a:
+                r[key] = a[key]
+    return rows
+
+
+def probe_b(specs):
+    """Kernel B's builds ``specs`` (name -> source directory and edits) on the
+    month's one-minute bars and on one bar of 1M trades."""
+    from torch.profiler import ProfilerActivity, profile
+    from finmlkit_tpu_torch.testing import adversarial_trades
+    card = cs.phase_env()
+    builds = {}
+    for i, (name, (src, edits)) in enumerate(specs.items()):
+        builds[name] = b_library(src, OUT / f"b{i}", edits)
+        for fn, what in builds[name][2]:
+            cs.say(f"B {name}: {fn} {what}")
+    month = cs.make_month(cs.N_MONTH)
+    tr, ts = month["tr"], month["ts"]
+    ci = time_bar_indexer(tr.timestamps, 60.0, ts_first=int(ts[0]),
+                          ts_last_i=int(ts[-1]))[1]
+    n_long = 1_000_000
+    lt, lu, ls, _, _ = (torch.from_numpy(a).cuda() for a in adversarial_trades(n=n_long, seed=1))
+    shapes = {"month": fs._cuda_inputs(tr.ticks, tr.units, tr.sides, ci, "probe"),
+              "1M-trade bar": fs._cuda_inputs(lt, lu, ls, torch.tensor([-1, n_long - 1],
+                                                                       device="cuda"), "probe")}
+    for shape, args in shapes.items():
+        n, nb = args[0].shape[0], args[3].shape[0] - 1
+        nbytes = 13 * n + 8 * (nb + 1) + 104 * nb
+        want = fs.bar_scan_products_plain(*args)
+        state = {}
+        for name, (run, scratch_bytes, _, _) in builds.items():
+            outs = [torch.empty_like(w) for w in want]
+            for o in outs:   # no earlier build's result may pass for this one's
+                o.view(torch.uint8).fill_(0xA5)
+            scratch = torch.empty(max(scratch_bytes(n, nb), 1), dtype=torch.uint8,
+                                  device="cuda")
+            run(args, outs, scratch)
+            torch.cuda.synchronize()
+            exact = all(torch.equal(a, b) for a, b in zip(outs, want))
+            state[name] = (run, outs, scratch, exact)
+        times = {name: [] for name in builds}
+        for _ in range(3):   # in turns
+            for name, (run, outs, scratch, _) in state.items():
+                times[name].append(cs.cuda_ms(lambda: run(args, outs, scratch), reps=20))
+        for i, (name, (run, outs, scratch, exact)) in enumerate(state.items()):
+            line = (f"B {name} on the {shape} ({n:,} trades, {nb:,} bars): == plain "
+                    f"{exact}; alone, ms in 3 turns " + " ".join(f"{t:.4f}" for t in times[name])
+                    + f"; {nbytes / min(times[name]) / 1e6:,.0f} GB/s of its bytes, bound "
+                    f"{cs.bound(nbytes, 0)[0]:.4f} ms")
+            if builds[name][3]:
+                line += "; passes " + ", ".join(
+                    f"{p} {cs.cuda_ms(lambda k=k: run(args, outs, scratch, 1 << k), reps=20):.4f}"
+                    for k, p in enumerate(fs.PRODUCTS_PASSES))
+            cs.say(line + f" [{card}]")
+            run(args, outs, scratch)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                run(args, outs, scratch)
+                torch.cuda.synchronize()
+            path = OUT / f"b_trace_{i}_{shape.split()[0]}.json"
+            prof.export_chrome_trace(str(path))
+            cs.say(f"B {name} on the {shape}, traced: " + json.dumps(kernel_args(path)))
+        if shape == "month":   # the call's parts, each alone
+            raw = (tr.ticks, tr.units, tr.sides, ci)
+            parts = {"ci checked": lambda: fs._cuda_inputs(*raw, "probe"),
+                     "buffers made": lambda: fs._products_buffers(n, nb, ci.device),
+                     "kernel alone": lambda: fs._products_kernel(*args, bufs),
+                     "the call": lambda: fs.bar_scan_products(*raw)}
+            bufs = fs._products_buffers(n, nb, ci.device)
+            cs.say("B's call on the month, ms by part (the package's build): " + ", ".join(
+                f"{k} {cs.cuda_ms(f, reps=20):.4f}" for k, f in parts.items()) + f" [{card}]")
+        del state, want
+
+
 def main():
+    if len(sys.argv) > 1 and sys.argv[1] == "B":
+        if not torch.cuda.is_available():
+            cs.fail("no CUDA device")
+        specs = {}
+        for spec in (sys.argv[2].split(",") if len(sys.argv) > 2 else ["as built"]):
+            name, _, src = spec.partition("=")
+            specs[name] = (ROOT / src, ()) if src else (CSRC, B_VARIANTS[name])
+        return probe_b(specs)
     names = sys.argv[1].split(",") if len(sys.argv) > 1 else list(V_VARIANTS)
     if not torch.cuda.is_available():
         cs.fail("no CUDA device")

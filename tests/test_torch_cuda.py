@@ -13,7 +13,8 @@ from finmlkit_tpu_torch.bar.footprint_q import comp_bar_footprints_q
 from finmlkit_tpu_torch.bar.fused import median_engine, median_pairs, planes_products
 from finmlkit_tpu_torch.bar.indexers import dollar_bar_indexer_q
 from finmlkit_tpu_torch.ops import event_scan, fused_scan, prefix_scan, segment_hist
-from finmlkit_tpu_torch.testing import adversarial_trades, assert_close, assert_exact
+from finmlkit_tpu_torch.testing import (TILE_CLOSES, adversarial_trades, assert_close,
+                                       assert_exact, tile_closes)
 
 pytestmark = pytest.mark.cuda
 
@@ -80,6 +81,25 @@ def test_bar_products_and_medians_match_plain(cuda, case):
     for a, b in zip(median_pairs(amounts, ci),
                     median_pairs(amounts, ci, cumsum=prefix_scan.fast_cumsum_plain)):
         assert_exact(a, b)
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("name", TILE_CLOSES)
+def test_bar_products_tile_cases_match_plain(cuda, name, offset):
+    # streams a few of kernel B's tiles long, with bars at the tiles' edges;
+    # at an offset of one trade the inputs are not 16-byte aligned and the
+    # kernel loads them one by one
+    tile = fused_scan._TILE
+    n = 5 * tile + 13
+    ticks, units, sides, _, _ = (torch.from_numpy(a).to(cuda)[offset:]
+                                 for a in adversarial_trades(n=n + offset, seed=41))
+    ci = torch.from_numpy(tile_closes(name, n, tile)).to(cuda)
+    before = fused_scan.LAUNCHES
+    got = fused_scan.bar_scan_products(ticks, units, sides, ci)
+    assert fused_scan.LAUNCHES == before + 1
+    for what, a, b in zip(("p64", "p32", "pf"), got,
+                          fused_scan.bar_scan_products_plain(ticks, units, sides, ci)):
+        assert_exact(a, b, f"{name} {what}")
 
 
 def test_bar_products_reject_unsorted_ci(cuda):
