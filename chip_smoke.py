@@ -26,8 +26,8 @@ time bars' products through every median engine and bar scan. Phases:
    the sort engine's on non-empty bars, the full planes (kernel V) against
    their plain version and their products against B's on non-empty bars,
    every engine and scan's finals against the default's: exact; B (alone
-   and the call), H and the planes call timed on one bar of the 1M trades
-   alone;
+   and the call), H (held to its plain version there) and the planes call
+   timed on one bar of the 1M trades alone;
 5. the time-bar path through the kernels and through the plain versions on
    the card: bars, integers, medians and finals exact, labels and touch
    indices exact, weights within rtol 1e-12 of their prefix magnitude; each
@@ -53,11 +53,14 @@ time bars' products through every median engine and bar scan. Phases:
    sigma equal bit for bit (CUSUM closes may differ only at near ties, within
    1e-12 of lam); tick closes against arange, volume and imbalance closes
    against their integer rules and CUSUM closes against the float64 rule in
-   numpy; F launched once and each of E's four scans at least once; kernel F
+   numpy; F launched once and each of E's four scans at least once, the
+   imbalance scan by E's map path and never by its walk; kernel F
    against its plain version on the month's sigma and phase 3's lengths,
    kernel E's four scans alone at their default chunk counts and at 1, 33,
-   132 and 528 chunks (the same closes at each, timed); stage times, peak
-   device memory. B, S and C are timed here
+   132 and 528 chunks (the same closes at each, timed), the imbalance scan
+   by its map path and by the walk forced; kernel E against its plain
+   version on volume-imbalance weights with a NaN or an infinite weight;
+   stage times, peak device memory. B, S and C are timed here
    when phases 5 and 6 are skipped;
 8. the engines on the month's 1-minute time bars (phase 5's close indices,
    or recomputed): ``bar_products_final`` with the median engines sort, hist
@@ -68,7 +71,8 @@ time bars' products through every median engine and bar scan. Phases:
    every fill of the select engine, the planes against the plain planes and
    their products against B's on non-empty bars, all exact; the floor probes
    P1, P2 (k = 1, 2, 4, 8) and P3 (kernel P) against ``torch.sum``, exact;
-   each kernel alone timed with its bound (V's six passes also one by one),
+   each kernel alone timed with its bound (V's six passes and H's nine
+   launches also one by one),
    each engine and scan's stage time and peak device memory. B, S and C are timed here when no earlier phase
    timed them.
 
@@ -129,12 +133,14 @@ KERNELS = {
           "prefix_scan.cu", "finmlkit_tpu/ops/pallas_scan.py:249 and :287"),
     "F": ("F ffill (replaces K5; L1 in its int32 mode)", "ffill.cu",
           "finmlkit_tpu/ops/pallas_scan.py:84 and finmlkit_tpu/ops/segment_select.py:73"),
-    **{f"E {scan}": (f"E event_scan, {scan} bars (replaces an XLA while_loop, "
-                     "not a TPU kernel)", "event_scan.cu",
+    **{f"E {scan}": (f"E event_scan, {scan} bars{how} (replaces an XLA "
+                     "while_loop, not a TPU kernel)", "event_scan.cu",
                      f"finmlkit_tpu/bar/indexers.py:{line}")
-       for scan, line in (("cusum", 508), ("imbalance", 680), ("run", 680),
-                          ("volume", 368))},
-    "H": ("H segment_hist (replaces H1 and H2)", "segment_hist.cu",
+       for scan, line, how in (("cusum", 508, ""),
+                               ("imbalance", 680, ", a scan of tile maps at a fixed "
+                                "theta on integer weights"),
+                               ("run", 680, ""), ("volume", 368, ""))},
+    "H": ("H segment_hist, a pass over tiles (replaces H1 and H2)", "segment_hist.cu",
           "finmlkit_tpu/ops/segment_hist.py:106 and :167"),
     "V": ("V bar_planes, a segmented scan over tiles (replaces K1c)", "bar_planes.cu",
           "finmlkit_tpu/ops/fused_scan.py:1342"),
@@ -328,9 +334,20 @@ def phase_products():
         say(f"  B case {c}: {len(counts)} bars ({int((counts == 0).sum())} "
             f"empty, {int((counts == 1).sum())} single, longest "
             f"{int(counts.max())}), units max {int(arrs[1].max())}: exact")
+    # bars whose base at the hist engine's last shift lies 2^30 from their
+    # zeros or their 2.0: kernel H's bucket of +-2^30 counts nowhere
+    from finmlkit_tpu_torch.bar.fused import median_engine
+    from finmlkit_tpu_torch.testing import zeros_and_twos
+    amounts, ci = (t.cuda() for t in zeros_and_twos(2000))
+    for m in ("hist", "select"):
+        for name, a, b, c in zip(("a", "b"), median_engine(m)(amounts, ci),
+                                 median_engine(m, plain=True)(amounts, ci),
+                                 median_pairs(amounts, ci)):
+            assert_exact(a, b, f"{m} med_{name} vs plain, zeros and twos")
+            assert_exact(a, c, f"{m} med_{name} vs sort, zeros and twos")
     say("phase 4 ok: B and medians == plain, the hist and select engines and the "
         "full planes == plain and == sort / B, every engine and scan's finals "
-        "== the default's, on every adversarial case")
+        "== the default's, on every adversarial case and on bars of 0.0 and 2.0")
     long_bar_times(cases[0]["long_bar"])
 
 
@@ -373,13 +390,13 @@ def check_engines_and_planes(ticks, units, sides, amounts, ci, what):
 
 
 def long_bar_times(n_long):
-    """Kernel B (alone and the call) and the planes call (kernel V), both over
-    fixed tiles of trades, and kernel H (one histogram pass, one less pass),
-    where one block walks the bar alone, on one bar of ``n_long`` trades."""
+    """Kernel B (alone and the call), the planes call (kernel V) and kernel H
+    (one histogram pass, one less pass, each held to its plain version), all
+    over fixed tiles of trades, on one bar of ``n_long`` trades."""
     import torch
     from finmlkit_tpu_torch.ops import fused_scan as fs
     from finmlkit_tpu_torch.ops import segment_hist as sh
-    from finmlkit_tpu_torch.testing import adversarial_trades
+    from finmlkit_tpu_torch.testing import adversarial_trades, assert_exact
     ticks, units, sides, amounts, _ = (torch.from_numpy(a).cuda() for a in
                                        adversarial_trades(n=n_long, seed=1))
     ci = torch.tensor([-1, n_long - 1], device="cuda")
@@ -387,6 +404,10 @@ def long_bar_times(n_long):
     zero = torch.zeros(1, dtype=torch.int32, device="cuda")
     args = fs._cuda_inputs(ticks, units, sides, ci, "phase 4")
     bufs = fs._products_buffers(n_long, 1, ci.device)
+    assert_exact(sh.hist_pass(bits, ci, zero, 28), sh.hist_pass_plain(bits, ci, zero, 28),
+                 "H hist pass on the long bar")
+    for a, b in zip(sh.less_pass(bits, ci, bits[:1]), sh.less_pass_plain(bits, ci, bits[:1])):
+        assert_exact(a, b, "H less pass on the long bar")
     # B and H without the wrappers' check of ci (the engine checks once)
     t = {"B alone": cuda_ms(lambda: fs._products_kernel(*args, bufs), reps=20),
          "B call": cuda_ms(lambda: fs.bar_scan_products(ticks, units, sides, ci), reps=20),
@@ -395,7 +416,8 @@ def long_bar_times(n_long):
          "V planes call": cuda_ms(lambda: fs.bar_scan_planes(ticks, units, sides, ci))}
     say(f"one bar of {n_long:,} trades (ms): " + ", ".join(
         f"{k} {v:.3f}" for k, v in t.items()) + f"; B's bytes bound "
-        f"{bound(13 * n_long, 0)[0]:.4f} ms")
+        f"{bound(13 * n_long, 0)[0]:.4f} ms, an H pass's {bound(4 * n_long, 0)[0]:.4f} "
+        f"ms; H == plain on both passes")
 
 
 def run_slice(tr, ts_first, ts_last, plain=False):
@@ -632,8 +654,8 @@ def kernels_b_s(card, tr, ci, launches, s_inputs=()):
         cuda_ms(lambda: fast_cumsum_plain(marks))
     s_lib = cuda_ms(lambda: torch.cumsum(marks, 0, dtype=marks.dtype))
     units = tr.units                                    # the int64 month stream
-    s64_ms, s64_lib = cuda_ms(lambda: fast_cumsum(units)), \
-        cuda_ms(lambda: torch.cumsum(units, 0))
+    s64_ms, s64_lib, s64_plain = cuda_ms(lambda: fast_cumsum(units)), \
+        cuda_ms(lambda: torch.cumsum(units, 0)), cuda_ms(lambda: fast_cumsum_plain(units))
     # B reads 13 bytes a trade and the close indices, writes 104 bytes a bar
     b_bound = bound(13 * n_trades + 8 * (n_bars + 1) + 104 * n_bars,
                     40 * n_trades)
@@ -647,14 +669,14 @@ def kernels_b_s(card, tr, ci, launches, s_inputs=()):
         f"{k} {v:.3f}" for k, v in b_pass.items()) + f"), the call {b_call:.3f} ms "
         f"vs plain {b_plain:.3f} ms, bound {b_bound[0]:.3f} ms; kernel S (int32, {n_trades:,}) {s_ms:.3f} "
         f"ms vs plain {s_plain:.3f} ms, torch.cumsum {s_lib:.3f} ms, bound "
-        f"{s_bound[0]:.3f} ms; S (int64) {s64_ms:.3f} ms, torch.cumsum "
-        f"{s64_lib:.3f} ms, bound {2 * s_bound[0]:.3f} ms [{card}]")
+        f"{s_bound[0]:.3f} ms; S (int64) {s64_ms:.3f} ms vs plain {s64_plain:.3f} ms, "
+        f"torch.cumsum {s64_lib:.3f} ms, bound {2 * s_bound[0]:.3f} ms [{card}]")
     return {
         "B": kernel_entry("B", launches["B"], b_err, b_ms, b_plain, b_bound, None,
                           call_ms=b_call, pass_ms=b_pass),
         "S": kernel_entry("S", launches["S"], s_err, s_ms, s_plain, s_bound, s_lib,
-                          int64_ms=s64_ms, int64_library_ms=s64_lib,
-                          int64_bound_ms=2 * s_bound[0]),
+                          int64_ms=s64_ms, int64_plain_ms=s64_plain,
+                          int64_library_ms=s64_lib, int64_bound_ms=2 * s_bound[0]),
     }
 
 
@@ -1119,6 +1141,8 @@ def phase_info(card, month, need):
                 "S float": prefix_scan.FLOAT_LAUNCHES,
                 "C": prefix_scan.COLS_LAUNCHES, "F": prefix_scan.FFILL_LAUNCHES,
                 **{f"E {scan}": event_scan.MODE_LAUNCHES[mode]
+                   + (event_scan.MODE_LAUNCHES[event_scan._IMBALANCE_MAP]
+                      if mode == event_scan._IMBALANCE else 0)
                    for scan, mode in E_MODES.items()}}
 
     kits = info_kits(month)
@@ -1130,9 +1154,11 @@ def phase_info(card, month, need):
     torch.cuda.reset_peak_memory_stats()
     fused_scan.LAUNCHES = prefix_scan.LAUNCHES = prefix_scan.COLS_LAUNCHES = 0
     prefix_scan.FLOAT_LAUNCHES = prefix_scan.FFILL_LAUNCHES = event_scan.LAUNCHES = 0
-    event_scan.MODE_LAUNCHES[:] = [0, 0, 0, 0]
+    event_scan.MODE_LAUNCHES[:] = [0] * len(event_scan.MODE_LAUNCHES)
     k_out, k_st = run_info(kits, event)        # the path's counted run
     launches = counters()
+    imb_paths = {"map": event_scan.MODE_LAUNCHES[event_scan._IMBALANCE_MAP],
+                 "walk": event_scan.MODE_LAUNCHES[event_scan._IMBALANCE]}
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     tr = kits["cusum"].trades
@@ -1144,6 +1170,9 @@ def phase_info(card, month, need):
     if launches["S"] < sum(launches[f"E {scan}"] for scan in E_MODES):
         fail(f"kernel S launched fewer times than kernel E, whose every scan "
              f"compacts its closes with S: {launches}")
+    if imb_paths["map"] < 1 or imb_paths["walk"] != 0:
+        fail(f"the tick imbalance bars did not take kernel E's map path: "
+             f"launches by path {imb_paths}")
     t0 = time.perf_counter()
     p_out, p_st = run_info(info_kits(month, plain=True), event)
     t_plain = time.perf_counter() - t0
@@ -1204,7 +1233,8 @@ def phase_info(card, month, need):
         if not bool(torch.isfinite(v).all()):
             fail(f"cusum trade_size.{key} not finite")
     counts = {name: len(c) - 1 for name, c in cis.items()}
-    say(f"info bars: {counts}, launches {launches}; kernel path == plain path "
+    say(f"info bars: {counts}, launches {launches} (E imbalance by path "
+        f"{imb_paths}); kernel path == plain path "
         f"(close indices, bars, CUSUM trade size, footprints and filled "
         f"sigma exact; CUSUM near-tie differences {ties_kp}); tick ci == "
         f"arange, volume and imbalance ci == the integer rules in numpy, "
@@ -1224,6 +1254,8 @@ def phase_info(card, month, need):
                **kernel_e(card, tr, torch.from_numpy(price).cuda(), sig,
                           thr_units, counts, launches,
                           cusum_may_differ=bool(ties_kp))}
+    kernels["E imbalance"]["launches_by_mode"] = imb_paths
+    check_e_nonfinite(card)
     del sig
     ci_cusum = torch.from_numpy(cis["cusum"]).cuda()
     if "C" in need:
@@ -1273,9 +1305,11 @@ def kernel_e(card, tr, price, sigma, thr_units, counts, launches,
     chunk count and at each of ``E_CHUNKS`` (1 is the sequential walk), every
     one timed (three calls) with the walk's counts and giving the same closes,
     and held to its plain version (one timed call; CUSUM closes may differ
-    only where phase 7 found near ties). Returns one ``kernels`` entry a scan,
-    with the default's counts: 256-trade segments skipped and scanned, pass-2
-    chunks that did not merge, chunks fixed up."""
+    only where phase 7 found near ties). The imbalance scan takes the map
+    path (its states reported); the walk, forced, is timed and held to the
+    same closes beside it. Returns one ``kernels`` entry a scan, with the
+    default's counts: 256-trade segments skipped and scanned, pass-2 chunks
+    that did not merge, chunks fixed up."""
     import torch
     from finmlkit_tpu_torch.bar.indexers import cusum_scan_inputs
     from finmlkit_tpu_torch.ops import event_scan as es
@@ -1286,52 +1320,72 @@ def kernel_e(card, tr, price, sigma, thr_units, counts, launches,
     w = tr.sides.to(torch.float64)
     run = tuple(RUN_EMA[k] for k in ("expected_ticks_init", "expected_rate_init",
                                      "alpha_ticks", "alpha_rate"))
+    imb_k = es._map_states(w, 1.0, IMB_THETA, 0.0, 0.0, integral=True)
+    if imb_k is None:
+        fail("the tick imbalance scan is not admitted to kernel E's map path")
     scans = {   # plain version, its arguments (every buffer holds n closes),
-        # kernel E's start and inputs, bytes read a trade
-        "cusum": (es.cusum_scan_plain, (rets, lam, can_close, fv, n), fv + 1,
+        # kernel E's modes (the first is the default path), start and inputs,
+        # bytes read a trade
+        "cusum": (es.cusum_scan_plain, (rets, lam, can_close, fv, n),
+                  {"walk": es._CUSUM}, fv + 1,
                   dict(x=rets, lam=lam, can_close=can_close), 17),
         "imbalance": (es.info_scan_plain, (w, 1.0, IMB_THETA, 0.0, 0.0, n, False),
-                      1, dict(x=w, e_t=1.0, e_r=IMB_THETA), 8),
-        "run": (es.info_scan_plain, (w, *run, n, True), 1,
+                      {"map": es._IMBALANCE_MAP, "walk": es._IMBALANCE}, 1,
+                      dict(x=w, e_t=1.0, e_r=IMB_THETA), 8),
+        "run": (es.info_scan_plain, (w, *run, n, True), {"walk": es._RUN}, 1,
                 dict(x=w, **dict(zip(("e_t", "e_r", "alpha_t", "alpha_r"), run))), 8),
-        "volume": (es.volume_scan_plain, (tr.units, thr_units, n), 1,
-                   dict(units=tr.units, thr=thr_units), 8),
+        "volume": (es.volume_scan_plain, (tr.units, thr_units, n),
+                   {"walk": es._VOLUME}, 1, dict(units=tr.units, thr=thr_units), 8),
     }
     entries = {}
-    for name, (plain, args, start, kw, nbytes) in scans.items():
-        def scan(c, stats=None):
-            return es._launch(E_MODES[name], n, start, n, dev, chunks=c,
-                              stats=stats, **kw)
-        chunks = es._default_chunks(E_MODES[name], dev)
-        stats = torch.zeros(4, dtype=torch.int64, device=dev)
-        got = scan(chunks, stats)
-        ms = cuda_ms(lambda: scan(chunks), reps=3)
-        sweep = {}
-        for c in E_CHUNKS:
-            st = torch.zeros(4, dtype=torch.int64, device=dev)
-            assert_exact(scan(c, st), got, f"E {name}: {c} chunks against {chunks}")
-            sweep[str(c)] = [cuda_ms(lambda: scan(c), reps=3), *st.tolist()]
+    for name, (plain, args, modes, start, kw, nbytes) in scans.items():
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
         want = plain(*args)
         b.record()
         b.synchronize()
-        same = got.shape == want.shape and bool((got == want).all())
-        if not same and (name != "cusum" or not cusum_may_differ):
-            fail(f"E {name} alone: {len(got)} closes differ from the plain "
-                 f"version's {len(want)}")
-        skipped, scanned, unmerged, fixed = stats.tolist()
+        runs = {}
+        for path, mode in modes.items():
+            def scan(c, stats=None):
+                return es._launch(mode, n, start, n, dev, chunks=c, stats=stats, **kw)
+            chunks = es._default_chunks(mode, dev)
+            stats = torch.zeros(4, dtype=torch.int64, device=dev)
+            got = scan(chunks, stats)
+            ms = cuda_ms(lambda: scan(chunks), reps=3)
+            sweep = {}
+            for c in E_CHUNKS:
+                st = torch.zeros(4, dtype=torch.int64, device=dev)
+                assert_exact(scan(c, st), got, f"E {name} {path}: {c} chunks against {chunks}")
+                sweep[str(c)] = [cuda_ms(lambda: scan(c), reps=3), *st.tolist()]
+            same = got.shape == want.shape and bool((got == want).all())
+            if not same and (name != "cusum" or not cusum_may_differ):
+                fail(f"E {name} alone ({path}): {len(got)} closes differ from the "
+                     f"plain version's {len(want)}")
+            runs[path] = (got, ms, chunks, stats.tolist(), sweep)
+        got, ms, chunks, (skipped, scanned, unmerged, fixed), sweep = runs[next(iter(modes))]
         # some 10 operations a trade; 8 bytes a close written
         e_bound = bound(nbytes * n + 8 * counts[name], 10 * n)
         m = min(len(got), len(want))    # the error: closes that differ
         err = float(int((got[:m] != want[:m]).sum()) + abs(len(got) - len(want)))
+        extra = {}
+        if name == "imbalance":
+            w_ms, w_chunks, w_stats, w_sweep = runs["walk"][1:]
+            extra = dict(path="map", states=2 * imb_k + 1, walk_ms=w_ms,
+                         walk_chunks=w_chunks, walk_by_chunks=w_sweep)
+            say(f"kernel E imbalance, the walk forced: {w_ms:.3f} ms at {w_chunks} "
+                f"chunk(s), the same closes; ms [skipped, scanned, unmerged, fixed "
+                f"up] by chunks: " + ", ".join(f"{c}: {v[0]:.3f} {v[1:]}"
+                                               for c, v in w_sweep.items())
+                + f" [{card}]")
         entries[f"E {name}"] = kernel_entry(
             f"E {name}", launches[f"E {name}"], err, ms, a.elapsed_time(b),
             e_bound, None, chunks=chunks, segments_skipped=skipped,
             segments_scanned=scanned, pass2_unmerged=unmerged,
-            chunks_fixed_up=fixed, by_chunks=sweep)
-        say(f"kernel E {name}: {ms:.3f} ms at {chunks} chunks (default), plain "
+            chunks_fixed_up=fixed, by_chunks=sweep, **extra)
+        path = (f"the map path ({2 * imb_k + 1} states)" if name == "imbalance"
+                else f"{chunks} chunks (default)")
+        say(f"kernel E {name}: {ms:.3f} ms by {path}, plain "
             f"{a.elapsed_time(b):.1f} ms, bound {e_bound[0]:.3f} ms; segments "
             f"skipped {skipped:,} of {skipped + scanned:,} walked, pass-2 chunks "
             f"unmerged {unmerged}, chunks fixed up {fixed}; same closes at every "
@@ -1339,6 +1393,31 @@ def kernel_e(card, tr, price, sigma, thr_units, counts, launches,
             + ", ".join(f"{c}: {v[0]:.3f} {v[1:]}" for c, v in sweep.items())
             + f" [{card}]")
     return entries
+
+
+def check_e_nonfinite(card):
+    """Kernel E against its plain version on volume-imbalance weights with a
+    NaN or an infinite weight at trade 1000 (3,000 trades, theta 8): a NaN
+    sum never closes, and an infinite weight closes once and makes theta NaN
+    at alpha 0, so no bar closes after trade 1000."""
+    import torch
+    from finmlkit_tpu_torch.ops import event_scan as es
+    from finmlkit_tpu_torch.testing import assert_exact
+    r = np.random.default_rng(8)
+    w0 = np.where(r.random(3000) < 0.5, 1.0, -1.0) * r.lognormal(0.0, 1.0, 3000)
+    found = {}
+    for bad in ("nan", "inf", "-inf"):
+        w = torch.from_numpy(w0.copy()).cuda()
+        w[1000] = float(bad)
+        got = es.info_scan(w, 1.0, 8.0, 0.0, 0.0, 3000, False)
+        want = es.info_scan_plain(w, 1.0, 8.0, 0.0, 0.0, 3000, False)
+        assert_exact(got, want, f"E imbalance with a {bad} weight")
+        last = int(want[-1]) if len(want) else -1
+        if len(want) < 3 or last > 1000 or (bad != "nan") != (last == 1000):
+            fail(f"E imbalance with a {bad} weight: closes {want.tolist()}")
+        found[bad] = (len(got), last)
+    say(f"kernel E == plain on volume-imbalance weights with a non-finite weight "
+        f"at trade 1000 (closes, last): {found} [{card}]")
 
 
 def phase_engines(card, month, need):
@@ -1458,7 +1537,8 @@ def phase_engines(card, month, need):
     # engine does once a call; the checked wrappers wait for the card each time
     bits_c, ci_c = sh._check_ci(bits, ci, "phase 8")
     h_ms = cuda_ms(lambda: h_all(sh._launch_hist, sh._launch_less))
-    h_pass_ms = {"hist pass": cuda_ms(lambda: sh._launch_hist(bits_c, ci_c, *passes[0])),
+    h_pass_ms = {**{f"hist s={s_}": cuda_ms(lambda p=(base, s_): sh._launch_hist(
+                        bits_c, ci_c, *p)) for base, s_ in passes},
                  "less pass": cuda_ms(lambda: sh._launch_less(bits_c, ci_c, less_v[0]))}
     h_wrapped = cuda_ms(lambda: h_all(sh.hist_pass, sh.less_pass))
     h_plain = cuda_ms(lambda: h_all(sh.hist_pass_plain, sh.less_pass_plain), reps=2)
@@ -1469,8 +1549,9 @@ def phase_engines(card, month, need):
     del keys
     h_bound = bound(9 * 4 * n + 9 * 8 * (nb + 1) + 8 * 64 * nb + 8 * nb, 17 * 8 * n)
     say(f"kernel H == plain on all 8 passes and the less pass of the month; the "
-        f"9 launches {h_ms:.3f} ms (first hist pass {h_pass_ms['hist pass']:.3f}, "
-        f"less pass {h_pass_ms['less pass']:.3f}; through the wrappers, which "
+        f"9 launches {h_ms:.3f} ms (the passes " + ", ".join(
+            f"{k} {v:.3f}" for k, v in h_pass_ms.items())
+        + f"; through the wrappers, which "
         f"check ci each time, {h_wrapped:.3f}) vs plain {h_plain:.3f} ms, 8 "
         f"torch.bincount of precomputed keys {h_lib:.3f} ms, bound "
         f"{h_bound[0]:.3f} ms [{card}]")

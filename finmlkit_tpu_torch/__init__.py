@@ -9,7 +9,7 @@ compiled by ``nvcc`` for ``sm_90a`` at first use (``_build.py``) and bound with
 
 - kernel **B** (``csrc/bar_products.cu``, ``ops.fused_scan``): per-bar OHLC,
   volume and dollar sums, directional counts, spreads and the in-bar imbalance
-  extrema, one thread block per bar;
+  extrema, one pass over fixed tiles of trades;
 - kernel **S** (``csrc/prefix_scan.cu``, ``ops.prefix_scan``): inclusive prefix
   sums over int32, int64, float32 and float64 streams;
 - kernel **C** (the same file, ``ops.prefix_scan.fast_cumsum_cols``): the
@@ -18,9 +18,12 @@ compiled by ``nvcc`` for ``sm_90a`` at first use (``_build.py``) and bound with
 - kernel **F** (``csrc/ffill.cu``, ``ops.prefix_scan.fast_ffill``): the
   forward fill of the CUSUM bars' sigma;
 - kernel **E** (``csrc/event_scan.cu``, ``ops.event_scan``): the CUSUM,
-  imbalance, run and volume bar boundary scans, one launch each;
+  imbalance, run and volume bar boundary scans, one call each; imbalance bars
+  at a fixed threshold on integer weights as a parallel scan of the tiles'
+  maps of in-bar states;
 - kernel **H** (``csrc/segment_hist.cu``, ``ops.segment_hist``): the
-  per-bar histogram and "less" passes of the hist median engine;
+  per-bar histogram and "less" passes of the hist median engine, one pass
+  over fixed tiles of trades;
 - kernel **V** (``csrc/bar_planes.cu``, ``ops.fused_scan.bar_scan_planes``):
   the full planes, every trade's prefixes and in-bar running extrema, as one
   segmented scan over fixed tiles of trades;

@@ -36,8 +36,8 @@ _SIGNATURES = {
     "fmk_event_scratch_bytes": [ctypes.c_int, _I64, _I64, _I64],
     "fmk_event_scan": [ctypes.c_int, _P, _P, _P, _P, _I64, _I64, _F64, _F64,
                        _F64, _F64, _I64, _P, _I64, _P, _I64, _P, _P, _P],
-    "fmk_hist_pass": [_P, _P, _P, ctypes.c_int, _I64, _P, _P],
-    "fmk_less_pass": [_P, _P, _P, _I64, _P, _P, _P],
+    "fmk_hist_pass": [_P, _P, _P, ctypes.c_int, _I64, _I64, _P, _P, _P],
+    "fmk_less_pass": [_P, _P, _P, _I64, _I64, _P, _P, _P, _P],
     "fmk_planes_scratch_bytes": [_I64],
     "fmk_bar_planes": [_P] * 4 + [_I64, _I64] + [_P] * 5 + [ctypes.c_int, _P],
     "fmk_io_floor": [_P] * 8 + [ctypes.c_int, _P, _I64, _P],

@@ -13,7 +13,11 @@
 //   2 run        max(in-bar sum of buy w, in-bar sum of sell |w|) >= theta;
 //                in modes 1 and 2 theta = E[T] * E[rate], whose EMAs update
 //                at each close from the bar's length and statistic;
-//   3 volume     the int64 in-bar sum of amount units >= thr, reset to zero.
+//   3 volume     the int64 in-bar sum of amount units >= thr, reset to zero;
+//   4 imbalance  as 1, where both alphas are 0 and every weight is a finite
+//                integer: a parallel scan of the tiles' maps of states (below).
+// A close needs its statistic >= theta, as in the reference, so a NaN
+// statistic or threshold never closes.
 //
 // The walk. Trades start .. n-1 are cut into tiles of 2048 trades counted from
 // `start`, a tile into 8 segments of 256. One warp walks a segment from the
@@ -57,6 +61,15 @@
 // The result does not depend on the number of chunks or on scheduling: each
 // tile's record is a walk from its true entry state. One chunk is the
 // sequential walk.
+//
+// Mode 4 has no chunks. With a fixed theta and integer weights the in-bar sum
+// takes 2K + 1 values (K the largest integer below theta), so a tile's effect
+// is a map from its entry state to its exit state: pass 1 walks every entry
+// state of every tile at once (a thread a state, the tile's weights read once
+// into shared memory), pass 2 composes the maps as an exclusive scan in two
+// levels of 128, pass 3 walks each tile once from its true entry state (a
+// thread a tile, over the weights pass 1 stored as bytes), and step 5's
+// compaction follows. Its work is (2K + 1) integer steps a trade.
 //
 // Bound: the walk's latency, not device memory. A step is a skip (a few
 // dependent float64 operations on a summary in shared memory, requested two
@@ -271,8 +284,9 @@ struct Imbalance : InfoCommon {
   __device__ static E elem(const In& v) { return v.w; }
   __device__ static E combine(E x, E y) { return x + y; }
   __device__ static E shfl(E x, int o) { return shfl_up(x, o); }
+  // as the reference's stat >= theta: a NaN sum or threshold never closes
   __device__ static bool test(E p, const In&, const State& s, const Args&) {
-    return !(fabs(s.cb + p) < __dmul_rn(s.e_t, s.e_r));
+    return fabs(s.cb + p) >= __dmul_rn(s.e_t, s.e_r);
   }
   __device__ static State next(E p, const In&, const State& s, long long g,
                                const Args& a) {
@@ -313,8 +327,10 @@ struct Run : InfoCommon {
   __device__ static E shfl(const E& x, int o) {
     return {shfl_up(x.b, o), shfl_up(x.s, o)};
   }
+  // a NaN threshold (after a close on an infinite weight at alpha 0) never
+  // closes, as in the reference
   __device__ static bool test(const E& p, const In&, const State& s, const Args&) {
-    return !(fmax(s.cb + p.b, s.cs + p.s) < __dmul_rn(s.e_t, s.e_r));
+    return fmax(s.cb + p.b, s.cs + p.s) >= __dmul_rn(s.e_t, s.e_r);
   }
   __device__ static State next(const E& p, const In&, const State& s,
                                long long g, const Args& a) {
@@ -645,6 +661,175 @@ scatter_kernel(const unsigned long long* __restrict__ flags,
   for (; m != 0 && idx < max_out; m &= m - 1, ++idx) out[idx] = p0 + __ffsll(m) - 1;
 }
 
+// ---- mode 4: imbalance at a fixed threshold on integer weights ------------
+// With both alphas 0 the threshold theta never moves, and with integer
+// weights the in-bar sum before a close is an integer s with |s| <= K, K the
+// largest integer below theta: 2K + 1 states. A tile's whole effect is then a
+// map from its entry state to its exit state, and maps compose. The state is
+// kept biased, u = s + K in [0, 2K]; a trade adds w and closes where u + w
+// leaves [0, 2K], which resets u to K. A weight with |w| >= 2K + 1 closes from
+// every state, so weights are clamped to that and fit a signed byte.
+constexpr int kMapStates = 127;  // the most states (2K + 1) a map holds
+constexpr int kMapRow = 128;     // bytes of one map
+constexpr int kGroup = 128;      // tiles (or groups) a block of the map scan composes
+
+struct MapWork {
+  long long tiles, groups;
+  signed char* w8;       // per trade: the clamped weight
+  unsigned char* maps;   // per tile: the exit state of each entry state
+  unsigned char* gmaps;  // per group of kGroup tiles: the same over the group
+  int* gentry;           // per group: its entry state
+  int* tentry;           // per tile: its entry state
+  unsigned long long* flags;  // per tile: its closes, a bit a trade
+  long long* cnt;        // per tile: their number
+  long long* incl;       // per tile: inclusive prefix of cnt
+  void* scan_scratch;    // kernel S's scratch for cnt
+};
+
+__device__ __forceinline__ int map_step(int u, int w, int two_k) {
+  const int v = u + w;
+  return static_cast<unsigned>(v) > static_cast<unsigned>(two_k) ? two_k >> 1 : v;
+}
+
+// Pass 1, a block a tile: the tile's weights are read once, clamped, kept in
+// shared memory and stored as bytes for pass 3; thread u walks entry state u
+// over the tile, every thread reading the same weights.
+__global__ void __launch_bounds__(kMapRow)
+map_tiles_kernel(const double* __restrict__ x, long long n, long long start, int k,
+                 signed char* __restrict__ w8, unsigned char* __restrict__ maps) {
+  __shared__ __align__(16) int sw[kTile];
+  const long long tile = blockIdx.x;
+  const long long pos0 = start + tile * kTile;
+  const double lim = 2.0 * k + 1.0;
+  for (int j = threadIdx.x; j < kTile; j += blockDim.x) {
+    const long long g = pos0 + j;
+    const int v = static_cast<int>(fmin(fmax(g < n ? x[g] : 0.0, -lim), lim));
+    sw[j] = v;
+    w8[tile * kTile + j] = static_cast<signed char>(v);
+  }
+  __syncthreads();
+  const int u0 = threadIdx.x;
+  if (u0 > 2 * k) return;
+  const int4* s4 = reinterpret_cast<const int4*>(sw);
+  int u = u0;
+#pragma unroll 8
+  for (int j = 0; j < kTile / 4; ++j) {
+    const int4 q = s4[j];
+    u = map_step(u, q.x, 2 * k);
+    u = map_step(u, q.y, 2 * k);
+    u = map_step(u, q.z, 2 * k);
+    u = map_step(u, q.w, 2 * k);
+  }
+  maps[tile * kMapRow + u0] = static_cast<unsigned char>(u);
+}
+
+// Rows r0 .. r0+cnt-1 of a table of maps into shared memory, 16 bytes a request.
+__device__ __forceinline__ void load_maps(const unsigned char* __restrict__ src, long long r0,
+                                          int cnt, unsigned char (*dst)[kMapRow]) {
+  const int4* s = reinterpret_cast<const int4*>(src + r0 * kMapRow);
+  int4* d = reinterpret_cast<int4*>(&dst[0][0]);
+  for (int q = threadIdx.x; q < cnt * (kMapRow / 16); q += blockDim.x) d[q] = s[q];
+}
+
+// Pass 2a, a block a group: the composition of the group's tile maps.
+__global__ void __launch_bounds__(kMapRow)
+map_groups_kernel(const unsigned char* __restrict__ maps, long long tiles, int states,
+                  unsigned char* __restrict__ gmaps) {
+  __shared__ __align__(16) unsigned char sm[kGroup][kMapRow];
+  const long long g = blockIdx.x;
+  const int cnt = static_cast<int>(min(static_cast<long long>(kGroup), tiles - g * kGroup));
+  load_maps(maps, g * kGroup, cnt, sm);
+  __syncthreads();
+  const int u0 = threadIdx.x;
+  if (u0 >= states) return;
+  int u = u0;
+  for (int j = 0; j < cnt; ++j) u = sm[j][u];
+  gmaps[g * kMapRow + u0] = static_cast<unsigned char>(u);
+}
+
+// Pass 2b, one block: the groups' entry states, from the stream's empty bar
+// (state K) through the group maps in order, kGroup of them at a time.
+__global__ void __launch_bounds__(kMapRow)
+map_top_kernel(const unsigned char* __restrict__ gmaps, long long groups, int k,
+               int* __restrict__ gentry) {
+  __shared__ __align__(16) unsigned char sm[kGroup][kMapRow];
+  int u = k;
+  for (long long g0 = 0; g0 < groups; g0 += kGroup) {
+    const int cnt = static_cast<int>(min(static_cast<long long>(kGroup), groups - g0));
+    __syncthreads();  // the previous rows are read
+    load_maps(gmaps, g0, cnt, sm);
+    __syncthreads();
+    if (threadIdx.x == 0)
+      for (int j = 0; j < cnt; ++j) {
+        gentry[g0 + j] = u;
+        u = sm[j][u];
+      }
+  }
+}
+
+// Pass 2c, a block a group: its tiles' entry states.
+__global__ void __launch_bounds__(32)
+map_expand_kernel(const unsigned char* __restrict__ maps, long long tiles,
+                  const int* __restrict__ gentry, int* __restrict__ tentry) {
+  __shared__ __align__(16) unsigned char sm[kGroup][kMapRow];
+  const long long g = blockIdx.x;
+  const int cnt = static_cast<int>(min(static_cast<long long>(kGroup), tiles - g * kGroup));
+  load_maps(maps, g * kGroup, cnt, sm);
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  int u = gentry[g];
+  for (int j = 0; j < cnt; ++j) {
+    tentry[g * kGroup + j] = u;
+    u = sm[j][u];
+  }
+}
+
+// Pass 3, a thread a tile: the walk from the tile's true entry state over its
+// byte weights, 64 trades (one word of close bits) a step, the next 64
+// requested before the current are walked.
+__global__ void __launch_bounds__(128)
+map_walk_kernel(const signed char* __restrict__ w8, const int* __restrict__ tentry,
+                long long tiles, int k, unsigned long long* __restrict__ flags,
+                long long* __restrict__ cnt) {
+  const long long tile = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (tile >= tiles) return;
+  constexpr int kWords = kTile / 64;
+  const int4* src = reinterpret_cast<const int4*>(w8 + tile * kTile);
+  unsigned long long* f = flags + tile * kWords;
+  int u = tentry[tile];
+  long long c = 0;
+  int4 nxt[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) nxt[q] = src[q];
+  for (int b = 0; b < kWords; ++b) {
+    int4 cur[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) cur[q] = nxt[q];
+    if (b + 1 < kWords) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) nxt[q] = src[4 * (b + 1) + q];
+    }
+    unsigned long long bits = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int words[4] = {cur[q].x, cur[q].y, cur[q].z, cur[q].w};
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int y = 0; y < 4; ++y) {
+          const int w = static_cast<signed char>(words[r] >> (8 * y));
+          const int v = u + w;
+          const bool closes = static_cast<unsigned>(v) > static_cast<unsigned>(2 * k);
+          u = closes ? k : v;
+          bits |= static_cast<unsigned long long>(closes) << (16 * q + 4 * r + y);
+        }
+    }
+    f[b] = bits;
+    c += __popcll(bits);
+  }
+  cnt[tile] = c;
+}
+
 long long round_up(long long x) { return (x + kAlign - 1) / kAlign * kAlign; }
 
 template <class M> long long layout(Work* w, char* base, long long n,
@@ -703,6 +888,71 @@ int launch(const Args& a, void* scratch, long long chunks, long long* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K of mode 4, from theta = e_t * e_r rounded as the walk rounds it; -1 where
+// the map does not apply (an alpha not 0, theta not finite and positive, or
+// more than kMapStates states).
+int map_k(const Args& a) {
+  const double theta = a.e_t * a.e_r;
+  if (a.alpha_t != 0.0 || a.alpha_r != 0.0 || !(theta > 0.0) || !std::isfinite(theta))
+    return -1;
+  const double k = std::ceil(theta) - 1.0;
+  return 2.0 * k + 1.0 <= kMapStates ? static_cast<int>(k) : -1;
+}
+
+long long map_layout(MapWork* w, char* base, long long n, long long start) {
+  const long long tiles = (n - start + kTile - 1) / kTile;
+  const long long groups = (tiles + kGroup - 1) / kGroup;
+  long long o = 0;
+  auto take = [&](long long bytes) { char* p = base + o; o += round_up(bytes); return p; };
+  MapWork v;
+  v.tiles = tiles;
+  v.groups = groups;
+  v.w8 = reinterpret_cast<signed char*>(take(tiles * kTile));
+  v.maps = reinterpret_cast<unsigned char*>(take(tiles * kMapRow));
+  v.gmaps = reinterpret_cast<unsigned char*>(take(groups * kMapRow));
+  v.gentry = reinterpret_cast<int*>(take(groups * sizeof(int)));
+  v.tentry = reinterpret_cast<int*>(take(tiles * sizeof(int)));
+  v.flags = reinterpret_cast<unsigned long long*>(take(tiles * (kTile / 8)));
+  v.cnt = reinterpret_cast<long long*>(take(tiles * sizeof(long long)));
+  v.incl = reinterpret_cast<long long*>(take(tiles * sizeof(long long)));
+  v.scan_scratch = take(fmk_scan_scratch_bytes(1, 1, tiles));
+  if (w != nullptr) *w = v;
+  return o;
+}
+
+// Mode 4: the tiles' maps (pass 1), their exclusive composition in two levels
+// (pass 2: groups of kGroup tiles, the groups in one block, the tiles of each
+// group), the walk of every tile from its entry state (pass 3), then the
+// compaction of the other modes.
+int launch_map(const Args& a, void* scratch, long long* out, long long max_out,
+               long long* count, void* stats, cudaStream_t s) {
+  const int k = map_k(a);
+  if (k < 0) return static_cast<int>(cudaErrorInvalidValue);
+  MapWork w;
+  map_layout(&w, static_cast<char*>(scratch), a.n, a.start);
+  if (stats != nullptr) FMK_CHECK(cudaMemsetAsync(stats, 0, 4 * sizeof(long long), s));
+  const int threads = (2 * k + 1 + 31) / 32 * 32;  // a thread a state
+  map_tiles_kernel<<<static_cast<unsigned>(w.tiles), threads, 0, s>>>(
+      a.x, a.n, a.start, k, w.w8, w.maps);
+  FMK_CHECK(cudaGetLastError());
+  map_groups_kernel<<<static_cast<unsigned>(w.groups), kMapRow, 0, s>>>(
+      w.maps, w.tiles, 2 * k + 1, w.gmaps);
+  FMK_CHECK(cudaGetLastError());
+  map_top_kernel<<<1, kMapRow, 0, s>>>(w.gmaps, w.groups, k, w.gentry);
+  FMK_CHECK(cudaGetLastError());
+  map_expand_kernel<<<static_cast<unsigned>(w.groups), 32, 0, s>>>(
+      w.maps, w.tiles, w.gentry, w.tentry);
+  FMK_CHECK(cudaGetLastError());
+  map_walk_kernel<<<static_cast<unsigned>((w.tiles + 127) / 128), 128, 0, s>>>(
+      w.w8, w.tentry, w.tiles, k, w.flags, w.cnt);
+  FMK_CHECK(cudaGetLastError());
+  const int rc = fmk_prefix_scan(1, w.cnt, w.incl, w.scan_scratch, w.tiles, s);
+  if (rc != 0) return rc;
+  scatter_kernel<<<static_cast<unsigned>(w.tiles), 32, 0, s>>>(
+      w.flags, w.cnt, w.incl, a.start, w.tiles, out, max_out, count);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Bytes of scratch kernel E needs for trades start .. n-1 (start < n) in
@@ -714,13 +964,17 @@ extern "C" long long fmk_event_scratch_bytes(int mode, long long n,
     case 1: return layout<Imbalance>(nullptr, nullptr, n, start, chunks);
     case 2: return layout<Run>(nullptr, nullptr, n, start, chunks);
     case 3: return layout<Volume>(nullptr, nullptr, n, start, chunks);
+    case 4: return map_layout(nullptr, nullptr, n, start);
     default: return -1;
   }
 }
 
 // Kernel E. mode: 0 CUSUM (x = log returns, lam, can_close), 1 imbalance and
 // 2 run (x = weights, e_t / e_r / alpha_t / alpha_r), 3 volume (units, thr;
-// the first bar holds trade 0). Checks trades start .. n-1 (start < n) in
+// the first bar holds trade 0), 4 imbalance by tile maps (x = integer-valued
+// finite weights, alphas 0, theta = e_t * e_r finite, positive and of at most
+// kMapStates states; chunks and the stats' counts unused, the stats zeroed).
+// Checks trades start .. n-1 (start < n) in
 // `chunks` chunks of whole tiles (at least 1), with `scratch` of
 // fmk_event_scratch_bytes(mode, n, start, chunks) bytes, 256-byte aligned;
 // writes the first max_out close indices to out and their number to
@@ -747,6 +1001,7 @@ extern "C" int fmk_event_scan(int mode, const void* x, const void* lam,
     case 1: return launch<Imbalance>(a, scratch, chunks, o, max_out, c, stats, s);
     case 2: return launch<Run>(a, scratch, chunks, o, max_out, c, stats, s);
     case 3: return launch<Volume>(a, scratch, chunks, o, max_out, c, stats, s);
+    case 4: return launch_map(a, scratch, o, max_out, c, stats, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

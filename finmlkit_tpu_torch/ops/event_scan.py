@@ -11,6 +11,10 @@ whole 2048-trade tiles, walks them all at once from guessed states, walks
 each again from its predecessor's end state until the two walks meet, and
 walks serially only what never meets (``csrc/event_scan.cu``);
 :func:`_chunked_scan_model` is that scheme on the CPU, for the tests.
+Imbalance bars at a fixed threshold on integer weights (tick imbalance among
+them) take another path of the kernel: the in-bar sum then has few states, so
+each tile's effect is a map of states and the maps compose as a parallel scan
+(:func:`_map_scan_model` on the CPU).
 
 Each scan has a plain PyTorch version beside it: the chunked closed forms of
 the JAX code, driven by a host loop, on any device. They are the CPU path and
@@ -20,6 +24,7 @@ Every scan returns the close indices it found, at most ``max_bars`` of them,
 as an int64 tensor on the input's device; the indexers grow ``max_bars`` and
 run again when a scan fills it.
 """
+import math
 import struct
 
 import numpy as np
@@ -32,9 +37,12 @@ __all__ = ["cusum_scan", "cusum_scan_plain", "info_scan", "info_scan_plain",
            "volume_scan", "volume_scan_plain"]
 
 LAUNCHES = 0  # kernel E launches in this process
-MODE_LAUNCHES = [0, 0, 0, 0]  # of them by mode: CUSUM, imbalance, run, volume
+# of them by mode: CUSUM, imbalance (the walk), run, volume, imbalance by maps
+MODE_LAUNCHES = [0, 0, 0, 0, 0]
 
-_CUSUM, _IMBALANCE, _RUN, _VOLUME = 0, 1, 2, 3
+_CUSUM, _IMBALANCE, _RUN, _VOLUME, _IMBALANCE_MAP = 0, 1, 2, 3, 4
+_MAP_STATES = 127      # the most in-bar states of the map path (kMapStates)
+_MAP_GROUP = 128       # tiles a block of its scan composes (kGroup)
 _CUSUM_CHUNK = 8192        # the JAX scans' chunk sizes and in-chunk event
 _CUSUM_EVENTS_PER_CHUNK = 4  # extractions (indexers.py:504-505, 677)
 _INFO_CHUNK = 2048
@@ -57,7 +65,7 @@ def _default_chunks(mode: int, device) -> int:
     run walks, one chunk: the sequential walk. Tick imbalance walks never
     met there (their sums keep their offset modulo theta) and ran slower
     chunked, and walks whose EMA thresholds move never meet bit for bit."""
-    if mode in (_IMBALANCE, _RUN):
+    if mode in (_IMBALANCE, _RUN, _IMBALANCE_MAP):
         return 1
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return 4 * sms if mode == _CUSUM else max(sms // 4, 1)
@@ -73,7 +81,9 @@ def _launch(mode: int, n: int, start: int, max_bars: int, device, *, x=None,
     :func:`_default_chunks`; 1 is the sequential walk); the closes do not
     depend on it. ``stats``, a zeroed int64 tensor of 4 on the device, receives
     the 256-trade segments the walks skipped and scanned, the pass-2 chunks
-    that did not merge and the chunks the fix-up walked again.
+    that did not merge and the chunks the fix-up walked again. The map path
+    (``_IMBALANCE_MAP``, on weights :func:`_map_states` admits) has no chunks
+    and leaves the stats at 0.
     """
     global LAUNCHES
     out = torch.empty(max(max_bars, 1), dtype=torch.int64, device=device)
@@ -106,6 +116,86 @@ def _launch(mode: int, n: int, start: int, max_bars: int, device, *, x=None,
                                 stream)
     _build.check(rc, "event scan")
     return out[:int(count)]
+
+
+def _map_k(e_t: float, e_r: float):
+    """K of the map path for the threshold ``e_t * e_r`` (float64, as the walk
+    rounds it): the largest integer below it, or None where it is not finite
+    and positive or its ``2K + 1`` states exceed ``_MAP_STATES``."""
+    theta = float(e_t) * float(e_r)
+    if not (math.isfinite(theta) and theta > 0):
+        return None
+    k = math.ceil(theta) - 1
+    return k if 2 * k + 1 <= _MAP_STATES else None
+
+
+def _map_states(w, e_t, e_r, alpha_t, alpha_r, integral: bool = False):
+    """K where the imbalance scan of ``w`` takes the map path, else None.
+
+    The path needs both alphas 0 (theta never moves), :func:`_map_k`, and
+    every weight a finite integer (the in-bar sum then stays an integer of
+    at most K in magnitude). ``integral=True`` says the caller knows that
+    (the int8 sides of tick imbalance); otherwise the device is asked once
+    (one read of a reduction over ``w``)."""
+    if alpha_t != 0 or alpha_r != 0:
+        return None
+    k = _map_k(e_t, e_r)
+    if k is None:
+        return None
+    if not integral:
+        integral = bool(torch.all(torch.isfinite(w) & (w == torch.trunc(w))))
+    return k if integral else None
+
+
+def _map_scan_model(n: int, start: int, max_bars: int, tile: int, *, x, e_t,
+                    e_r, group: int = _MAP_GROUP):
+    """Kernel E's map path on the CPU, for the tests: the arguments of
+    :func:`_launch` (``x`` a CPU tensor of finite integer weights, alphas 0)
+    at any tile size, in numpy.
+
+    Trades ``start .. n-1`` are cut into tiles of ``tile``; weights clamp to
+    ``[-(2K+1), 2K+1]`` and states are biased, ``u = s + K`` in ``[0, 2K]``,
+    a trade closing where ``u + w`` leaves it (u then resets to K). Pass 1
+    maps every entry state of every tile to its exit state; pass 2 composes
+    the maps in groups of ``group`` tiles, follows the stream's empty bar
+    (state K) through the groups' maps and then through each group's tiles
+    for every tile's entry state; pass 3 walks each tile from it. Returns the
+    first ``max_bars`` closes and ``{"states", "tiles", "groups"}``."""
+    k = _map_k(e_t, e_r)
+    m = 2 * k
+    tiles = max(-(-(n - start) // tile), 0)
+    groups = -(-tiles // group)
+    w = np.zeros(tiles * tile, np.int64)
+    w[:n - start] = np.clip(x.numpy()[start:n], -(m + 1), m + 1)
+    w = w.reshape(tiles, tile)
+
+    def step(u, wj):
+        v = u + wj
+        closes = (v < 0) | (v > m)
+        return np.where(closes, k, v), closes
+
+    maps = np.tile(np.arange(m + 1), (tiles, 1))          # pass 1
+    for j in range(tile):
+        maps = step(maps, w[:, j:j + 1])[0]
+    gmaps = np.tile(np.arange(m + 1), (groups, 1))        # pass 2
+    for g in range(groups):
+        for t in range(g * group, min((g + 1) * group, tiles)):
+            gmaps[g] = maps[t][gmaps[g]]
+    gentry, u = np.zeros(groups, np.int64), k
+    for g in range(groups):
+        gentry[g], u = u, gmaps[g][u]
+    tentry = np.zeros(tiles, np.int64)
+    for g in range(groups):
+        u = gentry[g]
+        for t in range(g * group, min((g + 1) * group, tiles)):
+            tentry[t], u = u, maps[t][u]
+    flags = np.zeros((tiles, tile), bool)                  # pass 3
+    u = tentry
+    for j in range(tile):
+        u, flags[:, j] = step(u, w[:, j])
+    out = start + np.flatnonzero(flags.ravel())[:max(max_bars, 0)]
+    return (torch.from_numpy(out.astype(np.int64)),
+            {"states": m + 1, "tiles": tiles, "groups": groups})
 
 
 def _same(a, b) -> bool:
@@ -357,7 +447,8 @@ def info_scan_plain(w, e_ticks0: float, e_rate0: float, alpha_t: float,
 
 
 def info_scan(w, e_ticks0: float, e_rate0: float, alpha_t: float,
-              alpha_r: float, max_bars: int, run_mode: bool):
+              alpha_r: float, max_bars: int, run_mode: bool, *,
+              integral: bool = False):
     """Close indices of the imbalance bars (``run_mode=False``: ``|in-bar sum
     of w|``) or run bars (``max(in-bar sum of the positive w, in-bar sum of
     the negative |w|)``), at most ``max_bars``. Trade 0 opens the first bar
@@ -366,14 +457,20 @@ def info_scan(w, e_ticks0: float, e_rate0: float, alpha_t: float,
     E[T] + alpha_t T`` and ``E[rate] <- (1 - alpha_r) E[rate] + alpha_r
     stat / max(T, 1)``, T the bar's length.
 
-    ``w`` is float64. On a CUDA tensor this launches kernel E; on a CPU
-    tensor it runs :func:`info_scan_plain`.
+    ``w`` is float64. On a CUDA tensor this launches kernel E: imbalance
+    bars whose weights and threshold :func:`_map_states` admits (``integral=True``:
+    the caller knows the weights are finite integers) by its map path, all others
+    by its walk. On a CPU tensor it runs :func:`info_scan_plain`.
     """
     _check(w, torch.float64, "w", w)
     if w.device.type == "cpu":
         return info_scan_plain(w, e_ticks0, e_rate0, alpha_t, alpha_r,
                                max_bars, run_mode)
-    return _launch(_RUN if run_mode else _IMBALANCE, w.shape[0], 1, max_bars,
+    mode = _RUN if run_mode else _IMBALANCE
+    if not run_mode and w.shape[0] > 1 and _map_states(
+            w, e_ticks0, e_rate0, alpha_t, alpha_r, integral) is not None:
+        mode = _IMBALANCE_MAP
+    return _launch(mode, w.shape[0], 1, max_bars,
                    w.device, x=w, e_t=float(e_ticks0), e_r=float(e_rate0),
                    alpha_t=float(alpha_t), alpha_r=float(alpha_r))
 

@@ -7,7 +7,7 @@ import numpy as np
 import torch
 
 __all__ = ["to_numpy", "assert_exact", "assert_close", "assert_window_close",
-           "adversarial_trades", "tile_closes", "TILE_CLOSES"]
+           "adversarial_trades", "tile_closes", "TILE_CLOSES", "zeros_and_twos"]
 
 
 def to_numpy(x) -> np.ndarray:
@@ -132,3 +132,16 @@ def tile_closes(name: str, n: int, tile: int) -> np.ndarray:
     else:
         raise KeyError(name)
     return np.asarray(sorted(ci), np.int64)
+
+
+def zeros_and_twos(repeats: int):
+    """(amounts float32, ci int64) of five bars of 0.0, 2.0 (bits 0x40000000)
+    and the next float up, ``repeats`` times over. At the hist engine's last
+    shift a bar's base is 2^30 from its zeros (median 2.0000002) or from its
+    2.0 (median 0.0), so the bucket of those trades is +-2^30."""
+    up = np.nextafter(np.float32(2.0), np.float32(3.0))
+    bars = [[0.0, 2.0, up, up, up], [0.0, 0.0, 0.0, 2.0], [2.0, 0.0, 0.0],
+            [2.0, 2.0, 0.0, 0.0, up, 0.0], [up, 2.0]]
+    amounts = np.concatenate([np.asarray(b, np.float32) for b in bars] * repeats)
+    ci = np.concatenate([[-1], np.cumsum([len(b) for b in bars] * repeats) - 1])
+    return torch.from_numpy(amounts), torch.from_numpy(ci.astype(np.int64))

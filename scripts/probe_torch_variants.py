@@ -15,6 +15,19 @@ Run from the repository root on a machine with a card:
 It prints each kernel's registers and spills (ptxas), then one line a
 variant and the card's name and power limit.
 
+``python3 scripts/probe_torch_variants.py EH [H variant names]`` traces kernel
+E's map path on the month's tick imbalance (theta 30) and kernel H's first
+histogram pass and its less pass on the month's one-minute bars, as the
+package builds them, in one ``torch.profiler`` session: each of their
+kernels' device time, registers, blocks and warps an SM and estimated
+achieved occupancy, beside each call's time from CUDA events (the trace goes
+to ``build/variants/eh_trace.json``). Then each kernel H variant of
+``H_VARIANTS`` named (``csrc/segment_hist.cu`` with edits, built alone) and
+each ``name=dir`` whose directory holds another ``segment_hist.cu`` (a ``git
+archive`` of an earlier commit, say) runs, in turns, the month's hist engine's
+nine launches, its first histogram pass and its less pass, and one
+histogram pass on one bar of 1M trades, held to the plain passes.
+
 ``python3 scripts/probe_torch_variants.py B [names]`` probes kernel B
 (``csrc/bar_products.cu``) instead: the variants of ``B_VARIANTS`` named (by
 default "as built") and each ``name=dir`` whose directory holds another
@@ -53,7 +66,7 @@ WRITE_END = "                                 warp_f, &ftotal);\n"
 
 def _sub(pattern, repl):
     def edit(src):
-        out, k = re.subn(pattern, repl, src)
+        out, k = re.subn(pattern, repl, src, flags=re.S)
         assert k == 1, pattern
         return out
     return edit
@@ -187,6 +200,161 @@ B_VARIANTS = {
 }
 
 
+# kernel H's init kernel as a thread a bar that fills its close's tiles (a
+# serial loop as long as the bar), in place of a warp's search a tile
+H_INIT_A_BAR = _sub(
+    r"  const long long t = j >> 5;\n.*?  if \(lane == 0\) tile_lo\[t\] = a;\n",
+    "  if (j > nb) return;\n"
+    "  const long long t0 = (ci[j] + kTile) / kTile;\n"
+    "  const long long t1 = j < nb ? min((ci[j + 1] + kTile) / kTile, tiles + 1) : tiles + 1;\n"
+    "  if (j == 0)\n"
+    "    for (long long t = 0; t < min(t0, tiles + 1); ++t) tile_lo[t] = 0;\n"
+    "  for (long long t = t0; t < t1; ++t) tile_lo[t] = j + 1;\n")
+H_VARIANTS = {
+    "as built": [],
+    "128 threads a tile": [_sub(r"constexpr int kThreads = 256;",
+                                "constexpr int kThreads = 128;")],
+    "5 blocks an SM": [_sub(r"constexpr int kBlocksPerSM = 6;", "constexpr int kBlocksPerSM = 5;")],
+    "8 blocks an SM": [_sub(r"constexpr int kBlocksPerSM = 6;", "constexpr int kBlocksPerSM = 8;")],
+    "bucket range by compare and select": [_sub(
+        r"const unsigned sh = 4u \* min\(static_cast<unsigned>\(f\), static_cast<unsigned>\(kBuckets\)\);",
+        "const unsigned sh = static_cast<unsigned>(f) < 16u ? 4u * static_cast<unsigned>(f) : 64u;")],
+    # the costs of exactness, each undone (outputs wrong where f wraps)
+    "bucket shift wrapping": [_sub(
+        r"const unsigned sh = 4u \* min\(static_cast<unsigned>\(f\), static_cast<unsigned>\(kBuckets\)\);",
+        "const unsigned sh = static_cast<unsigned>(f) << 2;")],
+    "init a thread a bar": [H_INIT_A_BAR],
+    "shift wrapping and init a thread a bar": [_sub(
+        r"const unsigned sh = 4u \* min\(static_cast<unsigned>\(f\), static_cast<unsigned>\(kBuckets\)\);",
+        "const unsigned sh = static_cast<unsigned>(f) << 2;"), H_INIT_A_BAR],
+    # an ablation: its outputs are wrong
+    "the loads alone": [_sub(
+        r"\n  const bool in_smem = ",
+        "\n  {\n    int acc = static_cast<int>(lo ^ hi);\n#pragma unroll\n"
+        "    for (int j = 0; j < kItems; ++j) acc ^= x[j];\n"
+        "    if (acc == 0x1e3779b9) p.init(0);\n    return;\n  }\n  const bool in_smem = ")],
+}
+
+
+def h_library(src_dir, out_dir, edits=()):
+    """Kernel H from ``src_dir`` (with ``edits``) built alone; returns its
+    passes ``hist(bits, ci, base, s, out)`` and ``less(bits, ci, v, cnt, mx)``
+    on checked CUDA tensors, and ptxas's report of its kernels. A source
+    without tiles (the per-bar kernel of an earlier commit) takes no scratch."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src = (Path(src_dir) / "segment_hist.cu").read_text()
+    for edit in edits:
+        src = edit(src)
+    (out_dir / "segment_hist.cu").write_text(src)
+    log = nvcc(out_dir, out_dir / "lib.so")
+    lib = ctypes.CDLL(str(out_dir / "lib.so"))
+    P, I64 = ctypes.c_void_p, ctypes.c_longlong
+    tiled = "tile_lo" in src
+    lib.fmk_hist_pass.argtypes = [P, P, P, ctypes.c_int] + ([I64] if tiled else []) + [
+        I64, P] + ([P] if tiled else []) + [P]
+    lib.fmk_less_pass.argtypes = [P, P, P] + ([I64] if tiled else []) + [I64, P, P] + (
+        [P] if tiled else []) + [P]
+    scratch = {}
+
+    def tile_lo(n):
+        if n not in scratch:
+            scratch[n] = torch.empty(n // 4096 + 2, dtype=torch.int64, device="cuda")
+        return [scratch[n].data_ptr()] if tiled else []
+
+    def hist(bits, ci, base, s, out):
+        n, nb = bits.shape[0], ci.shape[0] - 1
+        rc = lib.fmk_hist_pass(bits.data_ptr(), ci.data_ptr(), base.data_ptr(), s,
+                               *([n] if tiled else []), nb, out.data_ptr(), *tile_lo(n),
+                               torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"kernel H from {src_dir}: CUDA error {rc}")
+
+    def less(bits, ci, v, cnt, mx):
+        n, nb = bits.shape[0], ci.shape[0] - 1
+        rc = lib.fmk_less_pass(bits.data_ptr(), ci.data_ptr(), v.data_ptr(),
+                               *([n] if tiled else []), nb, cnt.data_ptr(), mx.data_ptr(),
+                               *tile_lo(n), torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"kernel H from {src_dir}: CUDA error {rc}")
+    return hist, less, ptxas_summary(log, r"(?:tiles|init|hist|less)_kernel\w*")
+
+
+def probe_h(specs):
+    """Kernel H's builds ``specs`` (name -> source directory and edits), in
+    turns: the month's hist engine's nine launches (its 8 histogram passes and
+    its less pass, with the bases the engine makes), its first histogram pass
+    and its less pass alone, and one histogram pass on one bar of 1M trades,
+    each held to the plain passes."""
+    from finmlkit_tpu_torch.ops import segment_hist as sh
+    from finmlkit_tpu_torch.testing import adversarial_trades
+    card = cs.phase_env()
+    builds = {}
+    for i, (name, (src, edits)) in enumerate(specs.items()):
+        builds[name] = h_library(src, OUT / f"h{i}", edits)
+        for fn, what in builds[name][2]:
+            cs.say(f"H {name}: {fn} {what}")
+    month = cs.make_month(cs.N_MONTH)
+    tr, ts = month["tr"], month["ts"]
+    ci = time_bar_indexer(tr.timestamps, 60.0, ts_first=int(ts[0]),
+                          ts_last_i=int(ts[-1]))[1]
+    bits, ci = sh._check_ci(tr.amounts.view(torch.int32), ci, "probe")
+    n, nb = bits.shape[0], ci.shape[0] - 1
+    passes, less_v = [], []
+
+    def record_hist(bits_, ci_, base, s_):
+        passes.append((base.clone(), s_))
+        return sh.hist_pass_plain(bits_, ci_, base, s_)
+
+    def record_less(bits_, ci_, v):
+        less_v.append(v.clone())
+        return sh.less_pass_plain(bits_, ci_, v)
+
+    sh.segment_median_pair_hist(tr.amounts, ci, hist=record_hist, less=record_less)
+    want = [sh.hist_pass_plain(bits, ci, b, s_) for b, s_ in passes]
+    want_l = sh.less_pass_plain(bits, ci, less_v[0])
+    n_long = 1_000_000
+    long_bits = torch.from_numpy(adversarial_trades(n=n_long, seed=1)[3]).cuda().view(torch.int32)
+    long_ci = torch.tensor([-1, n_long - 1], device="cuda")
+    long_base = torch.zeros(1, dtype=torch.int32, device="cuda")
+    long_want = sh.hist_pass_plain(long_bits, long_ci, long_base, 28)
+    out = torch.empty((nb, 16), dtype=torch.int32, device="cuda")
+    long_out = torch.empty((1, 16), dtype=torch.int32, device="cuda")
+    cnt, mx = (torch.empty(nb, dtype=torch.int32, device="cuda") for _ in range(2))
+
+    def nine(hist, less):
+        for b, s_ in passes:
+            hist(bits, ci, b, s_, out)
+        less(bits, ci, less_v[0], cnt, mx)
+
+    exact = {}
+    for name, (hist, less, _) in builds.items():
+        ok = True
+        for (b, s_), w in zip(passes, want):
+            out.fill_(-7)
+            hist(bits, ci, b, s_, out)
+            ok &= torch.equal(out, w)
+        cnt.fill_(-7)
+        less(bits, ci, less_v[0], cnt, mx)
+        long_out.fill_(-7)
+        hist(long_bits, long_ci, long_base, 28, long_out)
+        exact[name] = bool(ok and torch.equal(cnt, want_l[0]) and torch.equal(mx, want_l[1])
+                           and torch.equal(long_out, long_want))
+    parts = {"the 9 launches": lambda h, l: nine(h, l),
+             "hist pass s=28": lambda h, l: h(bits, ci, *passes[0], out),
+             "less pass": lambda h, l: l(bits, ci, less_v[0], cnt, mx),
+             "hist pass on the 1M-trade bar": lambda h, l: h(long_bits, long_ci, long_base,
+                                                              28, long_out)}
+    times = {(name, part): [] for name in builds for part in parts}
+    for _ in range(3):   # in turns
+        for name, (hist, less, _) in builds.items():
+            for part, f in parts.items():
+                times[(name, part)].append(cs.cuda_ms(lambda: f(hist, less), reps=20))
+    for name in builds:
+        cs.say(f"H {name}: == plain {exact[name]}; ms in 3 turns, " + "; ".join(
+            f"{part} " + " ".join(f"{t:.4f}" for t in times[(name, part)]) for part in parts)
+            + f"; bound of a month pass {cs.bound(4 * n, 0)[0]:.4f} ms [{card}]")
+
+
 def b_library(src_dir, out_dir, edits=()):
     """Kernel B from ``src_dir`` (with ``edits``) built alone; returns a launcher
     ``run(args, outs, scratch, passes)`` of its C entry, its scratch size in
@@ -310,7 +478,60 @@ def probe_b(specs):
         del state, want
 
 
+def probe_eh():
+    """Kernel E's map path and kernel H's passes on the month, traced."""
+    from torch.profiler import ProfilerActivity, profile
+    from finmlkit_tpu_torch.ops import event_scan as es
+    from finmlkit_tpu_torch.ops import segment_hist as sh
+    card = cs.phase_env()
+    month = cs.make_month(cs.N_MONTH)
+    tr, ts = month["tr"], month["ts"]
+    ci = time_bar_indexer(tr.timestamps, 60.0, ts_first=int(ts[0]),
+                          ts_last_i=int(ts[-1]))[1]
+    n = tr.ticks.shape[0]
+    w = tr.sides.to(torch.float64)
+    bits, ci_c = sh._check_ci(tr.amounts.view(torch.int32), ci, "probe")
+    base = torch.zeros(ci.shape[0] - 1, dtype=torch.int32, device="cuda")
+    calls = {"E map path": lambda: es._launch(es._IMBALANCE_MAP, n, 1, n, w.device, x=w,
+                                              e_t=1.0, e_r=cs.IMB_THETA),
+             "H hist pass s=28": lambda: sh._launch_hist(bits, ci_c, base, 28),
+             "H less pass": lambda: sh._launch_less(bits, ci_c, bits[:ci.shape[0] - 1])}
+    cs.say("calls, ms (CUDA events, 20 calls): " + ", ".join(
+        f"{k} {cs.cuda_ms(f, reps=20):.4f}" for k, f in calls.items()) + f" [{card}]")
+    OUT.mkdir(parents=True, exist_ok=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for f in calls.values():
+            for _ in range(5):
+                f()
+        torch.cuda.synchronize()
+    path = OUT / "eh_trace.json"
+    prof.export_chrome_trace(str(path))
+    rows = {}
+    for e in json.loads(path.read_text())["traceEvents"]:
+        if e.get("cat") not in ("kernel", "gpu_memset"):
+            continue
+        a = e.get("args", {})
+        r = rows.setdefault(re.sub(r"\(anonymous namespace\)::", "", e["name"])[:70],
+                            dict(ms=0.0, launches=0))
+        r["ms"] += e.get("dur", 0) / 1e3 / 5
+        r["launches"] += 1
+        for key in ("registers per thread", "blocks per SM", "warps per SM",
+                    "est. achieved occupancy %", "grid", "block", "shared memory"):
+            if key in a:
+                r[key] = a[key]
+    cs.say(f"traced, ms a call (5 calls each): " + json.dumps(rows) + f" [{card}]")
+
+
 def main():
+    if len(sys.argv) > 1 and sys.argv[1] == "EH":
+        if not torch.cuda.is_available():
+            cs.fail("no CUDA device")
+        probe_eh()
+        specs = {}
+        for spec in (sys.argv[2].split(",") if len(sys.argv) > 2 else ["as built"]):
+            name, _, src = spec.partition("=")
+            specs[name] = (ROOT / src, ()) if src else (CSRC, H_VARIANTS[name])
+        return probe_h(specs)
     if len(sys.argv) > 1 and sys.argv[1] == "B":
         if not torch.cuda.is_available():
             cs.fail("no CUDA device")

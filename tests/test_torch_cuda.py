@@ -5,6 +5,7 @@ host has no JAX, so run them there without the suite's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
+import numpy as np
 import pytest
 import torch
 
@@ -14,7 +15,7 @@ from finmlkit_tpu_torch.bar.fused import median_engine, median_pairs, planes_pro
 from finmlkit_tpu_torch.bar.indexers import dollar_bar_indexer_q
 from finmlkit_tpu_torch.ops import event_scan, fused_scan, prefix_scan, segment_hist
 from finmlkit_tpu_torch.testing import (TILE_CLOSES, adversarial_trades, assert_close,
-                                       assert_exact, tile_closes)
+                                       assert_exact, tile_closes, zeros_and_twos)
 
 pytestmark = pytest.mark.cuda
 
@@ -277,6 +278,80 @@ def test_cusum_scan_matches_plain(cuda, start, max_bars):
                      got, f"{chunks} chunks against the default")
 
 
+# the map path's cases: (n, theta, weights); every one takes the map path
+MAP_CASES = {
+    "tick_theta30": (1_000_003, 30.0, "sides"),
+    "theta_30_5": (300_001, 30.5, "sides"),
+    "theta_1": (100_000, 1.0, "ints"),      # K = 0: every nonzero weight closes
+    "theta_0_5": (100_000, 0.5, "ints"),
+    "zeros_and_big": (500_000, 12.0, "big"),  # w = 0 trades, |w| up to 2^60
+    "below_a_tile": (1_000, 8.0, "ints"),
+    "ragged": (2048 * 300 + 17, 63.5, "ints"),  # 127 states, the cap
+}
+
+
+@pytest.mark.parametrize("case", list(MAP_CASES))
+def test_info_scan_map_path_matches_plain(cuda, case):
+    """Imbalance at a fixed theta on integer weights takes kernel E's map
+    path, gives the plain scan's closes (capped too), and the walk gives
+    them at every chunk count."""
+    n, theta, kind = MAP_CASES[case]
+    w, g = _sides(n, cuda, 13)
+    if kind != "sides":
+        w = torch.randint(-3, 4, (n,), device=cuda, generator=g).to(torch.float64)
+    if kind == "big":
+        w[::97] = 2.0 ** 60
+        w[::89] = -1e15
+        w[torch.rand(n, device=cuda, generator=g) < 0.3] = 0.0
+    for mb in (n, 5):
+        before = list(event_scan.MODE_LAUNCHES)
+        got = event_scan.info_scan(w, 1.0, theta, 0.0, 0.0, mb, False)
+        assert event_scan.MODE_LAUNCHES[event_scan._IMBALANCE_MAP] == \
+            before[event_scan._IMBALANCE_MAP] + 1
+        want = event_scan.info_scan_plain(w, 1.0, theta, 0.0, 0.0, mb, False)
+        assert_exact(got, want, f"{case} max_bars={mb}")
+        assert len(want) >= min(mb, 3)
+        for mode in (event_scan._IMBALANCE_MAP, event_scan._IMBALANCE):
+            for chunks in CHUNKS:
+                assert_exact(event_scan._launch(mode, n, 1, mb, cuda, x=w, e_t=1.0,
+                                                e_r=theta, chunks=chunks),
+                             got, f"mode {mode}, {chunks} chunks")
+
+
+@pytest.mark.parametrize("case", ["float_weights", "alpha", "theta_above_cap"])
+def test_info_scan_takes_the_walk(cuda, case):
+    n = 100_000
+    w, g = _sides(n, cuda, 17)
+    args = (1.0, 30.0, 0.0, 0.0)
+    if case == "float_weights":
+        w = w * 1.5
+    elif case == "alpha":
+        args = (1000.0, 0.03, 0.05, 0.0)
+    else:
+        args = (1.0, 64.5, 0.0, 0.0)         # 129 states
+    before = list(event_scan.MODE_LAUNCHES)
+    got = event_scan.info_scan(w, *args, n, False)
+    assert [a - b for a, b in zip(event_scan.MODE_LAUNCHES, before)] == [0, 1, 0, 0, 0]
+    assert_exact(got, event_scan.info_scan_plain(w, *args, n, False))
+
+
+@pytest.mark.parametrize("run_mode", [False, True], ids=["imbalance", "run"])
+@pytest.mark.parametrize("bad", ["nan", "inf", "-inf"])
+def test_info_scan_nonfinite_weight_matches_plain(cuda, bad, run_mode):
+    """An imbalance bar's NaN weight leaves its sum NaN, which never closes
+    (a run bar's adds nothing); an infinite weight closes and, at alpha 0,
+    makes theta NaN: no close after it either."""
+    n = 3000
+    w = torch.from_numpy(np.random.default_rng(5).uniform(-1, 1, n)).to(cuda)
+    w[1000] = float(bad)
+    args = (1.0, 20.0 if run_mode else 8.0, 0.0, 0.0, n, run_mode)
+    got = event_scan.info_scan(w, *args)
+    want = event_scan.info_scan_plain(w, *args)
+    assert_exact(got, want, bad)
+    stops = bad != "nan" or not run_mode
+    assert len(want) >= 5 and (int(want[-1]) <= 1000) == stops
+
+
 def test_event_scan_edges(cuda):
     w = torch.ones(1, dtype=torch.float64, device=cuda)
     assert event_scan.info_scan(w, 1.0, 1.0, 0.0, 0.0, 10, False).numel() == 0
@@ -309,11 +384,43 @@ def test_hist_passes_match_plain(cuda, case):
         assert_exact(got, want, "less")
 
 
-@pytest.mark.parametrize("case", ENGINE_CASES)
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("tile", [16, 4096])
+@pytest.mark.parametrize("name", TILE_CLOSES + ("one_trade_bars",))
+def test_hist_tile_cases_match_plain(cuda, name, tile, offset):
+    """Kernel H's tiles (4096 trades) and threads (16) against closes on
+    their edges, bits aligned to 16 bytes and not."""
+    n = 6 * 4096 + 77
+    amounts = torch.from_numpy(adversarial_trades(n + offset, seed=31)[3]).to(cuda)
+    bits = amounts.view(torch.int32)[offset:]
+    if name == "one_trade_bars":
+        ci = torch.arange(-1, n - 3, device=cuda)
+    else:
+        ci = torch.from_numpy(tile_closes(name, n, tile)).to(cuda)
+    base = bits[(ci[:-1] + 1).clamp(0, n - 1)] - 12345
+    for s in segment_hist.SHIFTS:
+        assert_exact(segment_hist.hist_pass(bits, ci, base, s),
+                     segment_hist.hist_pass_plain(bits, ci, base, s), f"s={s}")
+    for got, want in zip(segment_hist.less_pass(bits, ci, base + 99),
+                         segment_hist.less_pass_plain(bits, ci, base + 99)):
+        assert_exact(got, want, "less")
+    # at s = 0, bases c * 2^30 from the first amounts, less 7, as the engine's
+    # last pass can make them: f = c * 2^30 + 7 lies in no bucket
+    first = (base + 12345).long()
+    for c in (1, 2, 3):
+        far = ((first - (c << 30) - 7 + 2**31) % 2**32 - 2**31).to(torch.int32)
+        assert_exact(segment_hist.hist_pass(bits, ci, far, 0),
+                     segment_hist.hist_pass_plain(bits, ci, far, 0), f"far c={c}")
+
+
+@pytest.mark.parametrize("case", ENGINE_CASES + ["zeros_and_twos"])
 @pytest.mark.parametrize("engine", ["hist", "select"])
 def test_median_engines_match_plain_and_sort(cuda, case, engine):
-    _, _, _, amounts, ci = (torch.from_numpy(a).to(cuda)
-                            for a in adversarial_trades(**case))
+    if case == "zeros_and_twos":   # bars 2^30 from their base at the last pass
+        amounts, ci = (t.to(cuda) for t in zeros_and_twos(2000))
+    else:
+        _, _, _, amounts, ci = (torch.from_numpy(a).to(cuda)
+                                for a in adversarial_trades(**case))
     counters = (segment_hist.LAUNCHES, prefix_scan.FILL_LAST_LAUNCHES)
     got = median_engine(engine)(amounts, ci)
     launched = (segment_hist.LAUNCHES - counters[0],
