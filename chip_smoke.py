@@ -59,7 +59,8 @@ time bars' products through every median engine and bar scan. Phases:
    kernel E's four scans alone at their default chunk counts and at 1, 33,
    132 and 528 chunks (the same closes at each, timed), the imbalance scan
    by its map path and by the walk forced; kernel E against its plain
-   version on volume-imbalance weights with a NaN or an infinite weight;
+   version on volume-imbalance weights with a NaN or an infinite weight,
+   and its CUSUM mode on non-finite returns and thresholds;
    stage times, peak device memory. B, S and C are timed here
    when phases 5 and 6 are skipped;
 8. the engines on the month's 1-minute time bars (phase 5's close indices,
@@ -131,7 +132,7 @@ KERNELS = {
           "finmlkit_tpu/ops/pallas_scan.py:141 and :182"),
     "C": ("C prefix_scan_rows (replaces K4a and K4b)",
           "prefix_scan.cu", "finmlkit_tpu/ops/pallas_scan.py:249 and :287"),
-    "F": ("F ffill (replaces K5; L1 in its int32 mode)", "ffill.cu",
+    "F": ("F ffill, one look-back pass (replaces K5; L1 in its int32 mode)", "ffill.cu",
           "finmlkit_tpu/ops/pallas_scan.py:84 and finmlkit_tpu/ops/segment_select.py:73"),
     **{f"E {scan}": (f"E event_scan, {scan} bars{how} (replaces an XLA "
                      "while_loop, not a TPU kernel)", "event_scan.cu",
@@ -1256,6 +1257,7 @@ def phase_info(card, month, need):
                           cusum_may_differ=bool(ties_kp))}
     kernels["E imbalance"]["launches_by_mode"] = imb_paths
     check_e_nonfinite(card)
+    check_e_cusum_nonfinite(card)
     del sig
     ci_cusum = torch.from_numpy(cis["cusum"]).cuda()
     if "C" in need:
@@ -1277,7 +1279,7 @@ def kernel_f(card, sigma, launches):
     valid = ~torch.isnan(sigma)
     assert_exact(fast_ffill(sigma, valid), fast_ffill_plain(sigma, valid),
                  "F on the month's sigma")
-    f_ms = cuda_ms(lambda: fast_ffill(sigma, valid))
+    f_ms = cuda_ms(lambda: fast_ffill(sigma, valid), reps=20)
     f_plain = cuda_ms(lambda: fast_ffill_plain(sigma, valid))
     f_bound = bound(17 * n, n)             # float64 values and mask in, out
     g = torch.Generator(device="cuda").manual_seed(7)
@@ -1418,6 +1420,39 @@ def check_e_nonfinite(card):
         found[bad] = (len(got), last)
     say(f"kernel E == plain on volume-imbalance weights with a non-finite weight "
         f"at trade 1000 (closes, last): {found} [{card}]")
+
+
+def check_e_cusum_nonfinite(card):
+    """Kernel E's CUSUM mode against its plain version on 300,000 trades of
+    ``testing.cusum_bad_inputs`` (sums exact on a grid) with a NaN, an
+    infinite or a zero-price pair of returns, or NaN thresholds, near trade
+    150,000, at the default chunk count, at 528 and in one chunk: the same
+    closes. A NaN return stops every later close; an infinite one closes and
+    closes go on."""
+    import torch
+    from finmlkit_tpu_torch.ops import event_scan as es
+    from finmlkit_tpu_torch.testing import CUSUM_BAD, assert_exact, cusum_bad_inputs
+    n, at = 300_000, 150_000
+    found = {}
+    for name in CUSUM_BAD:
+        inputs = cusum_bad_inputs(name, n, at)
+        bad = int(np.flatnonzero(~np.isfinite(inputs[0]) | ~np.isfinite(inputs[1]))[0])
+        rets, lam, cc = (torch.from_numpy(a).cuda() for a in inputs[:3])
+        want = es.cusum_scan_plain(rets, lam, cc, 0, n)
+        got = es.cusum_scan(rets, lam, cc, 0, n)
+        assert_exact(got, want, f"E cusum, {name}: default chunks")
+        for chunks in (528, 1):
+            assert_exact(es._launch(es._CUSUM, n, 1, n, rets.device, x=rets, lam=lam,
+                                    can_close=cc, chunks=chunks),
+                         want, f"E cusum, {name}: {chunks} chunks")
+        last = int(want[-1]) if len(want) else -1
+        nan_return = name in ("nan", "nan_tile_last", "nan_tile_first", "nan_segment_last")
+        if len(want) < 100 or (last < bad) != nan_return:
+            fail(f"E cusum, {name}: {len(want)} closes, the last at {last}")
+        found[name] = (len(got), last)
+    say(f"kernel E cusum == plain at {es._default_chunks(es._CUSUM, torch.device('cuda'))}, "
+        f"528 and 1 chunks on {n:,} trades with non-finite inputs near trade {at:,} "
+        f"(closes, last): {found} [{card}]")
 
 
 def phase_engines(card, month, need):
@@ -1567,14 +1602,15 @@ def phase_engines(card, month, need):
 
     segment_median_pair_select(tr.amounts, ci, fill=fill_checked)
     fv, fm = fills[-1]
-    f_ms = cuda_ms(lambda: ps.fill_last(fv, fm))
+    f_ms = cuda_ms(lambda: ps.fill_last(fv, fm), reps=20)
+    f_all = cuda_ms(lambda: [ps.fill_last(v, m_) for v, m_ in fills], reps=20)
     f_plain = cuda_ms(lambda: ps.fill_last_plain(fv, fm))
     f_bound = bound(9 * n, n)
     n_fills = len(fills)
     del fills, fv, fm
     say(f"kernel F int32 == fill_last_plain on the select engine's {n_fills} fills; "
-        f"one fill {f_ms:.3f} ms vs plain {f_plain:.3f} ms, bound "
-        f"{f_bound[0]:.3f} ms [{card}]")
+        f"one fill {f_ms:.3f} ms (the {n_fills} {f_all:.3f} ms) vs plain {f_plain:.3f} "
+        f"ms, bound {f_bound[0]:.3f} ms [{card}]")
 
     # --- the planes (kernel V) against the plain planes, exact ---
     torch.cuda.synchronize()
@@ -1628,7 +1664,7 @@ def phase_engines(card, month, need):
                           traced_ms=v_trace, peak_gib_above_trades=planes_gib),
         "F": kernel_entry("F", launches["F"], 0.0, f_ms, f_plain, f_bound, None,
                           int32_fill_ms=f_ms, int32_fill_plain_ms=f_plain,
-                          int32_fill_bound_ms=f_bound[0]),
+                          int32_fill_bound_ms=f_bound[0], int32_engine_fills_ms=f_all),
     }
     if "C" in need:
         in64, _ = fs.planes_prefix_inputs(*trade_args)

@@ -31,7 +31,7 @@ _SIGNATURES = {
     "fmk_prefix_scan_rows": [ctypes.c_int, _P, _P, _P, _I64, _I64, _P],
     "fmk_products_scratch_bytes": [_I64, _I64],
     "fmk_bar_products": [_P] * 4 + [_I64, _I64] + [_P] * 4 + [ctypes.c_int, _P],
-    "fmk_ffill_tile": [],
+    "fmk_ffill_scratch_bytes": [_I64],
     "fmk_ffill": [ctypes.c_int, _P, _P, _P, _P, _I64, ctypes.c_int, _P],
     "fmk_event_scratch_bytes": [ctypes.c_int, _I64, _I64, _I64],
     "fmk_event_scan": [ctypes.c_int, _P, _P, _P, _P, _I64, _I64, _F64, _F64,
@@ -44,7 +44,8 @@ _SIGNATURES = {
     "fmk_io_floor_stacked": [_P, ctypes.c_int, _I64, _P, _P],
 }
 _SIZES = {"fmk_scan_scratch_bytes", "fmk_event_scratch_bytes",
-          "fmk_planes_scratch_bytes", "fmk_products_scratch_bytes"}
+          "fmk_planes_scratch_bytes", "fmk_products_scratch_bytes",
+          "fmk_ffill_scratch_bytes"}
 
 _lib = None
 build_seconds = None  # wall time of the nvcc run in this process, if any

@@ -154,6 +154,14 @@ def cusum_bar_indexer(timestamps, prices, sigma, sigma_floor: float,
     ``max_bars`` caps the number of bars (a truncation); without it the
     event buffer grows until every bar fits.
 
+    The sums follow the reference's exact host loop in IEEE doubles
+    (``cusum_bar_indexer_host``): a NaN price gives two NaN returns, after
+    which no bar closes; a zero price gives a return of -inf, then one of
+    +inf, which close where they may (in one same-timestamp block s+ jumps to
+    +inf and closes at the block's end, and s- turns NaN for good), and bars
+    go on closing. The JAX package's device form closes nothing after an
+    infinite return (ROADMAP fault R10).
+
     Returns ``(close_ts, ci, filled_sigma)``, ``ci[0]`` the first valid sigma.
     """
     n = prices.shape[0]

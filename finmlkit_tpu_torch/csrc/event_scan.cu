@@ -6,9 +6,11 @@
 // device, so a literal port would read the card once per chunk and per bar;
 // this kernel runs the whole scan in one call and the host reads the count
 // once. One mode argument selects the bar type:
-//   0 CUSUM      s+ = max(0, s+ + r), s- = min(0, s- + r); a trade i closes
+//   0 CUSUM      s+ = max(0, s+ + r), s- = min(0, s- + r), in IEEE doubles
+//                with max and min that let a NaN through; a trade i closes
 //                when can_close[i] and (s+ >= lam[i] or s- <= -lam[i]); s+
-//                takes precedence and only the triggered side resets;
+//                takes precedence and only the triggered side resets (the
+//                walk stops at a non-finite return as at a close: Cusum);
 //   1 imbalance  |in-bar sum of w| >= theta;
 //   2 run        max(in-bar sum of buy w, in-bar sum of sell |w|) >= theta;
 //                in modes 1 and 2 theta = E[T] * E[rate], whose EMAs update
@@ -162,18 +164,33 @@ __device__ __forceinline__ void copy_async(void* dst, const void* src, int bytes
 }
 
 // ---- CUSUM ---------------------------------------------------------------
+// The recurrence is the reference's host loop (finmlkit_tpu/native/
+// seg_stats.cpp:159-176) in IEEE doubles: s+ = max(0, s+ + r), s- = min(0,
+// s- + r), both max and min letting a NaN through. A composed map is exact
+// only over finite returns, so no map spans a non-finite one: such a trade
+// is a stop. A segment's summary marks it as holding a stop when its end sum
+// is not finite (a sum over a non-finite return never is), which forbids
+// the skip; the walk scans such a segment with its stops' returns entered
+// as 0 (the state before a stop is then read off the aggregate before it),
+// stops at a stop as at a close, applies the scalar step to the actual
+// state, and scans on from the identity after it. Segments without a stop
+// take the finite walk unchanged. A NaN return so makes both sums NaN for
+// good, -inf then +inf with no close between makes only s- NaN, and a NaN
+// state never closes.
 struct Cusum {
   // s+ -> max(a, s+ + b), s- -> min(c, s- + b)
   struct E { double a, c, b; };
   struct In { double r, lam; unsigned char cc; };
   struct State { double sp, sn; };
   // over the trades that may close: the largest a and b, the smallest c, b
-  // and lam; a NaN in a, b or c leaves a NaN that forbids the skip
+  // and lam; a NaN in a, b or c (or a stop in the segment, which sets amax to
+  // NaN) leaves a NaN that forbids the skip
   struct Bounds { double amax, bmax, cmin, bmin, lmin; };
+  static constexpr bool kStops = true;
 
   __device__ static E identity() { return {-INFINITY, INFINITY, 0.0}; }
   __device__ static E elem(const In& v) { return {0.0, 0.0, v.r}; }
-  // x then y
+  // x then y; the returns composed are finite, so fmax and fmin lose nothing
   __device__ static E combine(const E& x, const E& y) {
     return {fmax(y.a, x.a + y.b), fmin(y.c, x.c + y.b), x.b + y.b};
   }
@@ -186,25 +203,49 @@ struct Cusum {
     if (g >= a.n) return {0.0, INFINITY, 0};
     return {a.x[g], a.lam[g], a.can_close[g]};
   }
+  // Summaries: a segment whose end sum is not finite holds a stop.
+  __device__ static bool holds_stops(const E& end) { return !isfinite(end.b); }
+  __device__ static void mark_stops(Bounds& m) { m.amax = NAN; }
+  // The walk: whether a segment may hold a stop; and, in one that may,
+  // whether a trade is one, its return then entered as 0.
+  __device__ static bool may_stop(const Bounds& m) { return isnan(m.amax); }
+  __device__ static bool stop(In& v) {
+    const bool st = !isfinite(v.r);
+    if (st) v.r = 0.0;
+    return st;
+  }
   __device__ static void prefetch(const Args& a, long long g) {
     if (g < a.n) { prefetch_l2(a.x + g); prefetch_l2(a.lam + g); prefetch_l2(a.can_close + g); }
+  }
+  // The state after the trades of the aggregate p, entered with s; a NaN
+  // state stays NaN.
+  __device__ static State apply(const E& p, const State& s) {
+    return {max_nan(p.a, s.sp + p.b), min_nan(p.c, s.sn + p.b)};
   }
   // Whether the trade with in-segment aggregate p closes (no branch), and
   // the state after it does.
   __device__ static bool test(const E& p, const In& v, const State& s, const Args&) {
-    const double sp = fmax(p.a, s.sp + p.b);
-    const double sn = fmin(p.c, s.sn + p.b);
-    return (v.cc != 0) & ((sp >= v.lam) | (sn <= -v.lam));
+    const State t = apply(p, s);
+    return (v.cc != 0) & ((t.sp >= v.lam) | (t.sn <= -v.lam));
   }
   __device__ static State next(const E& p, const In& v, const State& s,
                                long long, const Args&) {
-    const double sp = fmax(p.a, s.sp + p.b);
-    const double sn = fmin(p.c, s.sn + p.b);
+    const State t = apply(p, s);
+    return t.sp >= v.lam ? State{0.0, t.sn} : State{t.sp, 0.0};
+  }
+  // The scalar step at stop g, whose return entered p as 0: p's state is the
+  // one before it (max(0, s+) = s+, since s+ is never below 0), and its
+  // return is read again.
+  __device__ static State stop_step(const E& p, const In& v, const State& s,
+                                    long long g, const Args& a, bool* closed) {
+    const State t = apply(p, s);
+    const double r = a.x[g];
+    const double sp = max_nan(0.0, t.sp + r), sn = min_nan(0.0, t.sn + r);
+    *closed = v.cc != 0 && (sp >= v.lam || sn <= -v.lam);
+    if (!*closed) return {sp, sn};
     return sp >= v.lam ? State{0.0, sn} : State{sp, 0.0};
   }
-  __device__ static State at_end(const E& p, const State& s) {
-    return {fmax(p.a, s.sp + p.b), fmin(p.c, s.sn + p.b)};
-  }
+  __device__ static State at_end(const E& p, const State& s) { return apply(p, s); }
   __device__ static bool same_state(const State& x, const State& y) {
     return same(x.sp, y.sp) && same(x.sn, y.sn);
   }
@@ -228,9 +269,10 @@ struct Cusum {
             shfl_x(m.bmin, o), shfl_x(m.lmin, o)};
   }
   // s+ at a trade that may close is max(a, s.sp + b) <= max(amax, s.sp +
-  // bmax) < lmin <= its lam, and likewise s- > -lam: no trade closes
-  // (fmax and fmin drop a NaN, as the walk's do, so a NaN bound is refused
-  // first)
+  // bmax) < lmin <= its lam, and likewise s- > -lam: no trade closes. A NaN
+  // bound is refused first. A NaN state side never closes: fmax and fmin
+  // drop it here and leave the test to the segment's own maps, and at_end
+  // keeps it NaN.
   __device__ static bool skip(const Bounds& m, const State& s, const Args&) {
     if (isnan(m.amax) || isnan(m.bmax) || isnan(m.cmin) || isnan(m.bmin)) return false;
     return fmax(m.amax, s.sp + m.bmax) < m.lmin &&
@@ -255,6 +297,7 @@ __device__ InfoState info_close(const InfoState& s, double stat, long long g,
 
 struct InfoCommon {
   using State = InfoState;
+  static constexpr bool kStops = false;
   struct In { double w; };
   __device__ static State init(const Args& a) {
     return {0.0, 0.0, a.e_t, a.e_r, 0};
@@ -358,6 +401,7 @@ struct Run : InfoCommon {
 // ---- volume ----------------------------------------------------------------
 struct Volume {
   using E = long long;
+  static constexpr bool kStops = false;
   struct In { long long u; };
   struct State { long long carry; };
   struct Bounds { long long hi; };  // the largest in-tile prefix
@@ -471,6 +515,13 @@ __global__ void __launch_bounds__(kThreads) summary_kernel(Args a, Work w) {
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) b = M::merge(b, M::shfl_bounds(b, o));
+  if constexpr (M::kStops) {
+    bool stops = false;
+#pragma unroll
+    for (int i = 0; i < kItems; ++i)
+      if (lane * kItems + i == len - 1) stops = M::holds_stops(p[i]);
+    if (__any_sync(kFull, stops)) M::mark_stops(b);
+  }
   if (lane == 0) sum->bounds = b;
 }
 
@@ -529,18 +580,33 @@ __device__ bool walk_chunk(const Args& a, const Work& w, long long c,
         typename M::In cur[kItems];
 #pragma unroll
         for (int i = 0; i < kItems; ++i) cur[i] = M::load(a, pos + lane * kItems + i);
+        unsigned stop_bits = 0;  // this lane's stops (CUSUM: non-finite returns)
+        if constexpr (M::kStops) {
+          if (M::may_stop(sums[sg].bounds)) {
+#pragma unroll
+            for (int i = 0; i < kItems; ++i)
+              stop_bits |= static_cast<unsigned>(M::stop(cur[i])) << i;
+          }
+        }
         int from = 0;  // trades of the segment before `from` belong to closed bars
         while (true) {
           typename M::E p[kItems];
           warp_prefix<M>(cur, from, len, p);
-          unsigned hits = 0;  // this lane's trades that would close
+          unsigned hits = 0;  // this lane's trades that would close, and its stops
 #pragma unroll
           for (int i = 0; i < kItems; ++i) {
             const int j = lane * kItems + i;
             hits |= static_cast<unsigned>((j >= from) & (j < len) &
                                           M::test(p[i], cur[i], s, a)) << i;
           }
-          // the trade a lane hands on: its first close, or the segment's last
+          unsigned stops = 0;
+          if constexpr (M::kStops) {
+            const int lo = min(max(from - lane * kItems, 0), kItems);
+            const int hi = min(max(len - lane * kItems, 0), kItems);
+            stops = stop_bits & ((1u << hi) - 1) & ~((1u << lo) - 1);
+            hits |= stops;
+          }
+          // the trade a lane hands on: its first close or stop, or the segment's last
           const int pick = hits ? __ffs(hits) - 1 : (len - 1) & (kItems - 1);
           typename M::E pp = p[0];
           typename M::In pv = cur[0];
@@ -551,9 +617,19 @@ __device__ bool walk_chunk(const Args& a, const Work& w, long long c,
           if (any) {
             const int owner = __ffs(any) - 1;
             const int e = owner * kItems + __shfl_sync(kFull, pick, owner);
-            if (lane == owner) mask |= 1u << pick;
-            s = broadcast(M::next(pp, pv, s, pos + lane * kItems + pick, a), owner);
-            ++cnt;
+            const long long g = pos + lane * kItems + pick;
+            bool closed = true;
+            State ns;
+            if constexpr (M::kStops) {
+              ns = (stops >> pick) & 1u ? M::stop_step(pp, pv, s, g, a, &closed)
+                                        : M::next(pp, pv, s, g, a);
+              closed = __shfl_sync(kFull, closed, owner);
+            } else {
+              ns = M::next(pp, pv, s, g, a);
+            }
+            if (lane == owner && closed) mask |= 1u << pick;
+            s = broadcast(ns, owner);
+            cnt += closed;
             from = e + 1;
             if (from >= len) break;
           } else {

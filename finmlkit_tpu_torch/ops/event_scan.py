@@ -224,10 +224,9 @@ def _tile_walker(mode, x, lam, can_close, units, e_t, e_r, alpha_t, alpha_r, thr
         return (lambda: (int(u[0]),)), (lambda g: (0,)), step
     if mode == _CUSUM:
         r, lm, cc = x.numpy(), lam.numpy(), can_close.numpy()
+        stops = np.flatnonzero(~np.isfinite(r))
 
-        def step(lo, hi, st):
-            sp, sn = st
-            closes = []
+        def finite(lo, hi, sp, sn, closes):
             while lo < hi:
                 d = np.cumsum(r[lo:hi])
                 s_pos = np.maximum(sp + d, d - np.minimum.accumulate(d))
@@ -235,12 +234,20 @@ def _tile_walker(mode, x, lam, can_close, units, e_t, e_r, alpha_t, alpha_r, thr
                 pos_hit = s_pos >= lm[lo:hi]
                 ev = cc[lo:hi] & (pos_hit | (s_neg <= -lm[lo:hi]))
                 if not ev.any():
-                    return closes, (float(s_pos[-1]), float(s_neg[-1]))
+                    return float(s_pos[-1]), float(s_neg[-1])
                 e = int(np.argmax(ev))
                 closes.append(lo + e)
                 sp, sn = (0.0, float(s_neg[e])) if pos_hit[e] else (float(s_pos[e]), 0.0)
                 lo += e + 1
-            return closes, (sp, sn)
+            return sp, sn
+
+        def step(lo, hi, st):
+            closes = []
+            for g in stops[np.searchsorted(stops, lo):np.searchsorted(stops, hi)]:
+                st = _cusum_stop(*finite(lo, g, *st, closes), r[g], lm[g], cc[g], g,
+                                 closes)
+                lo = g + 1
+            return closes, finite(lo, hi, *st, closes)
         return (lambda: (0.0, 0.0)), (lambda g: (0.0, 0.0)), step
     w, run = x.numpy(), mode == _RUN
 
@@ -334,22 +341,53 @@ def _chunked_scan_model(mode: int, n: int, start: int, max_bars: int,
 # CUSUM bars
 # ---------------------------------------------------------------------------
 
+def _cusum_stop(sp, sn, r, lam, can_close, g, closes):
+    """The scalar CUSUM step at trade g (``seg_stats.cpp:159-176``): the
+    sums add r and clamp at 0 by a compare that keeps a NaN; a close at g is
+    appended to ``closes``. Returns the state after it, as floats."""
+    sp, sn = float(sp) + float(r), float(sn) + float(r)
+    sp, sn = (0.0 if sp < 0.0 else sp), (0.0 if sn > 0.0 else sn)
+    if can_close and sp >= lam:
+        closes.append(g)
+        sp = 0.0
+    elif can_close and sn <= -lam:
+        closes.append(g)
+        sn = 0.0
+    return sp, sn
+
+
 def cusum_scan_plain(rets, lam, can_close, start: int, max_bars: int):
     """Plain PyTorch version of :func:`cusum_scan`: ``_cusum_boundaries``
     (``indexers.py:508-597``) with a host loop. Each chunk of 8192 trades is
     solved in closed form, ``s+ = max(s0 + D, D - running min of D)`` and
     ``s- = min(s0 + D, D - running max of D)`` over the prefix ``D`` from the
-    last event; up to four events are taken per chunk before it moves on."""
+    last event; up to four events are taken per chunk before it moves on.
+
+    The closed form holds over finite returns only (``D`` cancels ``inf -
+    inf``), so a chunk ends before each non-finite return, found in one pass
+    over the stream, and the scalar step of the host loop is taken there.
+    """
     n, dev = rets.shape[0], rets.device
     zero = torch.zeros((), dtype=rets.dtype, device=dev)
     inf = torch.tensor(float("inf"), dtype=rets.dtype, device=dev)
+    stops = (torch.nonzero(~torch.isfinite(rets[start + 1:])).flatten()
+             + (start + 1)).tolist()
+    stops.append(n)
     sp, sn = zero, zero
-    out, pos = [], start + 1
+    out, pos, k = [], start + 1, 0
     while pos < n and len(out) < max_bars:
-        r = rets[pos:pos + _CUSUM_CHUNK]
-        lm = lam[pos:pos + _CUSUM_CHUNK]
-        cc = can_close[pos:pos + _CUSUM_CHUNK]
+        while stops[k] < pos:
+            k += 1
+        if stops[k] == pos:     # a non-finite return: the scalar step
+            st = _cusum_stop(sp, sn, *torch.stack([
+                rets[pos], lam[pos], can_close[pos].to(rets.dtype)]).tolist(), pos, out)
+            sp, sn = (torch.tensor(v, dtype=rets.dtype, device=dev) for v in st)
+            pos += 1
+            continue
+        r = rets[pos:min(pos + _CUSUM_CHUNK, stops[k])]
         m = r.shape[0]
+        lm = lam[pos:pos + m]
+        cc = can_close[pos:pos + m]
         iota = torch.arange(m, device=dev)
         big = torch.cumsum(r, 0)
         last_e, found = -1, False
@@ -377,7 +415,7 @@ def cusum_scan_plain(rets, lam, can_close, start: int, max_bars: int):
             pos += last_e + 1
         else:       # the chunk is done: its last state is the carry
             sp, sn = s_pos[m - 1], s_neg[m - 1]
-            pos += _CUSUM_CHUNK
+            pos += m
     return torch.tensor(out, dtype=torch.int64, device=dev)
 
 
@@ -386,6 +424,15 @@ def cusum_scan(rets, lam, can_close, start: int, max_bars: int):
     ``start + 1`` on, ``s+ = max(0, s+ + rets[i])`` and ``s- = min(0, s- +
     rets[i])``; trade i closes a bar when ``can_close[i]`` and ``s+ >=
     lam[i]`` (then s+ resets) or else ``s- <= -lam[i]`` (then s- resets).
+
+    Sums and compares are IEEE doubles, and the clamps keep a NaN, as the
+    reference's host loop (``finmlkit_tpu/native/seg_stats.cpp:159-176``): a
+    NaN return (a NaN price) makes both sums NaN, and no bar closes after
+    it; an infinite return closes on its side, so a zero price (a return of
+    -inf, then +inf) closes at both where it may, or, in one same-timestamp
+    block, leaves s+ at +inf (it closes at the block's end) and s- NaN for
+    good; a NaN ``lam[i]`` never closes. (The JAX package's device form
+    closes nothing after an infinite return: ROADMAP fault R10.)
 
     ``rets`` and ``lam`` are float64, ``can_close`` bool. On a CUDA tensor
     this launches kernel E; on a CPU tensor it runs :func:`cusum_scan_plain`.

@@ -19,15 +19,18 @@ replaces ``_ffill_2d`` (K5), which moved float32 values as int32 bits through
 ``(rows, 128)`` planes; here float32 and float64 move as their own bits. With
 its zero-before flag it is also ``fill_last``, the segmented last-fill of
 int32 values at marks of the radix-select median engine: it replaces
-``_fill_last_planes`` (L1, ``finmlkit_tpu/ops/segment_select.py``).
+``_fill_last_planes`` (L1, ``finmlkit_tpu/ops/segment_select.py``). It is
+ONE launch, a single-pass look-back over the combine "the later valid index
+wins"; :func:`ffill_tiles` is that scheme on the CPU, for the tests.
 """
+import numpy as np
 import torch
 
 from .. import _build
 
 __all__ = ["fast_cumsum", "fast_cumsum_plain", "fast_cumsum_cols",
            "fast_cumsum_cols_plain", "fast_ffill", "fast_ffill_plain",
-           "fill_last", "fill_last_plain"]
+           "fill_last", "fill_last_plain", "ffill_tiles"]
 
 LAUNCHES = 0        # kernel S launches in this process: fast_cumsum's, and the
                     # one in each kernel E scan (ops/event_scan.py)
@@ -147,8 +150,8 @@ def _launch_ffill(values, valid, zero_before: bool, what: str) -> torch.Tensor:
     if n == 0:
         return out
     lib = _build.library()
-    tiles = (n + lib.fmk_ffill_tile() - 1) // lib.fmk_ffill_tile()
-    scratch = torch.empty(tiles, dtype=torch.int64, device=values.device)
+    scratch = torch.empty(lib.fmk_ffill_scratch_bytes(n), dtype=torch.uint8,
+                          device=values.device)
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream(values.device).cuda_stream
         rc = lib.fmk_ffill(values.element_size(), values.data_ptr(),
@@ -221,3 +224,79 @@ def fill_last(values: torch.Tensor, marks: torch.Tensor) -> torch.Tensor:
     if values.numel():
         FILL_LAST_LAUNCHES += 1
     return out
+
+
+_FFILL_TILE, _FFILL_WINDOW = 4096, 32   # csrc/ffill.cu
+_AGGREGATE, _PREFIX = 1, 2    # a tile's published status: its own last valid
+                              # index, or its inclusive result
+
+
+def ffill_tiles(values: torch.Tensor, valid: torch.Tensor, zero_before: bool = False,
+                *, tile: int = _FFILL_TILE, vec: int = 0, window: int = _FFILL_WINDOW,
+                lag: int = 0):
+    """Kernel F's single-pass look-back on the CPU, for the tests: the fill of
+    :func:`fast_ffill` (``zero_before=False``) or :func:`fill_last`
+    (``zero_before=True``) of a 1-D CPU tensor of 4- or 8-byte values, moved
+    as bits, in numpy, at any tile size.
+
+    Tiles of ``tile`` values are taken in order, each cut into vectors of
+    ``vec`` values (by default the kernel's 16-byte loads: 4 or 2). A
+    vector's last valid value joins those of the vectors before it in the
+    tile, the later valid one winning (the kernel joins them by a ballot and
+    two shuffles over each row of 32 vectors, row after row, then warp after
+    warp). A tile that holds a valid value publishes its inclusive result,
+    its own last valid index, at once; a tile without one publishes that it
+    has none. A tile whose first value is not valid looks back ``window``
+    tiles a round, taking the largest index, to the nearest inclusive result,
+    reads the value there (or 0 or ``values[0]`` where there is none) and, if
+    it held no valid value, publishes the index as its inclusive result.
+    ``lag`` models the blocks in flight: the ``lag`` tiles before a tile show
+    only what they published first. Returns the fill and ``{"tiles",
+    "carries", "rounds"}``: the tiles that read a carry and the look-back
+    rounds."""
+    word = np.int32 if values.element_size() == 4 else np.int64
+    vec = vec or 16 // values.element_size()
+    bits = values.numpy().view(word)
+    mask = valid.numpy().astype(bool)
+    n = bits.shape[0]
+    out = np.empty_like(bits)
+    tiles = -(-n // tile)
+    vecs = -(-tile // vec)
+    first, final = [None] * tiles, [None] * tiles   # (flag, last valid index)
+    none = word(0) if zero_before else (bits[0] if n else word(0))
+    carries = rounds = 0
+    for k in range(tiles):
+        lo, hi = k * tile, min((k + 1) * tile, n)
+        m = np.zeros(vecs * vec, bool)
+        m[:hi - lo] = mask[lo:hi]
+        v = np.zeros(vecs * vec, word)
+        v[:hi - lo] = bits[lo:hi]
+        run = np.maximum.accumulate(np.where(m, np.arange(vecs * vec), -1)
+                                    .reshape(vecs, vec), axis=1)
+        last = run[:, -1]                                   # a vector's last valid
+        ex = np.concatenate([[-1], np.maximum.accumulate(last)[:-1]])
+        tile_last = int(last.max())
+        first[k] = (_PREFIX if k == 0 or tile_last >= 0 else _AGGREGATE,
+                    lo + tile_last if tile_last >= 0 else -1)
+        final[k] = first[k]
+        carry = none
+        if not m[0]:
+            carries += 1
+            c, q = -1, k - 1
+            while q >= 0:                                   # look back, a round a step
+                rounds += 1
+                seen = [first[p] if p >= k - lag else final[p]
+                        for p in range(q, max(q - window, -1), -1)]
+                near = next((i for i, (f, _) in enumerate(seen) if f == _PREFIX), None)
+                c = max([c] + [x for _, x in seen[:len(seen) if near is None else near + 1]])
+                if near is not None:
+                    break
+                q -= window
+            if tile_last < 0:
+                final[k] = (_PREFIX, c)
+            if c >= 0:
+                carry = bits[c]
+        src = np.maximum(ex[:, None], run).ravel()[:hi - lo]
+        out[lo:hi] = np.where(src >= 0, v[np.maximum(src, 0)], carry)
+    return (torch.from_numpy(out).view(values.dtype),
+            {"tiles": tiles, "carries": carries, "rounds": rounds})

@@ -7,7 +7,8 @@ import numpy as np
 import torch
 
 __all__ = ["to_numpy", "assert_exact", "assert_close", "assert_window_close",
-           "adversarial_trades", "tile_closes", "TILE_CLOSES", "zeros_and_twos"]
+           "adversarial_trades", "tile_closes", "TILE_CLOSES", "zeros_and_twos",
+           "cusum_recurrence", "CUSUM_BAD", "cusum_bad_inputs"]
 
 
 def to_numpy(x) -> np.ndarray:
@@ -145,3 +146,81 @@ def zeros_and_twos(repeats: int):
     amounts = np.concatenate([np.asarray(b, np.float32) for b in bars] * repeats)
     ci = np.concatenate([[-1], np.cumsum([len(b) for b in bars] * repeats) - 1])
     return torch.from_numpy(amounts), torch.from_numpy(ci.astype(np.int64))
+
+
+def cusum_recurrence(rets, lam, can_close, start: int, max_bars=None) -> np.ndarray:
+    """The CUSUM bars' close indices by the reference's exact host loop
+    (``finmlkit_tpu/native/seg_stats.cpp:159-176``), transcribed to numpy
+    float64 line for line: from trade ``start + 1`` on, both sums add the
+    return and clamp at 0 by a compare that keeps a NaN; a trade that may
+    close closes where ``s+ >= lam`` (s+ resets) or else ``s- <= -lam`` (s-
+    resets). The oracle of the port's CUSUM scans on any input."""
+    r, lm = to_numpy(rets).astype(np.float64), to_numpy(lam).astype(np.float64)
+    cc = to_numpy(can_close).astype(bool)
+    cap = len(r) if max_bars is None else max_bars
+    sp = sn = np.float64(0.0)
+    out = []
+    with np.errstate(invalid="ignore"):
+        for i in range(start + 1, len(r)):
+            if len(out) >= cap:
+                break
+            sp, sn = sp + r[i], sn + r[i]
+            if sp < 0.0:
+                sp = np.float64(0.0)
+            if sn > 0.0:
+                sn = np.float64(0.0)
+            if not cc[i]:
+                continue
+            if sp >= lm[i]:
+                out.append(i)
+                sp = np.float64(0.0)
+            elif sn <= -lm[i]:
+                out.append(i)
+                sn = np.float64(0.0)
+    return np.asarray(out, np.int64)
+
+
+CUSUM_BAD = ("nan", "nan_tile_last", "nan_tile_first", "nan_segment_last", "inf", "-inf",
+             "zero_price_block", "zero_price", "nan_lam", "nan_and_inf_lam")
+
+
+def cusum_bad_inputs(name: str, n: int = 20_000, at: int = 5000, seed: int = 7):
+    """``(rets, lam, can_close, timestamps)``, numpy, of a CUSUM scan from
+    trade 1 (start 0) with one bad input near trade ``at``: returns and
+    thresholds on a grid of 2^-30 (every sum exact, a close every 60 trades
+    or so), one trade in ten the first of a same-timestamp pair (it may not
+    close), and by ``name`` (``CUSUM_BAD``): a NaN return at ``at``, at the
+    last or first trade of a tile of kernel E (2048 trades counted from trade
+    1) or at the last of a segment (256); +inf or -inf at ``at``, which may
+    close; a zero price, -inf then +inf, inside one same-timestamp block of
+    three trades or at two trades that may close; NaN thresholds on the 300
+    trades from ``at``, or NaN and +inf in turn."""
+    rng = np.random.default_rng(seed)
+    rets = rng.integers(-1000, 1001, n) * 2.0 ** -30
+    rets[0] = 0.0
+    lam = rng.integers(4_000, 8_000, n) * 2.0 ** -30
+    ts = np.cumsum(rng.random(n) >= 0.1).astype(np.int64)
+    edge = 1 + 2048 * (at // 2048 + 1)       # a tile's first trade after at
+    if name in ("nan", "nan_tile_last", "nan_tile_first", "nan_segment_last"):
+        rets[{"nan": at, "nan_tile_last": edge - 1, "nan_tile_first": edge,
+              "nan_segment_last": edge + 255}[name]] = np.nan
+    elif name in ("inf", "-inf"):
+        rets[at] = float(name)
+        ts[at + 1:] += 1                      # trade at may close
+    elif name in ("zero_price_block", "zero_price"):
+        rets[at], rets[at + 1] = -np.inf, np.inf   # log(0) - log(p), log(p') - log(0)
+        if name == "zero_price_block":        # one timestamp for at .. at + 2
+            ts[at + 1:] -= ts[at + 1] - ts[at]
+            ts[at + 2:] -= ts[at + 2] - ts[at + 1]
+            ts[at + 3:] += 1
+        else:                                 # at and at + 1 may close
+            ts[at + 1:] += 1
+            ts[at + 2:] += 1
+    elif name == "nan_lam":
+        lam[at:at + 300] = np.nan
+    elif name == "nan_and_inf_lam":
+        lam[at:at + 300:2] = np.nan
+        lam[at + 1:at + 300:2] = np.inf
+    else:
+        raise KeyError(name)
+    return rets, lam, np.append(ts[:-1] != ts[1:], True), ts

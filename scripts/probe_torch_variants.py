@@ -41,13 +41,28 @@ the rate of its bytes (13 a trade read, the close indices, 104 a bar
 written), and the package's call on the month in its parts (the check of
 ``ci``, the buffers, the kernel). The chrome traces go to
 ``build/variants/b_trace_<i>_<shape>.json``.
+
+``python3 scripts/probe_torch_variants.py FE [names]`` probes kernel F
+(``csrc/ffill.cu``) and kernel E's CUSUM scan (``csrc/event_scan.cu`` with
+``csrc/prefix_scan.cu``, which compacts its closes): "as built" and each
+``name=dir`` whose directory holds another checkout's ``finmlkit_tpu_torch``
+(a ``git archive`` of the parent commit unpacked under ``build/``), each built
+by its own ``nvcc`` and called through its C entry points. In turns (three
+of them): the select engine's four int32 fills on the month's one-minute
+bars (L1; the last one alone too), the float64 forward fill of the CUSUM
+sigma (K5) and the month's CUSUM scan at its default chunk count, each held
+to its plain version (the fills bit for bit, the closes exactly). Then one
+``torch.profiler`` session traces one L1 fill and one K5 fill of each build:
+its kernels and memsets, their device time and count. The last line is one
+JSON object of the times.
 """
-import json
 import ctypes
+import json
 import os
 import re
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -522,7 +537,198 @@ def probe_eh():
     cs.say(f"traced, ms a call (5 calls each): " + json.dumps(rows) + f" [{card}]")
 
 
+def fe_library(src_dir, out_dir):
+    """Kernels F and E (with S) from another checkout's ``csrc`` built alone;
+    returns ``fill(values, valid, zero_before)`` and ``cusum(rets, lam, cc,
+    start, chunks)`` on CUDA tensors and ptxas's report of their kernels. A
+    source whose F takes a scratch of tile indices (the three-launch kernel
+    of an earlier commit) is given one."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for name in ("ffill.cu", "event_scan.cu", "prefix_scan.cu"):
+        (out_dir / name).write_text((Path(src_dir) / name).read_text())
+    log = nvcc(out_dir, out_dir / "lib.so")
+    lib = ctypes.CDLL(str(out_dir / "lib.so"))
+    P, I64, F64, Int = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_double, ctypes.c_int
+    lib.fmk_ffill.argtypes = [Int, P, P, P, P, I64, Int, P]
+    one_pass = hasattr(lib, "fmk_ffill_scratch_bytes")
+    if one_pass:
+        lib.fmk_ffill_scratch_bytes.argtypes = [I64]
+        lib.fmk_ffill_scratch_bytes.restype = I64
+    lib.fmk_event_scratch_bytes.argtypes = [Int, I64, I64, I64]
+    lib.fmk_event_scratch_bytes.restype = I64
+    lib.fmk_event_scan.argtypes = [Int, P, P, P, P, I64, I64, F64, F64, F64, F64, I64, P,
+                                   I64, P, I64, P, P, P]
+    scratch = {}
+
+    def buffer(key, nbytes):
+        if scratch.get(key) is None or scratch[key].numel() < nbytes:
+            scratch[key] = torch.empty(max(nbytes, 1), dtype=torch.uint8, device="cuda")
+        return scratch[key]
+
+    def fill(values, valid, zero_before):
+        n = values.shape[0]
+        nbytes = lib.fmk_ffill_scratch_bytes(n) if one_pass else 8 * (-(-n // 2048))
+        out = torch.empty_like(values)
+        rc = lib.fmk_ffill(values.element_size(), values.data_ptr(), valid.data_ptr(),
+                           out.data_ptr(), buffer("f", nbytes).data_ptr(), n,
+                           int(zero_before), torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"kernel F from {src_dir}: CUDA error {rc}")
+        return out
+
+    def cusum(rets, lam, cc, start, chunks):
+        n = rets.shape[0]
+        out = torch.empty(n, dtype=torch.int64, device="cuda")
+        count = torch.empty(1, dtype=torch.int64, device="cuda")
+        sc = buffer("e", lib.fmk_event_scratch_bytes(0, n, start + 1, chunks))
+        rc = lib.fmk_event_scan(0, rets.data_ptr(), lam.data_ptr(), cc.data_ptr(), None,
+                                n, start + 1, 0.0, 0.0, 0.0, 0.0, 0, sc.data_ptr(), chunks,
+                                out.data_ptr(), n, count.data_ptr(), None,
+                                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"kernel E from {src_dir}: CUDA error {rc}")
+        return out, count
+    return fill, cusum, ptxas_summary(
+        log, r"ffill_kernel\w*|tile_last_kernel|scan_tiles_max_kernel|fill_tiles_kernel\w*"
+             r"|summary_kernel\w*|pass\d_kernel\w*|fixup_kernel\w*")
+
+
+def probe_fe(specs):
+    """Kernels F (L1 and K5) and E's CUSUM scan, builds ``specs`` (name ->
+    the directory of their sources) in turns on the month."""
+    from torch.profiler import ProfilerActivity, profile
+    from finmlkit_tpu_torch.bar.indexers import cusum_scan_inputs
+    from finmlkit_tpu_torch.ops import event_scan as es
+    from finmlkit_tpu_torch.ops import prefix_scan as ps
+    from finmlkit_tpu_torch.ops.segment_select import segment_median_pair_select
+    card = cs.phase_env()
+    builds = {}
+    for i, (name, src) in enumerate(specs.items()):
+        builds[name] = fe_library(src, OUT / f"fe{i}")
+        for fn, what in builds[name][2]:
+            cs.say(f"FE {name}: {fn} {what}")
+    month = cs.make_month(cs.N_MONTH)
+    tr, ts = month["tr"], month["ts"]
+    n = tr.ticks.shape[0]
+    ci = time_bar_indexer(tr.timestamps, 60.0, ts_first=int(ts[0]),
+                          ts_last_i=int(ts[-1]))[1]
+    fills = []
+
+    def record(v, m):
+        fills.append((v, m))
+        return ps.fill_last_plain(v, m)
+
+    segment_median_pair_select(tr.amounts, ci, fill=record)
+    sigma = torch.from_numpy(cs.info_sigma(n)).cuda()
+    valid = ~torch.isnan(sigma)
+    price = torch.from_numpy(month["price"]).cuda()
+    rets, lam, cc, fv, _ = cusum_scan_inputs(tr.timestamps, price, sigma,
+                                             cs.CUSUM_FLOOR, cs.CUSUM_MULT)
+    chunks = es._default_chunks(es._CUSUM, rets.device)
+    bits = {4: torch.int32, 8: torch.int64}
+    want_l1 = [ps.fill_last_plain(v, m) for v, m in fills]
+    want_k5 = ps.fast_ffill_plain(sigma, valid).view(torch.int64)
+    want_e = es.cusum_scan_plain(rets, lam, cc, fv, n)
+    exact = {}
+    for name, (fill, cusum, _) in builds.items():
+        ok_l1 = all(torch.equal(fill(v, m, True), w) for (v, m), w in zip(fills, want_l1))
+        ok_k5 = torch.equal(fill(sigma, valid, False).view(torch.int64), want_k5)
+        out, count = cusum(rets, lam, cc, fv, chunks)
+        ok_e = torch.equal(out[:int(count)], want_e)
+        exact[name] = dict(l1=ok_l1, k5=ok_k5, e_cusum=ok_e)
+    last_v, last_m = fills[-1]
+    parts = {"L1, one fill": lambda f, e: f(last_v, last_m, True),
+             "L1, the engine's 4 fills": lambda f, e: [f(v, m, True) for v, m in fills],
+             "K5, the sigma": lambda f, e: f(sigma, valid, False),
+             "E cusum": lambda f, e: e(rets, lam, cc, fv, chunks)}
+    reps = {"E cusum": 5}
+    times = {(name, part): [] for name in builds for part in parts}
+    for _ in range(3):   # in turns
+        for name, (fill, cusum, _) in builds.items():
+            for part, f in parts.items():
+                times[(name, part)].append(
+                    cs.cuda_ms(lambda: f(fill, cusum), reps=reps.get(part, 20)))
+    bounds = {"L1, one fill": cs.bound(9 * n, n)[0],
+              "L1, the engine's 4 fills": 4 * cs.bound(9 * n, n)[0],
+              "K5, the sigma": cs.bound(17 * n, n)[0],
+              "E cusum": cs.bound(17 * n + 8 * len(want_e), 10 * n)[0]}
+    for name in builds:
+        cs.say(f"FE {name}: == plain {exact[name]}; ms in 3 turns, " + "; ".join(
+            f"{part} " + " ".join(f"{t:.4f}" for t in times[(name, part)])
+            + f" (bound {bounds[part]:.4f})" for part in parts) + f" [{card}]")
+    OUT.mkdir(parents=True, exist_ok=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for fill, _, _ in builds.values():
+            for _ in range(5):
+                fill(last_v, last_m, True)
+                fill(sigma, valid, False)
+        torch.cuda.synchronize()
+        for _, cusum, _ in builds.values():   # E's scans, build after build
+            for _ in range(5):
+                cusum(rets, lam, cc, fv, chunks)
+            torch.cuda.synchronize()
+    path = OUT / "fe_trace.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("cat") in ("kernel", "gpu_memset")]
+    e_events = sorted((e for e in events if re.search(
+        r"summary_kernel|pass\d_kernel|fixup_kernel|scatter_kernel|one_pass_kernel", e["name"])),
+        key=lambda e: e["ts"])
+    per = len(e_events) // len(builds)   # the builds launch alike, in order
+    for i, name in enumerate(builds):
+        by = {}
+        for e in e_events[i * per:(i + 1) * per]:
+            key = re.search(r"(summary_kernel|pass\d_kernel|fixup_kernel|scatter_kernel|"
+                            r"one_pass_kernel)", e["name"]).group(1)
+            by[key] = by.get(key, 0.0) + e.get("dur", 0) / 1e3 / 5
+        cs.say(f"traced E cusum, {name}, device ms a scan by kernel: "
+               + ", ".join(f"{k} {v:.4f}" for k, v in by.items()) + f" [{card}]")
+    rows = {}
+    for e in events:
+        if re.search(r"summary_kernel|pass\d_kernel|fixup_kernel|scatter_kernel|"
+                     r"one_pass_kernel", e["name"]):
+            continue
+        key = re.sub(r"\(anonymous namespace\)::", "", e["name"])[:70]
+        r = rows.setdefault(key, dict(ms=0.0, launches=0))
+        r["ms"] += e.get("dur", 0) / 1e3
+        r["launches"] += 1
+        for k in ("registers per thread", "est. achieved occupancy %", "grid"):
+            if k in e.get("args", {}):
+                r[k] = e["args"][k]
+    cs.say("traced, 5 L1 and 5 K5 fills of each build (total device ms and count by "
+           "kernel): " + json.dumps(rows) + f" [{card}]")
+    # the package's wrappers (checks, allocations, the launch) on the same
+    # fills: device ms from CUDA events at 5 and 20 calls, and host us a call
+    wrapped = {"L1 through fill_last": lambda: ps.fill_last(last_v, last_m),
+               "K5 through fast_ffill": lambda: ps.fast_ffill(sigma, valid)}
+    host_us = {}
+    for key, f in wrapped.items():
+        f()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            f()
+        host_us[key] = (time.perf_counter() - t0) * 1e4
+        torch.cuda.synchronize()
+    wrapped_ms = {key: [cs.cuda_ms(f, reps=r) for r in (5, 20)] for key, f in wrapped.items()}
+    cs.say("the wrappers: ms a call at 5 and 20 calls, host us a call: " + "; ".join(
+        f"{k} {wrapped_ms[k][0]:.4f} {wrapped_ms[k][1]:.4f}, host {host_us[k]:.1f} us"
+        for k in wrapped) + f" [{card}]")
+    cs.say(json.dumps({"card": card, "exact": exact, "bounds_ms": bounds,
+                       "wrapped_ms": wrapped_ms, "wrapper_host_us": host_us,
+                       "ms": {name: {part: times[(name, part)] for part in parts}
+                              for name in builds}}))
+
+
 def main():
+    if len(sys.argv) > 1 and sys.argv[1] == "FE":
+        if not torch.cuda.is_available():
+            cs.fail("no CUDA device")
+        specs = {}
+        for spec in (sys.argv[2].split(",") if len(sys.argv) > 2 else ["as built"]):
+            name, _, src = spec.partition("=")
+            specs[name] = ROOT / src / "finmlkit_tpu_torch" / "csrc" if src else CSRC
+        return probe_fe(specs)
     if len(sys.argv) > 1 and sys.argv[1] == "EH":
         if not torch.cuda.is_available():
             cs.fail("no CUDA device")

@@ -14,8 +14,9 @@ from finmlkit_tpu_torch.bar.footprint_q import comp_bar_footprints_q
 from finmlkit_tpu_torch.bar.fused import median_engine, median_pairs, planes_products
 from finmlkit_tpu_torch.bar.indexers import dollar_bar_indexer_q
 from finmlkit_tpu_torch.ops import event_scan, fused_scan, prefix_scan, segment_hist
-from finmlkit_tpu_torch.testing import (TILE_CLOSES, adversarial_trades, assert_close,
-                                       assert_exact, tile_closes, zeros_and_twos)
+from finmlkit_tpu_torch.testing import (CUSUM_BAD, TILE_CLOSES, adversarial_trades,
+                                       assert_close, assert_exact, cusum_bad_inputs,
+                                       cusum_recurrence, tile_closes, zeros_and_twos)
 
 pytestmark = pytest.mark.cuda
 
@@ -179,7 +180,18 @@ def _ffill_case(n, dtype, mask, device, seed):
     return v, m
 
 
-@pytest.mark.parametrize("n", [1, 2047, 2048, 2049, 8193, 5_000_001])
+def _bits(t):
+    """A fill's bits: a selection keeps each NaN payload."""
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int64)
+
+
+# kernel F's tiles hold 4096 values; past 32 x 64 tiles a look-back over
+# tiles without a valid value takes many rounds of 32
+FFILL_NS = [1, 2047, 2048, 2049, 4095, 4096, 4097, 8193, 5_000_001,
+            4096 * 32 * 64 + 4097]
+
+
+@pytest.mark.parametrize("n", FFILL_NS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("mask", ["random", "leading_invalid", "all_valid",
                                   "none_valid"])
@@ -188,7 +200,10 @@ def test_ffill_matches_plain(cuda, dtype, n, mask):
     before = prefix_scan.FFILL_LAUNCHES
     got = prefix_scan.fast_ffill(v, m)
     assert prefix_scan.FFILL_LAUNCHES == before + 1
-    assert_exact(got, prefix_scan.fast_ffill_plain(v, m))
+    assert_exact(_bits(got), _bits(prefix_scan.fast_ffill_plain(v, m)))
+    if n > 1:   # a view that starts off 16-byte alignment takes the scalar path
+        assert_exact(_bits(prefix_scan.fast_ffill(v[1:], m[1:])),
+                     _bits(prefix_scan.fast_ffill_plain(v[1:], m[1:])), "offset by one")
 
 
 # kernel E's chunk counts held against its default: the sequential walk, a
@@ -352,6 +367,25 @@ def test_info_scan_nonfinite_weight_matches_plain(cuda, bad, run_mode):
     assert len(want) >= 5 and (int(want[-1]) <= 1000) == stops
 
 
+@pytest.mark.parametrize("name", CUSUM_BAD)
+def test_cusum_scan_nonfinite_matches_plain(cuda, name):
+    """Kernel E's CUSUM mode on non-finite returns and thresholds
+    (``testing.cusum_bad_inputs``, sums exact) against the plain scan, at the
+    default chunk count, 528 and ``CHUNKS``: the IEEE recurrence of the
+    reference's host loop, held there to its numpy transcription."""
+    n = 300_000
+    rets, lam, cc = (torch.from_numpy(a).to(cuda)
+                     for a in cusum_bad_inputs(name, n, 150_000)[:3])
+    want = event_scan.cusum_scan_plain(rets, lam, cc, 0, n)
+    assert_exact(want, cusum_recurrence(rets, lam, cc, 0), "plain against the recurrence")
+    assert_exact(event_scan.cusum_scan(rets, lam, cc, 0, n), want, "default chunks")
+    for chunks in (528, *CHUNKS):
+        assert_exact(event_scan._launch(event_scan._CUSUM, n, 1, n, cuda, x=rets, lam=lam,
+                                        can_close=cc, chunks=chunks),
+                     want, f"{chunks} chunks")
+    assert len(want) > 100
+
+
 def test_event_scan_edges(cuda):
     w = torch.ones(1, dtype=torch.float64, device=cuda)
     assert event_scan.info_scan(w, 1.0, 1.0, 0.0, 0.0, 10, False).numel() == 0
@@ -434,7 +468,7 @@ def test_median_engines_match_plain_and_sort(cuda, case, engine):
         assert_exact(a[ne], b[ne], f"{engine} vs sort")
 
 
-@pytest.mark.parametrize("n", [1, 2047, 2048, 2049, 8193, 5_000_001])
+@pytest.mark.parametrize("n", FFILL_NS)
 @pytest.mark.parametrize("mask", ["random", "leading_invalid", "all_valid",
                                   "none_valid"])
 def test_fill_last_matches_plain(cuda, n, mask):

@@ -3,8 +3,9 @@ weights, modelled on the CPU (``ops/event_scan.py _map_scan_model``): the
 tiles' maps of the in-bar states, their two-level exclusive scan and the walk
 of each tile from its entry state, against the plain scan close for close at
 tiles of 1 to 1000 trades, and against the JAX package on XLA:CPU. Also the
-path's dispatch (``_map_states``), and the reference's closes on non-finite
-weights, which the kernel's close test (``stat >= theta``) follows.
+path's dispatch (``_map_states``), the reference's closes on non-finite
+weights, which the kernel's close test (``stat >= theta``) follows, and the
+CUSUM bars on a NaN or zero price (fault R10 pinned).
 
 With integer weights every in-bar sum before a close is exact, so the closes
 of every layout must equal the plain scan's.
@@ -17,7 +18,7 @@ import torch
 from finmlkit_tpu.bar import indexers as jidx
 from finmlkit_tpu_torch.bar import indexers
 from finmlkit_tpu_torch.ops import event_scan as es
-from finmlkit_tpu_torch.testing import assert_exact
+from finmlkit_tpu_torch.testing import assert_exact, cusum_recurrence
 from tests.conftest import generate_trades
 
 # (n, theta, weights): trade 0 only opens, so every case starts at trade 1
@@ -182,19 +183,62 @@ def test_nonfinite_weight_matches_jax(trades, bad, run_mode):
         assert want[-1] == 1000
 
 
-@pytest.mark.parametrize("bad", ["nan", "zero"])
-def test_cusum_nonfinite_return_matches_jax(trades, bad):
-    """A NaN or zero price (a NaN or infinite log return) in the CUSUM bars:
-    the reference's chunked closed form then carries a NaN and closes no bar
-    after it, and the port's plain path does the same."""
+def _cusum_bad_price(trades, bad):
+    """(ts, prices, sigma) of the trades with a NaN or zero price at trade
+    1000: two NaN log returns, or -inf then +inf."""
     ts, px, _, _ = trades
     px = px.copy()
     px[1000] = np.nan if bad == "nan" else 0.0
-    sigma = np.full(len(px), 2e-4)
-    _, want, _ = jidx.cusum_bar_indexer(jnp.asarray(ts), jnp.asarray(px),
-                                        jnp.asarray(sigma), 1e-9, 3.0)
+    return ts, px, np.full(len(px), 2e-4)
+
+
+def _cusum_recurrence_closes(ts, px, sigma):
+    """The closes of the reference's exact host loop (``testing.
+    cusum_recurrence``) on the port's scan inputs, and the host tier's own
+    (``cusum_bar_indexer_host``) where its library builds, else None."""
+    rets, lam, cc, fv, _ = indexers.cusum_scan_inputs(
+        torch.from_numpy(ts), torch.from_numpy(px), torch.from_numpy(sigma), 1e-9, 3.0)
+    host = jidx.cusum_bar_indexer_host(ts, px, sigma, 1e-9, 3.0)
+    return (np.concatenate([[fv], cusum_recurrence(rets, lam, cc, fv)]),
+            None if host is None else host[1])
+
+
+@pytest.mark.parametrize("bad", ["nan", "zero"])
+def test_cusum_nonfinite_return_matches_jax(trades, bad):
+    """A NaN or zero price (a NaN or infinite log return) in the CUSUM bars.
+    A NaN: both of the reference's tiers carry it and close no bar after it,
+    so the JAX indexer is the oracle. A zero price: the tiers disagree (R10),
+    and the port follows the exact host loop's IEEE recurrence, closing at
+    the infinite returns and after them; the oracle is that recurrence (and
+    the host tier itself where it builds)."""
+    ts, px, sigma = _cusum_bad_price(trades, bad)
     _, got, _ = indexers.cusum_bar_indexer(torch.from_numpy(ts), torch.from_numpy(px),
                                            torch.from_numpy(sigma), 1e-9, 3.0)
-    want = np.asarray(want)
+    want, host = _cusum_recurrence_closes(ts, px, sigma)
+    if host is not None:
+        assert_exact(want, host, f"{bad}: the recurrence against the host tier")
+    if bad == "nan":
+        _, jax_ci, _ = jidx.cusum_bar_indexer(jnp.asarray(ts), jnp.asarray(px),
+                                              jnp.asarray(sigma), 1e-9, 3.0)
+        assert_exact(want, np.asarray(jax_ci), "nan: the recurrence against JAX")
+        want = np.asarray(jax_ci)
     assert_exact(got, want, bad)
-    assert len(want) > 50 and want[-1] <= 1000
+    if bad == "nan":
+        assert len(want) > 50 and want[-1] < 1000
+    else:
+        assert len(want) > 100 and want[-1] > 5000 and 1000 in want
+
+
+def test_cusum_jax_device_form_stops_after_infinite_return(trades):
+    """R10 pinned: on a zero price the JAX package's device form
+    (``finmlkit_tpu/bar/indexers.py:509-597``) cancels inf - inf in its
+    chunk prefix and closes no bar after trade 1000, where the package's own
+    host tier and the port close on."""
+    ts, px, sigma = _cusum_bad_price(trades, "zero")
+    _, jax_ci, _ = jidx.cusum_bar_indexer(jnp.asarray(ts), jnp.asarray(px),
+                                          jnp.asarray(sigma), 1e-9, 3.0)
+    jax_ci = np.asarray(jax_ci)
+    want, _ = _cusum_recurrence_closes(ts, px, sigma)
+    assert jax_ci[-1] <= 1000 and want[-1] > 5000
+    k = int(np.searchsorted(want, 1000))
+    assert_exact(jax_ci[:k], want[:k], "the closes before the zero price")
