@@ -8,8 +8,9 @@ generator of ``bench.py``, 39,171,929 trades at seed 0): the time-bar path
 triple-barrier labels -> uniqueness and return-attribution weights), the
 order-flow path of ``bench.py`` config 2 (dollar bars at total dollars /
 40000 -> bar products and medians -> dense footprints -> trade-size
-features), the information-driven bars of config 6 through the kits, and the
-time bars' products through every median engine and bar scan. Phases:
+features), the information-driven bars of config 6 through the kits, the
+time bars' products through every median engine and bar scan, and the time
+bars' features. Phases:
 
 1. environment: torch, CUDA, nvcc, triton, the card's name and power limit;
 2. build the kernels (``build/finmlkit_tpu_torch/``);
@@ -75,12 +76,26 @@ time bars' products through every median engine and bar scan. Phases:
    each kernel alone timed with its bound (V's six passes and H's nine
    launches also one by one),
    each engine and scan's stage time and peak device memory. B, S and C are timed here when no earlier phase
-   timed them.
+   timed them;
+9. the feature kernels on the month's 45,705 time bars (phase 5's, or built
+   here): BASELINE config 4's six features (EWMA 20, Wilder RSI 14, ATR 14,
+   the 1-bar log return, realized volatility 30, z-score 50) and every other
+   function of ``feature/kernels`` once, the CSW test at window 1000 and its
+   expanding form on the last 1,440 bars; each held to the same function run
+   on the CPU (the plain path) from the same inputs: NaN positions, flags and
+   the CSW critical values equal, floats within rtol and atol 1e-12; R and W
+   launched; kernel R against its plain version (EWMA's recurrence at 1M
+   points and span 100, a time-varying decay, y0, a NaN, lengths 1, 2047,
+   2049 and the month's trade count; rtol 1e-12, equal run to run) and
+   kernel W against its plain version bit for bit (50,000 log prices at
+   window 500, the month's bars at 1000, flat runs), each timed with its
+   bound; the six-feature pass as one stage, each function's time, peak
+   device memory.
 
 Run from the repository root: ``python3 chip_smoke.py``; ``--phases 1,2,6``
 runs only the order-flow path, ``--phases 1,2,7`` only the information-driven
-bars, ``--phases 1,2,8`` only the engines, and ``--profile`` adds, after
-phase 6, the
+bars, ``--phases 1,2,8`` only the engines, ``--phases 1,2,9`` only the
+features, and ``--profile`` adds, after phase 6, the
 footprint features' own time, a ``torch.profiler`` table of one run of the
 order-flow path and its device idle share. Any failure exits non-zero
 before the last line. The last line is
@@ -120,6 +135,12 @@ E_CHUNKS = (1, 33, 132, 528)   # kernel E's chunk counts timed and held to its d
 # kernel here does so few operations a byte that the bytes bound it
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+PEAK_F64_OPS_PER_S = 34e12   # the float64 vector peak (NVIDIA's data sheet)
+# phase 9: the feature kernels on the month's time bars
+FEATURE_RTOL = FEATURE_ATOL = 1e-12
+CSW_WINDOW = 1000            # cusum_test_rolling's default window
+DAY_BARS = 1440              # cusum_test_developing on the last day (O(n^2))
+R_LENGTHS = (1, 2047, 2049, 1_000_000, N_MONTH)   # kernel R: around its tile
 
 
 # name, source in finmlkit_tpu_torch/csrc and the functions it replaces (the
@@ -147,6 +168,12 @@ KERNELS = {
           "finmlkit_tpu/ops/fused_scan.py:1342"),
     "P": ("P io_floor (replaces P1, P2 and P3)", "io_floor.cu",
           "finmlkit_tpu/ops/fused_scan.py:1185, :1213 and :1236"),
+    "R": ("R recurrence, three passes over tiles of affine maps (replaces an XLA "
+          "associative_scan, not a TPU kernel)", "recurrence.cu",
+          "finmlkit_tpu/ops/scan.py:21"),
+    "W": ("W csw, the CSW sup statistic, a warp per t (replaces an XLA lax.map, "
+          "not a TPU kernel)", "csw.cu",
+          "finmlkit_tpu/feature/kernels/structural_break.py:23 and :55"),
 }
 
 
@@ -165,9 +192,10 @@ def kernel_entry(key, launches, err, ms, plain_ms, bound_ms, library_ms, **extra
             "library_ms": library_ms, **extra}
 
 
-def bound(nbytes, ops):
-    """``(bound_ms, bound_by)`` of the ``kernels`` line."""
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S
+def bound(nbytes, ops, peak=PEAK_OPS_PER_S):
+    """``(bound_ms, bound_by)`` of the ``kernels`` line; ``peak`` is the
+    operations' rate (float32 unless given)."""
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / peak
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
@@ -576,7 +604,9 @@ def phase_month(card, month):
 
     # --- the outputs are right: shapes, finite values, numpy on sampled bars ---
     ci = k_out["ci"]
-    month["ci_time"] = ci                 # phase 8 takes the same bars
+    month["ci_time"] = ci                 # phases 8 and 9 take the same bars
+    month["bars_time"] = (k_out["ohlcv"], k_out["directional"],
+                          k_out["clock"][1:ci.shape[0]])
     n_bars, n_ev = ci.shape[0] - 1, len(k_out["events"])
     o = k_out["ohlcv"]
     for key in ("open", "high", "low", "close", "volume", "vwap", "median_trade_size"):
@@ -1734,10 +1764,265 @@ def phase_engines(card, month, need):
     return launches, kernels, floor_launches
 
 
+def month_bars(month):
+    """The month's 1-minute time bars as float64 series and int64 bar close
+    times: phase 5's, or built here as phase 5 builds them."""
+    import torch
+    if "bars_time" in month:
+        ohlcv, direc, bar_ts = month["bars_time"]
+    else:
+        from finmlkit_tpu_torch.bar.fused import bar_products_final
+        from finmlkit_tpu_torch.bar.indexers import time_bar_indexer
+        tr, ts = month["tr"], month["ts"]
+        clock, ci = time_bar_indexer(tr.timestamps, 60.0, ts_first=int(ts[0]),
+                                     ts_last_i=int(ts[-1]))
+        ohlcv, direc = bar_products_final(tr.ticks, tr.units, ci, tr.sides,
+                                          tick_size=tr.tick_size,
+                                          amount_scale=tr.amount_scale,
+                                          amounts_f32=tr.amounts)
+        month.setdefault("ci_time", ci)
+        bar_ts = clock[1:ci.shape[0]]
+    f64 = torch.float64
+    b = dict(close=ohlcv["close"], high=ohlcv["high"], low=ohlcv["low"],
+             volume=ohlcv["volume"].to(f64), buy=direc["volume_buy"].to(f64),
+             sell=direc["volume_sell"].to(f64), ts=bar_ts)
+    b["ret"] = log_return(b["close"])
+    return b
+
+
+def log_return(close):
+    """The 1-bar log return of BASELINE config 4 (``Return(1, is_log=True)``),
+    NaN at bar 0."""
+    import torch
+    return torch.cat([close.new_full((1,), torch.nan), torch.log(close[1:] / close[:-1])])
+
+
+def feature_calls(b):
+    """Every function of the feature slice once on bars ``b`` (tensors on one
+    device): name -> call. The first six are BASELINE config 4's feature pass
+    (bench.py:595-602, ``SIX_FEATURES``); the rest run at the JAX package's
+    defaults, with windows a bar user would pick."""
+    from finmlkit_tpu_torch.feature import kernels as K
+    c, h, l, v, ts, ret = (b[k] for k in ("close", "high", "low", "volume", "ts", "ret"))
+    day = c[-DAY_BARS:]
+    return {
+        "ewma": lambda: K.ewma(c, 20),
+        "rsi_wilder": lambda: K.rsi_wilder(c, 14),
+        "atr": lambda: K.atr(h, l, c, 14),
+        "log_return": lambda: log_return(c),
+        "realized_vol": lambda: K.realized_vol(ret, 30, False),
+        "comp_zscore": lambda: K.comp_zscore(c, 50),
+        "sma": lambda: K.sma(c, 20),
+        "ewms": lambda: K.ewms(ret, 20),
+        "ewmst": lambda: K.ewmst(ts, ret, 3600.0),
+        "ewmst_mean0": lambda: K.ewmst_mean0(ts, ret, 3600.0),
+        "true_range": lambda: K.true_range(h, l, c),
+        "bollinger_percent_b": lambda: K.bollinger_percent_b(c, 20, 2.0),
+        "parkinson_range": lambda: K.parkinson_range(h, l),
+        "atr_ema_normalized": lambda: K.atr(h, l, c, 14, ema_based=True, normalize=True),
+        "rolling_variance": lambda: K.rolling_variance(ret, 20),
+        "variance_ratio_1_4": lambda: K.variance_ratio_1_4(c, 20),
+        "roc": lambda: K.roc(c, 10),
+        "stoch_k": lambda: K.stoch_k(c, l, h, 14),
+        "adx": lambda: K.adx(h, l, c, 14),
+        "comp_lagged_returns": lambda: K.comp_lagged_returns(ts, c, 300, True),
+        "comp_burst_ratio": lambda: K.comp_burst_ratio(v, 20),
+        "pct_change": lambda: K.pct_change(c, 5),
+        "time_cues": lambda: K.time_cues(ts),
+        "vwap_distance": lambda: K.vwap_distance(c, v, 20, True),
+        "rolling_price_volume_correlation": lambda: K.rolling_price_volume_correlation(c, v, 20),
+        "comp_flow_acceleration": lambda: K.comp_flow_acceleration(v, 20, 5),
+        "vpin": lambda: K.vpin(b["buy"], b["sell"], 50),
+        "cusum_test_rolling": lambda: K.cusum_test_rolling(c, CSW_WINDOW),
+        "cusum_test_developing": lambda: K.cusum_test_developing(day),
+        "cusum_test_last": lambda: K.cusum_test_last(day),
+    }
+
+
+SIX_FEATURES = ("ewma", "rsi_wilder", "atr", "log_return", "realized_vol", "comp_zscore")
+CSW_FEATURES = ("cusum_test_rolling", "cusum_test_developing", "cusum_test_last")
+
+
+def hold_feature(name, got, want):
+    """A feature on the card against its CPU run: NaN positions equal, floats
+    within rtol and atol 1e-12, flags and the CSW critical values (the chosen
+    lags) equal. Returns the largest absolute deviation."""
+    import torch
+    from finmlkit_tpu_torch.testing import assert_close, assert_exact
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        what = f"{name}[{i}] card vs cpu"
+        if not torch.is_tensor(g):                       # cusum_test_last
+            g, w = torch.tensor([g]), torch.tensor([w])
+        if g.dtype == torch.bool or (name in CSW_FEATURES and i >= 2):
+            assert_exact(g, w, what)
+        else:
+            worst = max(worst, assert_close(g, w, rtol=FEATURE_RTOL,
+                                            atol=FEATURE_ATOL, what=what))
+    return worst
+
+
+def phase_features(card, month):
+    """Phase 9: the feature slice on the month's time bars. Returns the
+    path's launches (R, W) and the ``kernels`` entries of R and W."""
+    import torch
+    from finmlkit_tpu_torch.feature.kernels import structural_break
+    from finmlkit_tpu_torch.ops import scan
+    b = month_bars(month)
+    n_bars = b["close"].shape[0]
+    calls = feature_calls(b)
+    for f in calls.values():               # warm: allocator, tables, the build
+        f()
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    scan.LAUNCHES = structural_break.LAUNCHES = 0
+    got = {name: f() for name, f in calls.items()}     # the path's counted run
+    torch.cuda.synchronize()
+    launches = {"R": scan.LAUNCHES, "W": structural_break.LAUNCHES}
+    peak_gib = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
+    if launches["R"] < 1 or launches["W"] < 1:
+        fail(f"a kernel of the feature path did not launch: {launches}")
+
+    # --- every feature on the card against its CPU run (the plain path) ---
+    b_cpu = {k: v.cpu() for k, v in b.items()}
+    t0 = time.perf_counter()
+    want = {name: f() for name, f in feature_calls(b_cpu).items()}
+    cpu_s = time.perf_counter() - t0
+    worst = {name: hold_feature(name, got[name], want[name]) for name in calls}
+    for name, out in got.items():
+        length = DAY_BARS if name == "cusum_test_developing" else n_bars
+        for o in out if isinstance(out, tuple) else (out,):
+            if torch.is_tensor(o) and (o.shape != (length,) or
+                                       float(torch.isfinite(o).double().mean()) < 0.5):
+                fail(f"{name}: not {length} values, or mostly not finite")
+    say(f"features: {len(calls)} functions on {n_bars:,} bars, launches {launches}; "
+        f"every one equal to its CPU run (NaN positions, flags and CSW lags "
+        f"exact, floats within rtol {FEATURE_RTOL}, largest deviation "
+        f"{max(worst.values()):.3g}); the CPU run {cpu_s:.2f} s; peak device "
+        f"memory {peak_gib:.3f} GiB above the bars [{card}]")
+
+    # --- times: the six-feature pass as a stage, each function alone ---
+    def six_ms():
+        a, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        for name in SIX_FEATURES:
+            calls[name]()
+        e.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(e)
+    six_ms()
+    six = [six_ms() for _ in range(5)]
+    each = {name: cuda_ms(f, reps=3) for name, f in calls.items()}
+    say(f"BASELINE config 4's six features on {n_bars:,} bars: median "
+        f"{float(np.median(six)):.3f} ms (min {min(six):.3f}, max {max(six):.3f}, "
+        f"5 runs) [{card}]")
+    say("feature ms (CUDA events, mean of 3): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in each.items()) + f" [{card}]")
+
+    return launches, {"R": kernel_r(card, launches["R"]),
+                      "W": kernel_w(card, b, launches["W"])}
+
+
+def kernel_r(card, launches):
+    """Kernel R alone against its plain version on the card: EWMA's
+    recurrence at 1M points and span 100 (BASELINE.md row 3), ewmst's
+    time-varying decay, y0, a NaN in b, lengths around the 2048-value tile
+    and the month's trade count; within rtol 1e-12 of the terms' magnitude,
+    equal from run to run; timed with its bound."""
+    import torch
+    from finmlkit_tpu_torch.ops import scan
+    from finmlkit_tpu_torch.testing import assert_exact, assert_window_close
+    g = torch.Generator(device="cuda").manual_seed(11)
+    oma = 1.0 - 2.0 / 101.0                             # span 100
+    worst, times = 0.0, {}
+    for n in R_LENGTHS:
+        prices = 107_000.0 * torch.exp(torch.cumsum(
+            torch.randn(n, dtype=torch.float64, device="cuda", generator=g) * 2e-5, 0))
+        dt = torch.rand(n, dtype=torch.float64, device="cuda", generator=g) * 0.14
+        a_var = torch.exp(-dt / 60.0)                 # ewmst: a per step from the gaps
+        nan_b = prices.clone()
+        nan_b[n // 2] = torch.nan
+        cases = {"ewma": (oma, prices, None), "ewmst": (a_var, (1.0 - a_var) * prices, None),
+                 "y0": (13.0 / 14.0, prices / 14.0, prices[0]), "nan": (oma, nan_b, None)}
+        for what, (a, bb, y0) in cases.items():
+            got = scan.linear_recurrence(a, bb, y0=y0)
+            want = scan.linear_recurrence_plain(a, bb, y0=y0)
+            mag = float(torch.nan_to_num(want).abs().max())   # positive terms
+            worst = max(worst, assert_window_close(got, want, mag, 1e-12,
+                                                   f"R {what} n={n}"))
+            assert_exact(scan.linear_recurrence(a, bb, y0=y0), got, f"R {what} run to run")
+            if what == "nan" and not bool(torch.isnan(got[n // 2:]).all() &
+                                          ~torch.isnan(got[:n // 2]).any()):
+                fail(f"R: the NaN at {n // 2} of {n} does not reach exactly the later values")
+        if n in (1_000_000, N_MONTH):
+            for what in ("ewma", "ewmst"):
+                a, bb, _ = cases[what]
+                nb = (16 if what == "ewma" else 24) * n
+                times[f"{what} n={n}"] = (
+                    cuda_ms(lambda: scan.linear_recurrence(a, bb), reps=20),
+                    cuda_ms(lambda: scan.linear_recurrence_plain(a, bb), reps=2),
+                    bound(nb, 2 * n, PEAK_F64_OPS_PER_S))
+        del prices, dt, a_var, nan_b, cases
+    say(f"kernel R == plain within rtol 1e-12 (largest |diff| {worst:.3g}) at n = "
+        + ", ".join(map(str, R_LENGTHS)) + " (constant and time-varying a, y0, a NaN), "
+        "equal run to run; ms (kernel | plain | bound): " + ", ".join(
+            f"{k} {t:.4f} | {p:.3f} | {bd[0]:.4f}" for k, (t, p, bd) in times.items())
+        + f" [{card}]")
+    t, p, bd = times[f"ewmst n={N_MONTH}"]
+    return kernel_entry("R", launches, worst, t, p, bd, None,
+                        times_ms={k: {"kernel": v[0], "plain": v[1], "bound": v[2][0]}
+                                  for k, v in times.items()})
+
+
+def kernel_w(card, bars, launches):
+    """Kernel W alone against its plain version on the card, bit for bit:
+    50,000 log prices at window 500 (BASELINE.md row 5), the month's bars at
+    window 1000, and a tick-grid series with flat runs (ties at 0, where the
+    largest lag must win); timed with its bound."""
+    import torch
+    from finmlkit_tpu_torch.feature.kernels import structural_break as sb
+    from finmlkit_tpu_torch.testing import assert_exact
+    r = np.random.default_rng(12)
+    walk = 100.0 * np.exp(np.cumsum(r.normal(0.0, 1e-3, 50_000)))
+    steps = r.choice([-1, 0, 0, 0, 1], 50_000).astype(np.float64)
+    steps[20_000:21_000] = 0.0
+    cases = {"50,000 log prices, window 500": (torch.from_numpy(walk).cuda(), 500),
+             f"the month's {bars['close'].shape[0]:,} bars, window {CSW_WINDOW}":
+                 (bars["close"], CSW_WINDOW),
+             "flat runs, window 500": (torch.from_numpy(100.0 + 0.5 * np.cumsum(steps)).cuda(), 500)}
+    times = {}
+    for what, (p, w) in cases.items():
+        y = torch.log(p)
+        n = y.shape[0]
+        _, sigma = sb._sigma(y, w)
+        tables = sb._tables(w, y.device)
+        got = sb._sup_stat(y, sigma, w, *tables)
+        for i, (gg, ww) in enumerate(zip(got, sb._sup_stat_plain(y, sigma, w, *tables))):
+            assert_exact(gg, ww, f"W {what} output {i}")
+        t_loc = np.minimum(np.arange(n), w)
+        pairs = float(np.maximum(t_loc - 2, 0).sum())
+        times[what] = (cuda_ms(lambda: sb._sup_stat(y, sigma, w, *tables), reps=10),
+                       cuda_ms(lambda: sb._sup_stat_plain(y, sigma, w, *tables), reps=2),
+                       bound(48 * n + 16 * w, 4 * pairs, PEAK_F64_OPS_PER_S))
+    say("kernel W == plain bit for bit (up, down, critical values) on " + ", ".join(cases)
+        + "; ms (kernel | plain | bound): " + ", ".join(
+            f"{k} {t:.4f} | {p:.3f} | {bd[0]:.4f} ({bd[1]})" for k, (t, p, bd) in times.items())
+        + f" [{card}]")
+    key = next(k for k in times if k.startswith("the month"))
+    t, p, bd = times[key]
+    return kernel_entry("W", launches, 0.0, t, p, bd, None,
+                        times_ms={k: {"kernel": v[0], "plain": v[1], "bound": v[2][0]}
+                                  for k, v in times.items()})
+
+
 def main():
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--profile", action="store_true",
                     help="after phase 6, time the footprint features alone "
@@ -1777,7 +2062,7 @@ def main():
         if s_float is not None:
             kernels["S"].setdefault("float_launches_by_path", {})[path] = s_float
 
-    month = make_month(N_MONTH) if phases & {5, 6, 7, 8} else None
+    month = make_month(N_MONTH) if phases & {5, 6, 7, 8, 9} else None
     if 5 in phases:
         merge("time", *phase_month(card, month))
     if 6 in phases:
@@ -1791,6 +2076,8 @@ def main():
         launches, entries, floor_launches = phase_engines(card, month, need)
         merge("engines", launches, entries)
         merge("floor", floor_launches, entries)
+    if 9 in phases:
+        merge("features", *phase_features(card, month))
     say(f"smoke run: {time.perf_counter() - t_start:.1f} s, the kernels' build "
         f"included")
     if kernels:

@@ -28,7 +28,12 @@ compiled by ``nvcc`` for ``sm_90a`` at first use (``_build.py``) and bound with
   the full planes, every trade's prefixes and in-bar running extrema, as one
   segmented scan over fixed tiles of trades;
 - kernel **P** (``csrc/io_floor.cu``, ``ops.fused_scan.bar_scan_io_floor``):
-  the streaming-floor probes.
+  the streaming-floor probes;
+- kernel **R** (``csrc/recurrence.cu``, ``ops.scan.linear_recurrence``): the
+  float64 linear recurrences ``y_t = a_t y_{t-1} + b_t`` of the feature
+  kernels (EWMA, EWM variances, Wilder's RSI, ATR, ADX);
+- kernel **W** (``csrc/csw.cu``, ``feature.kernels.structural_break``): the
+  sup statistic of the CSW CUSUM structural-break test, a warp per t.
 
 Kernel F's int32 mode (``ops.prefix_scan.fill_last``) serves the radix-select
 median engine (``ops.segment_select``).

@@ -21,6 +21,7 @@ so that repeated runs, and the kernel and plain paths, agree bit for bit.
 import torch
 
 from ..ops.prefix_scan import fast_cumsum_cols
+from ..ops.scan import next_bucket
 from .footprint import footprint_features_from_tensors
 
 __all__ = ["comp_bar_footprints_q", "bar_footprints"]
@@ -88,15 +89,6 @@ def comp_bar_footprints_q(price_ticks, amounts_f32, ci, sides, low_t, high_t,
         cnt[..., 0].contiguous(), cnt[..., 1].contiguous(), imbalance_factor)
 
 
-def _next_bucket(n: int, min_bucket: int) -> int:
-    """``finmlkit_tpu.ops.scan.next_bucket``: the first ``min_bucket * 2^k``
-    at or above ``n``."""
-    b = min_bucket
-    while b < n:
-        b *= 2
-    return b
-
-
 def bar_footprints(ticks, amounts_f32, ci, sides, ohlcv, *, tick_size,
                    price_tick_size=None, imbalance_factor: float = 3.0,
                    cumsum_cols=fast_cumsum_cols):
@@ -127,7 +119,7 @@ def bar_footprints(ticks, amounts_f32, ci, sides, ohlcv, *, tick_size,
         (high_t - low_t + 1).max()]).cpu())
     if t_min < -2**31 or t_max >= 2**31:
         raise ValueError("footprint ticks overflow int32")
-    max_levels = _next_bucket(max(nl_max, 1), 8)
+    max_levels = next_bucket(max(nl_max, 1), 8)
     return comp_bar_footprints_q(
         ticks * ratio, amounts_f32, ci, sides, low_t.to(torch.int32),
         high_t.to(torch.int32), imbalance_factor, max_levels=max_levels,

@@ -55,6 +55,16 @@ to its plain version (the fills bit for bit, the closes exactly). Then one
 ``torch.profiler`` session traces one L1 fill and one K5 fill of each build:
 its kernels and memsets, their device time and count. The last line is one
 JSON object of the times.
+
+``python3 scripts/probe_torch_variants.py RW [W variant names]`` traces
+kernel R's three passes under ``torch.profiler`` (device time, registers and
+estimated occupancy of each) at the month's trade count, with a constant and
+a time-varying decay, and on the month's one-minute bars; then times the
+kernel W builds of ``W_VARIANTS`` named (``csrc/csw.cu`` with edits, built
+alone; "no division" is an ablation whose values differ), in turns, on the
+month's bars at window 1000 and on 50,000 log prices at window 500, each
+checked against the plain statistic. The last line is one JSON object of the
+times.
 """
 import ctypes
 import json
@@ -65,6 +75,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -720,7 +731,113 @@ def probe_fe(specs):
                               for name in builds}}))
 
 
+RW_KERNELS = r"tile_maps_kernel|tile_ends_kernel|scan_tiles_kernel|csw_kernel"
+W_VARIANTS = {
+    "as built": [],
+    # an ablation: the quotient taken as a product (wrong values), to weigh
+    # the float64 division against the rest of the loop
+    "no division": [_sub(r"__ddiv_rn\(fabs\(dyn\), denom\)", "__dmul_rn(fabs(dyn), denom)")],
+}
+
+
+def w_library(out_dir, edits):
+    """Kernel W (``csrc/csw.cu`` with ``edits``) built alone; returns its C
+    entry and ptxas's report."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src = (CSRC / "csw.cu").read_text()
+    for edit in edits:
+        src = edit(src)
+    (out_dir / "csw.cu").write_text(src)
+    log = nvcc(out_dir, out_dir / "lib.so")
+    lib = ctypes.CDLL(str(out_dir / "lib.so"))
+    P, I64 = ctypes.c_void_p, ctypes.c_longlong
+    lib.fmk_csw_sup_stat.argtypes = [P, P, P, P, I64, I64, P, P, P, P, P]
+    return lib.fmk_csw_sup_stat, ptxas_summary(log, RW_KERNELS)
+
+
+def trace_r(card, what, a, b):
+    """One kernel R call's passes under torch.profiler (5 calls traced)."""
+    from torch.profiler import ProfilerActivity, profile
+    from finmlkit_tpu_torch.ops import scan
+    scan.linear_recurrence(a, b)
+    torch.cuda.synchronize()
+    path = OUT / f"r_trace_{re.sub(r'[^a-z0-9]+', '_', what)}.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            scan.linear_recurrence(a, b)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(path))
+    rows = {k: dict(v, ms=v["ms"] / 5, launches=v["launches"] // 5)
+            for k, v in kernel_args(path).items()}
+    call = cs.cuda_ms(lambda: scan.linear_recurrence(a, b), reps=20)
+    cs.say(f"R, {what}: " + ", ".join(
+        f"{k} {v['ms']:.4f} ms ({v.get('registers per thread')} registers, est. "
+        f"occupancy {v.get('est. achieved occupancy %')}%)" for k, v in rows.items())
+        + f"; the call {call:.4f} ms (CUDA events, 20 calls) [{card}]")
+    return dict(rows, call_ms=call)
+
+
+def probe_rw(names):
+    """Kernel R's passes traced at the month's trade count and on the month's
+    bars; kernel W's builds ``names`` timed in turns on the month's bars at
+    window 1000 and on 50,000 log prices at window 500."""
+    from finmlkit_tpu_torch.feature.kernels import structural_break as sb
+    card = cs.phase_env()
+    bars = cs.month_bars(cs.make_month(cs.N_MONTH))
+    nb = bars["close"].shape[0]
+    g = torch.Generator(device="cuda").manual_seed(11)
+    n = cs.N_MONTH
+    b = 107_000.0 * torch.exp(torch.cumsum(
+        torch.randn(n, dtype=torch.float64, device="cuda", generator=g) * 2e-5, 0))
+    a = torch.exp(-torch.rand(n, dtype=torch.float64, device="cuda", generator=g) * 0.14 / 60.0)
+    traced = {f"constant a, n={n}": trace_r(card, f"constant a, n={n}", 1.0 - 2.0 / 101.0, b),
+              f"varying a, n={n}": trace_r(card, f"varying a, n={n}", a, b),
+              f"the month's {nb} bars": trace_r(card, f"the month's {nb} bars",
+                                                1.0 - 2.0 / 21.0, bars["close"])}
+    del a, b
+
+    builds = {name: w_library(OUT / f"w{i}", W_VARIANTS[name]) for i, name in enumerate(names)}
+    for name, (_, regs) in builds.items():
+        cs.say(f"W {name}: " + "; ".join(f"{k} {v}" for k, v in regs))
+    r = np.random.default_rng(12)
+    walk = torch.from_numpy(100.0 * np.exp(np.cumsum(r.normal(0.0, 1e-3, 50_000)))).cuda()
+    shapes = {f"the month's {nb:,} bars, window {cs.CSW_WINDOW}": (bars["close"], cs.CSW_WINDOW),
+              "50,000 log prices, window 500": (walk, 500)}
+    times, exact = {}, {}
+    for shape, (p, w) in shapes.items():
+        y = torch.log(p)
+        _, sigma = sb._sigma(y, w)
+        sqrt_k, crit = sb._tables(w, y.device)
+        want = sb._sup_stat_plain(y, sigma, w, sqrt_k, crit)
+        out = [torch.empty_like(y) for _ in range(4)]
+        for turn in range(4):
+            order = list(builds) if turn % 2 == 0 else list(reversed(builds))
+            for name in order:
+                fn = builds[name][0]
+
+                def run():
+                    rc = fn(y.data_ptr(), sigma.data_ptr(), sqrt_k.data_ptr(), crit.data_ptr(),
+                            y.shape[0], w, *(o.data_ptr() for o in out),
+                            torch.cuda.current_stream().cuda_stream)
+                    if rc != 0:
+                        raise RuntimeError(f"W {name}: CUDA error {rc}")
+                times.setdefault(f"{shape} | {name}", []).append(cs.cuda_ms(run, reps=20))
+                exact[f"{shape} | {name}"] = all(
+                    bool(((o == v) | (torch.isnan(o) & torch.isnan(v))).all())
+                    for o, v in zip(out, want))
+        cs.say(f"W on {shape} (4 turns): " + ", ".join(
+            f"{name} {min(times[f'{shape} | {name}']):.4f}-{max(times[f'{shape} | {name}']):.4f} ms"
+            + ("" if exact[f"{shape} | {name}"] else " (ablation: values differ)")
+            for name in builds) + f" [{card}]")
+    cs.say(json.dumps({"card": card, "r_traced": traced, "w_ms": times, "w_exact": exact}))
+
+
 def main():
+    if len(sys.argv) > 1 and sys.argv[1] == "RW":
+        if not torch.cuda.is_available():
+            cs.fail("no CUDA device")
+        return probe_rw(sys.argv[2].split(",") if len(sys.argv) > 2 else list(W_VARIANTS))
     if len(sys.argv) > 1 and sys.argv[1] == "FE":
         if not torch.cuda.is_available():
             cs.fail("no CUDA device")

@@ -1,4 +1,5 @@
-"""Kernels B, S, C, F, E, H, V and P on the card against their plain versions.
+"""Kernels B, S, C, F, E, H, V, P, R and W on the card against their plain
+versions.
 
 These tests need an NVIDIA GPU and ``nvcc``; elsewhere they skip. The card's
 host has no JAX, so run them there without the suite's conftest:
@@ -13,10 +14,12 @@ from finmlkit_tpu_torch.bar.aggregate_q import bar_trade_size_features
 from finmlkit_tpu_torch.bar.footprint_q import comp_bar_footprints_q
 from finmlkit_tpu_torch.bar.fused import median_engine, median_pairs, planes_products
 from finmlkit_tpu_torch.bar.indexers import dollar_bar_indexer_q
-from finmlkit_tpu_torch.ops import event_scan, fused_scan, prefix_scan, segment_hist
+from finmlkit_tpu_torch.feature.kernels import structural_break
+from finmlkit_tpu_torch.ops import event_scan, fused_scan, prefix_scan, scan, segment_hist
 from finmlkit_tpu_torch.testing import (CUSUM_BAD, TILE_CLOSES, adversarial_trades,
-                                       assert_close, assert_exact, cusum_bad_inputs,
-                                       cusum_recurrence, tile_closes, zeros_and_twos)
+                                       assert_close, assert_exact, assert_window_close,
+                                       cusum_bad_inputs, cusum_recurrence, tile_closes,
+                                       zeros_and_twos)
 
 pytestmark = pytest.mark.cuda
 
@@ -540,3 +543,84 @@ def test_io_floor_matches_plain(cuda, n):
         assert_exact(fused_scan.bar_scan_io_floor_stacked(y),
                      fused_scan.io_floor_plain(x), f"P3 at offset {off}")
     assert fused_scan.IO_FLOOR_LAUNCHES == before + 9
+
+
+# kernel R's tiles hold 2048 values; past 2048 tiles (4,194,304 values) its
+# second pass walks the tile maps in more than one round
+REC_NS = [1, 2, 2047, 2048, 2049, 2048 * 2048 + 1, 1_000_000]
+
+
+def _recurrence_case(kind, n, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    b = torch.rand(n, dtype=torch.float64, device=device, generator=g)
+    y0 = None
+    if kind == "const":
+        a = 0.99
+    elif kind == "y0":
+        a, y0 = 13.0 / 14.0, 5.0
+    elif kind == "varying":                  # ewmst's per-step decay
+        a = torch.exp(-torch.rand(n, dtype=torch.float64, device=device, generator=g))
+    elif kind == "nan":
+        a = torch.rand(n, dtype=torch.float64, device=device, generator=g)
+        b[n // 2] = torch.nan
+    else:                                    # rows, one a a row, one y0 a row
+        b = torch.stack([b, -b, 2 * b])
+        a = torch.tensor([[0.5], [0.9], [0.999]], dtype=torch.float64, device=device)
+        y0 = torch.tensor([1.0, 2.0, -3.0], dtype=torch.float64, device=device)
+    return a, b, y0
+
+
+@pytest.mark.parametrize("n", REC_NS)
+@pytest.mark.parametrize("kind", ["const", "y0", "varying", "nan", "rows"])
+def test_recurrence_matches_plain(cuda, kind, n):
+    """Within rtol 1e-12 of the terms' magnitude, NaN positions equal, and
+    equal from run to run bit for bit."""
+    a, b, y0 = _recurrence_case(kind, n, cuda, n)
+    before = scan.LAUNCHES
+    got = scan.linear_recurrence(a, b, y0=y0)
+    assert scan.LAUNCHES == before + 1
+    want = scan.linear_recurrence_plain(a, b, y0=y0)
+    mag = scan.linear_recurrence_plain(a.abs() if torch.is_tensor(a) else abs(a),
+                                       torch.nan_to_num(b.abs()),
+                                       y0=None if y0 is None else y0.abs()
+                                       if torch.is_tensor(y0) else abs(y0))
+    assert_window_close(got, want, float(mag.max()), 1e-12, kind)
+    for _ in range(3):
+        assert_exact(scan.linear_recurrence(a, b, y0=y0), got, "run to run")
+
+
+CSW_CASES = {"walk": (20_000, 500), "flat": (20_000, 500), "nan": (5_000, 300),
+             "short_window": (3_000, 3)}
+
+
+def _csw_prices(case, n, device):
+    r = np.random.default_rng(5)
+    if case == "flat":                     # a tick grid: ties at 0, sigma = 0
+        steps = r.choice([-1, 0, 0, 0, 1], n).astype(np.float64)
+        steps[1000:1700] = 0.0
+        p = 100.0 + 0.5 * np.cumsum(steps)
+    else:
+        p = 100.0 * np.exp(np.cumsum(r.normal(0.0, 1e-3, n)))
+    if case == "nan":
+        p[2000] = np.nan
+    return torch.from_numpy(p).to(device)
+
+
+@pytest.mark.parametrize("case", list(CSW_CASES))
+def test_csw_matches_plain(cuda, case):
+    """Kernel W and its plain version do the same float operations: up, down
+    and the critical values equal bit for bit."""
+    n, w = CSW_CASES[case]
+    y = torch.log(_csw_prices(case, n, cuda))
+    _, sigma = structural_break._sigma(y, w)
+    tables = structural_break._tables(w, cuda)
+    before = structural_break.LAUNCHES
+    got = structural_break._sup_stat(y, sigma, w, *tables)
+    assert structural_break.LAUNCHES == before + 1
+    want = structural_break._sup_stat_plain(y, sigma, w, *tables)
+    for i, (g, v) in enumerate(zip(got, want)):
+        assert_exact(g, v, f"{case} output {i}")
+    cpu = structural_break.cusum_test_rolling(_csw_prices(case, n, "cpu"), w, 30)
+    card = structural_break.cusum_test_rolling(_csw_prices(case, n, cuda), w, 30)
+    for i, (g, v) in enumerate(zip(card, cpu)):
+        assert_close(g, v, rtol=1e-12, atol=1e-12, what=f"{case} card vs cpu {i}")
