@@ -90,12 +90,29 @@ bars' features. Phases:
    kernel W against its plain version bit for bit (50,000 log prices at
    window 500, the month's bars at 1000, flat runs), each timed with its
    bound; the six-feature pass as one stage, each function's time, peak
-   device memory.
+   device memory;
+10. the feature framework and the volume profile: BASELINE config 4's kit
+   (``FeatureKit``, topo order) on the month's time bars and its planned
+   graph (``fuse.FusedGraph.run_device``), each output equal bit for bit to
+   phase 9's direct call, both timed against the six functions; every
+   transform class once through a kit rebuilt from its JSON config, each
+   output held to the same kit run on the CPU (floats within rtol and atol
+   1e-12, NaN positions, flags and integers exact; TrendSlope and the CSW
+   scores within the conditioning of their closed forms, each one's largest
+   share of its bound printed), each class's time; ``VolumePro`` (600 s window, 27 bins and none) on the
+   dollar bars' footprints, rebuilt as phase 6 builds them: kernel G against
+   its plain version (levels exact, pct within rtol 1e-12) on the whole
+   month or a leading run of bars, its global-scratch grid forced against its
+   shared-memory grid, 20 bars against a numpy emulation, the developing
+   profile over the last day by G's rows mode against plain; G timed with its
+   bound; B, S, C, R, W and G launched on the phase's path; peak device
+   memory.
 
 Run from the repository root: ``python3 chip_smoke.py``; ``--phases 1,2,6``
 runs only the order-flow path, ``--phases 1,2,7`` only the information-driven
 bars, ``--phases 1,2,8`` only the engines, ``--phases 1,2,9`` only the
-features, and ``--profile`` adds, after phase 6, the
+features, ``--phases 1,2,10`` only the framework and the profile, and
+``--profile`` adds, after phase 6, the
 footprint features' own time, a ``torch.profiler`` table of one run of the
 order-flow path and its device idle share. Any failure exits non-zero
 before the last line. The last line is
@@ -141,6 +158,12 @@ FEATURE_RTOL = FEATURE_ATOL = 1e-12
 CSW_WINDOW = 1000            # cusum_test_rolling's default window
 DAY_BARS = 1440              # cusum_test_developing on the last day (O(n^2))
 R_LENGTHS = (1, 2047, 2049, 1_000_000, N_MONTH)   # kernel R: around its tile
+# phase 10: the feature framework and the volume profile
+PROFILE_WINDOW = 600.0       # seconds (tests/features/test_volume_profile.py:100)
+PROFILE_BINS = (27, None)    # VolumePro's default bins, and none
+PROFILE_VA = 68.34           # VolumePro's default value-area share
+PROFILE_PLAIN_S = 60.0       # the plain profile runs on the whole month if it takes less
+PROFILE_SHARED_CAP = 64      # levels: forces kernel G's global-scratch grid
 
 
 # name, source in finmlkit_tpu_torch/csrc and the functions it replaces (the
@@ -174,6 +197,9 @@ KERNELS = {
     "W": ("W csw, the CSW sup statistic, a warp per t (replaces an XLA lax.map, "
           "not a TPU kernel)", "csw.cu",
           "finmlkit_tpu/feature/kernels/structural_break.py:23 and :55"),
+    "G": ("G volume_profile, the rolling and developing value area, a block per "
+          "profile (replaces an XLA lax.map, not a TPU kernel)", "volume_profile.cu",
+          "finmlkit_tpu/feature/kernels/volume.py:191 and :347"),
 }
 
 
@@ -1785,7 +1811,8 @@ def month_bars(month):
     f64 = torch.float64
     b = dict(close=ohlcv["close"], high=ohlcv["high"], low=ohlcv["low"],
              volume=ohlcv["volume"].to(f64), buy=direc["volume_buy"].to(f64),
-             sell=direc["volume_sell"].to(f64), ts=bar_ts)
+             sell=direc["volume_sell"].to(f64), ts=bar_ts, open=ohlcv["open"],
+             vwap=ohlcv["vwap"].to(f64))
     b["ret"] = log_return(b["close"])
     return b
 
@@ -2019,10 +2046,401 @@ def kernel_w(card, bars, launches):
                                   for k, v in times.items()})
 
 
+def config4_kit():
+    """BASELINE config 4's feature kit (bench.py:595-602) and, for each of its
+    outputs, phase 9's direct call of the same function."""
+    from finmlkit_tpu_torch.feature import Feature, FeatureKit
+    from finmlkit_tpu_torch.feature import transforms as T
+    kit = FeatureKit([
+        Feature(T.EWMA(20, "close")),
+        Feature(T.RSIWilder(14, "close")),
+        Feature(T.ATR(14)),
+        Feature(T.Return(1, "close", is_log=True)),
+        Feature(T.RealizedVolatility(30, input_col="close_ret1")),
+        Feature(T.ZScore(50, "close")),
+    ], retain=["close"])
+    direct = {"close_ewma20": "ewma", "close_rsiw14": "rsi_wilder", "atr14": "atr",
+              "close_ret1": "log_return", "close_ret1_rv30": "realized_vol",
+              "close_z50": "comp_zscore"}
+    return kit, direct
+
+
+def all_transforms_kit():
+    """Every transform class once at the JAX package's defaults (or windows a
+    user of 1-minute bars picks), rebuilt from its JSON config."""
+    import datetime
+    from finmlkit_tpu_torch.feature import Feature, FeatureKit
+    from finmlkit_tpu_torch.feature import transforms as T
+    td = datetime.timedelta
+    r1 = "close_ret1"
+    feats = [T.Identity("close"), T.Lag(1, "close"), T.ReturnT(td(minutes=5), True, "close"),
+             T.Return(1, "close", is_log=True), T.ROC(10, "close"), T.PctChange(5, "close"),
+             T.RSIWilder(14, "close"), T.StochK(14), T.EWMST(td(hours=1), r1),
+             T.ZScore(50, "close"), T.BurstRatio(20, "volume"), T.VWAPDistance(20, True),
+             T.TimeCues("close"), T.RealizedVolatility(30, input_col=r1),
+             T.BollingerPercentB(20, 2.0, "close"), T.ParkinsonRange(), T.SMA(20, "close"),
+             T.EWMA(20, "close"), T.FlowAcceleration(20, 5), T.CUSUMTest(), T.ATR(14),
+             T.PriceVolumeCorrelation(), T.VPIN(), T.VarianceRatio14(),
+             T.KurtosisTransform(input_col=r1), T.TrendSlope(), T.ADX(),
+             T.MeanReversionZScore(), T.DailyGap(), T.ORBBreak(), T.BarRate(td(hours=1)),
+             T.CandleShape(), T.HurstExponent(input_col=r1),
+             T.ApproximateEntropy(input_col=r1), T.BarDurationEWMA(), T.BarDuration(),
+             T.BiPowerVariation(input_col=r1), T.DirRunLen(input_col=r1),
+             T.ExternalFunction("torch.log1p", "volume"),
+             T.ExternalFunction("numpy.sqrt", "volume", "volume_sqrt", pass_numpy=True)]
+    kit = FeatureKit([Feature(t) for t in feats], retain=["close"])
+    return FeatureKit.from_dict(json.loads(json.dumps(kit.to_config())))
+
+
+def framework_frame(b):
+    """The time bars as a frame of the feature framework."""
+    return {"open": b["open"], "high": b["high"], "low": b["low"], "close": b["close"],
+            "volume": b["volume"], "vwap": b["vwap"], "volume_buy": b["buy"],
+            "volume_sell": b["sell"], "timestamp": b["ts"]}
+
+
+def hold_transform(name, got, want, close):
+    """A transform's output on the card against the same kit on the CPU:
+    NaN positions, flags and integers exact, floats within rtol and atol
+    1e-12, but for two closed forms whose rounding grows with the series:
+    TrendSlope subtracts window sums of index times log price, ``sum_k_y =
+    s1 - (i - w + 1) s0``, whose terms reach ``n w log(close)``, so a last-bit
+    difference of a log price moves it by rounding units of those terms: its
+    bound is 4 of them, carried through ``degrees(arctan(. / denom))``. The
+    CSW scores divide by sigma_t, whose square is a difference of two prefix
+    sums of squared log returns (``structural_break._sigma``, the JAX
+    package's form), each up to their total C, and the card's prefix sums add
+    in another order: each score's bound adds ``4 eps C / S_t`` of it, S_t its
+    window's sum. Returns the largest absolute deviation and the largest
+    share of its bound that a value's deviation takes."""
+    import torch
+    from finmlkit_tpu_torch.feature.kernels import structural_break as sb
+    from finmlkit_tpu_torch.testing import assert_exact, to_numpy
+    what = f"{name} card vs cpu"
+    if not got.dtype.is_floating_point:
+        assert_exact(got, want, what)
+        return 0.0, 0.0
+    g, v = to_numpy(got).astype(np.float64), to_numpy(want).astype(np.float64)
+    if not np.array_equal(np.isnan(g), np.isnan(v)):
+        raise AssertionError(f"{what}: NaN at different positions")
+    ok = ~np.isnan(v)
+    g, v = g[ok], v[ok]
+    eps = 2.0**-52
+    atol, rtol = FEATURE_ATOL, FEATURE_RTOL
+    if name.startswith("close_trend_slope_"):
+        w = int(name.rsplit("_", 1)[1])
+        terms = close.shape[0] * w * float(torch.log(close).abs().max())
+        atol = 4 * eps * terms / (w * (w * w - 1) / 12.0) * (180.0 / math.pi)
+    elif name.startswith("cumote_") and name.endswith("_score"):
+        w = min(int(name.split("_")[1].lstrip("updown")), close.shape[0])
+        y = torch.log(close)
+        t_loc, sigma = sb._sigma(y, w)
+        total = float(torch.cumsum(torch.diff(y) ** 2, 0)[-1])
+        window = (sigma ** 2 * (t_loc - 1).clamp(min=1)).numpy()[ok]
+        with np.errstate(divide="ignore"):
+            rtol = rtol + 4 * eps * total / window
+    lim = atol + rtol * np.abs(v)
+    d = np.abs(g - v)
+    if (d > lim).any():
+        i = int(np.argmax(d - lim))
+        raise AssertionError(f"{what}: |diff| {d[i]!r} above {lim[i]!r}")
+    if not d.size:
+        return 0.0, 0.0
+    with np.errstate(divide="ignore", invalid="ignore"):
+        share = np.where(d == 0, 0.0, d / lim)
+    return float(d.max()), float(share.max())
+
+
+def profile_numpy(fp, i, start, m, va_pct=PROFILE_VA):
+    """Bar i's rolling profile (no bins) in numpy on the host: its window's
+    float64 grid of m levels, the first maximum, the value-area walk
+    (``finmlkit_tpu/feature/kernels/volume.py:64-114``)."""
+    s = int(start[i])
+    lo = int(fp["low"][s:i + 1].min())
+    g = np.zeros(m)
+    for j in range(s, i + 1):
+        nl, off = int(fp["nl"][j]), int(fp["low"][j]) - lo
+        v = fp["buy"][j, :nl].astype(np.float64) + fp["sell"][j, :nl]
+        g[off:off + nl] += v
+    total = g.sum()
+    p = int(np.argmax(g))
+    cum, up, down, hv, lv = g[p], p + 1, p - 1, p, p
+    while cum < total * (va_pct / 100.0):
+        cu = g[up] + (g[up + 1] if up + 1 < m else 0.0) if up < m else -1.0
+        cd = g[down] + (g[down - 1] if down >= 1 else 0.0) if down >= 0 else -1.0
+        if cu > cd:
+            cum, hv, up = cum + cu, min(up + 1, m - 1), up + 2
+        elif cu < cd:
+            cum, lv, down = cum + cd, max(down - 1, 0), down - 2
+        elif cu == cd and cu != -1.0:
+            cum, hv, lv, up, down = cum + cu + cd, min(up + 1, m - 1), max(down - 1, 0), \
+                up + 2, down - 2
+        else:
+            break
+    return lo + p, lo + hv, lo + lv
+
+
+def phase_framework(card, month, need):
+    """Phase 10: config 4's kit and every transform on the month's time bars,
+    VolumePro on its dollar bars' footprints. Returns the path's launches and
+    the ``kernels`` entries of G and of those of ``need`` that no earlier
+    phase timed."""
+    import torch
+    from finmlkit_tpu_torch import _build
+    from finmlkit_tpu_torch.feature import fuse
+    from finmlkit_tpu_torch.feature.kernels import VolumePro, structural_break, volume
+    from finmlkit_tpu_torch.ops import fused_scan, prefix_scan, scan
+    from finmlkit_tpu_torch.testing import assert_close, assert_exact
+    t_phase = time.perf_counter()
+    b = month_bars(month)
+    frame = framework_frame(b)
+    n_bars = b["close"].shape[0]
+    kit4, direct = config4_kit()
+    kit_all = all_transforms_kit()
+    tr, price, amount = month["tr"], month["price"], month["amount"]
+    thr = float((price * amount).sum()) / DOLLAR_BARS
+    pros = {nb: VolumePro(PROFILE_WINDOW, n_bins=nb, va_pct=PROFILE_VA) for nb in PROFILE_BINS}
+    # the planned graph's device entry (``fuse.FusedGraph.run_device``) on config 4
+    cols = {k: v for k, v in frame.items() if k != "timestamp"}
+    topo = {str(f.name): f for f in kit4.features}
+    graph4 = fuse.build_fused_from_specs([topo[n] for n in kit4.topological_order()], cols,
+                                         frame["timestamp"])
+
+    def path():
+        got4 = kit4.build(frame, order="topo")
+        got4f = kit4.build(frame, order="topo", fuse=True)  # the JAX signature's switch
+        got4g = graph4.run_device(cols, frame["timestamp"])
+        got_all = kit_all.build(frame, order="topo")
+        dollar, _ = run_dollar(tr, thr)
+        fp = {"timestamp": dollar["close_ts"][1:], **dollar["footprints"]}
+        prof = {nb: pro.compute(fp, tr.tick_size) for nb, pro in pros.items()}
+        return got4, got4f, got4g, got_all, dollar, fp, prof
+
+    path()                                   # warm: allocator, tables, the build
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fused_scan.LAUNCHES = prefix_scan.LAUNCHES = prefix_scan.FLOAT_LAUNCHES = 0
+    prefix_scan.COLS_LAUNCHES = scan.LAUNCHES = structural_break.LAUNCHES = 0
+    volume.LAUNCHES = 0
+    got4, got4f, got4g, got_all, dollar, fp, prof = path()   # the path's counted run
+    torch.cuda.synchronize()
+    launches = {"B": fused_scan.LAUNCHES, "S": prefix_scan.LAUNCHES,
+                "S float": prefix_scan.FLOAT_LAUNCHES, "C": prefix_scan.COLS_LAUNCHES,
+                "R": scan.LAUNCHES, "W": structural_break.LAUNCHES, "G": volume.LAUNCHES}
+    peak_gib = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
+    if min(launches[k] for k in ("B", "S", "C", "R", "W", "G")) < 1:
+        fail(f"a kernel of the framework path did not launch: {launches}")
+
+    # --- config 4's kit: each output equal to phase 9's direct call ---
+    calls = feature_calls(b)
+    for name, fn in direct.items():
+        want = calls[fn]()
+        assert_exact(got4[name], want, f"kit {name} vs {fn}")
+        assert_exact(got4f[name], want, f"kit with fuse=True {name} vs {fn}")
+        assert_exact(got4g[name], want, f"planned graph {name} vs {fn}")
+    if set(got4) != {"close", "timestamp", *direct} or list(got4f) != list(got4) \
+            or set(got4g) != set(direct):
+        fail(f"config 4's kit returned the columns {list(got4)}")
+
+    def ms_of(fn):
+        a, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        fn()
+        e.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(e)
+
+    def six():
+        for name in SIX_FEATURES:
+            calls[name]()
+
+    stages = {"kit": lambda: kit4.build(frame, order="topo"),
+              "planned graph": lambda: graph4.run_device(cols, frame["timestamp"]),
+              "six functions": six}
+    times = {k: [] for k in stages}
+    for _ in range(5):
+        for k, fn in stages.items():
+            times[k].append(ms_of(fn))
+    say(f"framework: config 4's kit (topo order) on {n_bars:,} bars == phase 9's direct "
+        f"calls bit for bit, with fuse=True too, and so is its planned graph (run_device); "
+        f"ms, median (min-max) of 5: " + ", ".join(
+            f"{k} {float(np.median(v)):.3f} ({min(v):.3f}-{max(v):.3f})"
+            for k, v in times.items()) + "; the framework's cost (kit - six functions, "
+        f"medians) {float(np.median(times['kit']) - np.median(times['six functions'])):.3f}"
+        f" ms [{card}]")
+
+    # --- every transform on the card against the same kit on the CPU ---
+    frame_cpu = {k: v.cpu() for k, v in frame.items()}
+    t0 = time.perf_counter()
+    want_all = kit_all.build(frame_cpu, order="topo", device="cpu")
+    cpu_s = time.perf_counter() - t0
+    if list(want_all) != list(got_all):
+        fail("the transforms' kit returned other columns on the card than on the CPU")
+    worst, share, problems = {}, {}, []
+    for name, g in got_all.items():
+        if g.shape != (n_bars,):
+            fail(f"{name}: not {n_bars} values")
+        try:
+            worst[name], share[name] = hold_transform(name, g, want_all[name],
+                                                      frame_cpu["close"])
+        except AssertionError as e:     # every transform is held before the phase fails
+            problems.append(str(e))
+    cache = dict(got_all, **frame)
+    each = {}
+    for feat in kit_all.features:
+        each[type(feat.transform).__name__ + ("" if not getattr(
+            feat.transform, "pass_numpy", False) else " (numpy)")] = \
+            cuda_ms(lambda f=feat: f(cache), reps=3)
+    for p in problems:
+        say(f"FAIL: {p}")
+    say(f"framework: every transform class ({len(kit_all.features)} features, "
+        f"{len(got_all)} columns) through a kit rebuilt from JSON vs its CPU run: "
+        f"{len(got_all) - len(problems)} equal (largest deviation "
+        f"{max(worst.values(), default=0.0):.3g}), {len(problems)} not; CPU run "
+        f"{cpu_s:.2f} s [{card}]")
+    say("framework: the two conditioning bounds, largest |diff| and its largest share of "
+        "the bound: " + ", ".join(
+            f"{k} {worst[k]:.3g} ({share[k]:.3g})" for k in worst
+            if k.startswith("close_trend_slope_")
+            or (k.startswith("cumote_") and k.endswith("_score"))) + f" [{card}]")
+    say("transform ms (CUDA events, mean of 3): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in each.items()) + f" [{card}]")
+    del got_all, want_all, cache
+
+    # --- VolumePro: kernel G against its plain version ---
+    ts, low, nl, buy, sell = volume._footprint_tensors(
+        fp["timestamp"], fp["low_level"], fp["n_levels"], fp["buy_volumes"],
+        fp["sell_volumes"], "cuda")
+    n_dollar, L = buy.shape
+    start, first, m = volume._rolling_sizes(ts, low, nl, L, int(PROFILE_WINDOW * 1e9), None)
+    w_bars = int((torch.arange(n_dollar, device="cuda") - start + 1).max())
+    va = PROFILE_VA / 100.0
+    runs, plain_ms, g_ms, scratch_ms, plain_bars = {}, {}, {}, {}, n_dollar
+    for nb in PROFILE_BINS:
+        runs[nb] = volume._rolling(start, first, low, nl, buy, sell, m, nb, va)
+        for i, (x, y) in enumerate(zip(prof[nb][:3], runs[nb][:3])):
+            yp = y.to(torch.float64) * tr.tick_size
+            assert_exact(x, torch.where(yp == 0, torch.nan, yp), f"VolumePro {nb} output {i}")
+        assert_exact(prof[nb][3], runs[nb][3], f"VolumePro {nb} pct")
+    # the plain version on the whole month if it takes under PROFILE_PLAIN_S,
+    # estimated from one chunk of its bars a bins setting
+    k0 = min(n_dollar, max(first + 1, volume._PLAIN_CELLS // m))
+    t0 = time.perf_counter()
+    for nb in PROFILE_BINS:
+        volume.volume_profile_rolling_plain(start[:k0], first, low[:k0], nl[:k0], buy[:k0],
+                                            sell[:k0], m, nb, va)
+    torch.cuda.synchronize()
+    est = (time.perf_counter() - t0) * n_dollar / k0
+    if est > PROFILE_PLAIN_S:
+        plain_bars = max(k0, int(n_dollar * PROFILE_PLAIN_S / 2 / est))
+    pct_err, pct_off = 0.0, 0
+    for nb in PROFILE_BINS:
+        k = plain_bars
+        t0 = time.perf_counter()
+        want = volume.volume_profile_rolling_plain(start[:k], first, low[:k], nl[:k],
+                                                   buy[:k], sell[:k], m, nb, va)
+        torch.cuda.synchronize()
+        plain_ms[nb] = (time.perf_counter() - t0) * 1e3
+        for i in range(3):
+            assert_exact(runs[nb][i][:k], want[i], f"G {nb} bins output {i} vs plain")
+        pct_err = max(pct_err, assert_close(runs[nb][3][:k], want[3], rtol=1e-12,
+                                            what=f"G {nb} bins pct vs plain"))
+        pct_off += int((runs[nb][3][:k] != want[3]).sum())
+        # the global-scratch grid, forced, against the shared-memory grid
+        forced = volume._rolling(start, first, low, nl, buy, sell, m, nb, va,
+                                 shared_cap=PROFILE_SHARED_CAP)
+        for i in range(4):
+            assert_exact(forced[i], runs[nb][i], f"G {nb} bins scratch grid output {i}")
+        g_ms[nb] = cuda_ms(lambda: volume._rolling(start, first, low, nl, buy, sell, m, nb, va))
+        scratch_ms[nb] = cuda_ms(lambda: volume._rolling(start, first, low, nl, buy, sell, m,
+                                                         nb, va, shared_cap=PROFILE_SHARED_CAP))
+    # the outputs are right: 20 bars against numpy, and their order
+    host = {"low": low.cpu().numpy(), "nl": nl.cpu().numpy(), "buy": buy.cpu().numpy(),
+            "sell": sell.cpu().numpy()}
+    start_h = start.cpu().numpy()
+    poc, hva, lva, pct = (x.cpu().numpy() for x in runs[None])
+    for i in np.random.default_rng(10).choice(np.arange(first, n_dollar), 20, replace=False):
+        if profile_numpy(host, int(i), start_h, m) != (poc[i], hva[i], lva[i]):
+            fail(f"G: bar {i}'s profile differs from numpy's")
+    done = np.arange(n_dollar) >= first
+    if not ((lva[done] <= poc[done]) & (poc[done] <= hva[done])).all() or \
+            not ((pct[done] >= 0) & (pct[done] <= 1)).all() or poc[~done].any():
+        fail("G: a POC outside its value area, a share outside [0, 1] or a warm-up value")
+    # bound: each bar's levels read once (float32 pairs), 20 bytes a bar
+    # written; one float64 add a level of each window
+    nl64 = nl.to(torch.int64).clamp(max=L)
+    pre = torch.cat([nl64.new_zeros(1), torch.cumsum(nl64, 0)])
+    idx = torch.arange(n_dollar, device="cuda")
+    adds = float((pre[idx + 1] - pre[start])[first:].sum())
+    g_bound = bound(8 * float(nl64.sum()) + 20 * n_dollar, adds, PEAK_F64_OPS_PER_S)
+
+    # the developing profile over the last day, by G's rows mode
+    day_s = int(torch.searchsorted(ts, ts[-1:] - 86_400 * 10**9)[0])
+    grid, g_lo = volume._developing_grid(low[day_s:], nl[day_s:], buy[day_s:], sell[day_s:])
+    room = int(_build.library().fmk_profile_shared_levels())
+    dev_ms = {}
+    for nb in PROFILE_BINS:
+        got = volume._profile_rows(grid, g_lo, nb, va)
+        want = volume._profile_rows_plain(grid, g_lo, nb, va)
+        forced = volume._profile_rows(grid, g_lo, nb, va, shared_cap=PROFILE_SHARED_CAP)
+        for i in range(3):
+            assert_exact(got[i], want[i], f"developing {nb} bins output {i}")
+            assert_exact(forced[i], got[i], f"developing {nb} bins scratch grid output {i}")
+        pct_err = max(pct_err, assert_close(got[3], want[3], rtol=1e-12,
+                                            what=f"developing {nb} bins pct"))
+        pub = volume.volume_profile_developing(ts, low, nl, buy, sell,
+                                               int(ts[day_s]), int(ts[-1]), n_bins=nb)
+        for i in range(3):
+            assert_exact(pub[i + 1], got[i], f"volume_profile_developing {nb} output {i}")
+        dev_ms[nb] = cuda_ms(lambda: volume._profile_rows(grid, g_lo, nb, va))
+    say(f"VolumePro on {n_dollar:,} dollar bars (window {PROFILE_WINDOW:.0f} s: "
+        f"max_window_bars {w_bars}, max_levels {m}, L {L}, first full window at bar "
+        f"{first}; G's shared grid takes up to {room:,} levels): kernel G == plain "
+        f"(POC, HVA, LVA exact, pct within rtol 1e-12, {pct_off} not bit-equal) on "
+        f"{'the whole month' if plain_bars == n_dollar else f'the first {plain_bars:,} bars'}"
+        f" at bins {PROFILE_BINS}; the global-scratch grid (cap {PROFILE_SHARED_CAP}) == "
+        f"the shared grid; 20 bars == numpy; developing over the last day "
+        f"({grid.shape[0]:,} bars x {grid.shape[1]:,} levels, "
+        f"{'shared' if grid.shape[1] <= room else 'global-scratch'} grid, and the "
+        f"global-scratch grid forced) by G's rows mode == plain [{card}]")
+    say("kernel G ms (CUDA events, mean of 5 | plain, one call on the bars compared | "
+        "bound): " + ", ".join(
+            f"bins {nb}: {g_ms[nb]:.3f} (scratch grid {scratch_ms[nb]:.3f}) | "
+            f"{plain_ms[nb]:.1f} | {g_bound[0]:.4f} ({g_bound[1]})" for nb in PROFILE_BINS)
+        + "; developing rows: " + ", ".join(f"bins {nb} {v:.3f}" for nb, v in dev_ms.items())
+        + f"; adds {adds:.4g} [{card}]")
+    say(f"framework phase: peak device memory {peak_gib:.3f} GiB above its inputs; wall "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    if problems:
+        fail(f"{len(problems)} transform outputs differ from their CPU run")
+
+    entries = {"G": kernel_entry(
+        "G", launches["G"], pct_err, g_ms[PROFILE_BINS[0]], plain_ms[PROFILE_BINS[0]],
+        g_bound, None, plain_bars=plain_bars, n_bars=n_dollar, max_levels=m,
+        times_ms={str(nb): {"kernel": g_ms[nb], "scratch_grid": scratch_ms[nb],
+                            "plain": plain_ms[nb], "developing_rows": dev_ms[nb]}
+                  for nb in PROFILE_BINS})}
+    del runs, grid, host
+    if need & {"B", "S"}:      # no earlier phase timed them: at this path's shapes
+        dollars = (tr.ticks.to(torch.int64) * tr.units) >> 6
+        entries.update(kernels_b_s(card, tr, dollar["ci"], launches, s_inputs=(dollars,)))
+        del dollars
+    if "C" in need:
+        entries["C"] = kernel_c(card, tr, dollar["ci"], dollar["footprints"]["low_level"],
+                                launches)
+    if "R" in need:
+        entries["R"] = kernel_r(card, launches["R"])
+    if "W" in need:
+        entries["W"] = kernel_w(card, b, launches["W"])
+    return launches, entries
+
+
 def main():
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--profile", action="store_true",
                     help="after phase 6, time the footprint features alone "
@@ -2062,7 +2480,7 @@ def main():
         if s_float is not None:
             kernels["S"].setdefault("float_launches_by_path", {})[path] = s_float
 
-    month = make_month(N_MONTH) if phases & {5, 6, 7, 8, 9} else None
+    month = make_month(N_MONTH) if phases & {5, 6, 7, 8, 9, 10} else None
     if 5 in phases:
         merge("time", *phase_month(card, month))
     if 6 in phases:
@@ -2078,6 +2496,9 @@ def main():
         merge("floor", floor_launches, entries)
     if 9 in phases:
         merge("features", *phase_features(card, month))
+    if 10 in phases:
+        need = {"B", "S", "C", "R", "W"} - set(kernels)
+        merge("framework", *phase_framework(card, month, need))
     say(f"smoke run: {time.perf_counter() - t_start:.1f} s, the kernels' build "
         f"included")
     if kernels:

@@ -46,10 +46,16 @@ _SIGNATURES = {
     "fmk_linear_recurrence": [_P, _F64, _I64, ctypes.c_int, _P, _P, _P, _P, _I64,
                               _I64, _P],
     "fmk_csw_sup_stat": [_P, _P, _P, _P, _I64, _I64, _P, _P, _P, _P, _P],
+    "fmk_profile_shared_levels": [],
+    "fmk_volume_profile_rolling": [_P] * 5 + [_I64] * 4 + [ctypes.c_int, _F64, ctypes.c_int,
+                                                          _I64] + [_P] * 6,
+    "fmk_volume_profile_rows": [_P, _I64, _I64, _I64, ctypes.c_int, _F64, ctypes.c_int,
+                                _I64] + [_P] * 6,
 }
 _SIZES = {"fmk_scan_scratch_bytes", "fmk_event_scratch_bytes",
           "fmk_planes_scratch_bytes", "fmk_products_scratch_bytes",
-          "fmk_ffill_scratch_bytes", "fmk_recurrence_scratch_bytes"}
+          "fmk_ffill_scratch_bytes", "fmk_recurrence_scratch_bytes",
+          "fmk_profile_shared_levels"}
 
 _lib = None
 build_seconds = None  # wall time of the nvcc run in this process, if any

@@ -1,8 +1,9 @@
-"""Bar-level features: the array kernels of ``finmlkit_tpu/feature/kernels``.
+"""Bar-level features: the feature framework (``Feature``, ``Compose``,
+``FeatureKit``, the ``transforms`` catalog) and the array ``kernels`` of
+``finmlkit_tpu/feature``, on frames that are dicts of tensors with the bars'
+int64 ns close timestamps under ``"timestamp"`` (as the bar kits return
+them)."""
+from . import kernels, transforms
+from .kit import Compose, Feature, FeatureKit
 
-The feature framework of the JAX package (``Feature``, ``Compose``,
-``FeatureKit``, ``transforms``) is not ported yet; ``kernels`` is.
-"""
-from . import kernels
-
-__all__ = ["kernels"]
+__all__ = ["Feature", "Compose", "FeatureKit", "transforms", "kernels"]

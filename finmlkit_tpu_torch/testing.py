@@ -8,7 +8,8 @@ import torch
 
 __all__ = ["to_numpy", "assert_exact", "assert_close", "assert_window_close",
            "adversarial_trades", "tile_closes", "TILE_CLOSES", "zeros_and_twos",
-           "cusum_recurrence", "CUSUM_BAD", "cusum_bad_inputs"]
+           "cusum_recurrence", "CUSUM_BAD", "cusum_bad_inputs", "PROFILE_CASES",
+           "PROFILE_TS", "PROFILE_WINDOW", "profile_case"]
 
 
 def to_numpy(x) -> np.ndarray:
@@ -224,3 +225,57 @@ def cusum_bad_inputs(name: str, n: int = 20_000, at: int = 5000, seed: int = 7):
     else:
         raise KeyError(name)
     return rets, lam, np.append(ts[:-1] != ts[1:], True), ts
+
+
+PROFILE_CASES = ("random", "tied_maxima", "equal_pairs", "gaps", "no_volume", "one_level",
+                 "clip")
+_PROFILE_BARS, _PROFILE_L = 40, 16
+PROFILE_TS = 1_704_067_200 * 10**9 + np.arange(_PROFILE_BARS, dtype=np.int64) * 60 * 10**9
+PROFILE_WINDOW = 300      # seconds: windows of six one-minute bars
+
+
+def _profile_bars(profile, lows=None, nl=None):
+    prof = np.asarray(profile, np.float32)
+    n, width = _PROFILE_BARS, _PROFILE_L
+    buy = np.zeros((n, width), np.float32)
+    sell = np.zeros((n, width), np.float32)
+    buy[:, :len(prof)] = np.floor(prof / 2)
+    sell[:, :len(prof)] = prof - np.floor(prof / 2)
+    low = np.full(n, 1000, np.int32) if lows is None else np.asarray(lows, np.int32)
+    n_lev = np.full(n, len(prof), np.int32) if nl is None else np.asarray(nl, np.int32)
+    return low, n_lev, buy, sell
+
+
+def profile_case(name: str):
+    """Footprints of 40 one-minute bars (``PROFILE_TS``) of 16 levels with
+    integer float32 volumes that reach the volume profile's edge cases
+    (``PROFILE_CASES``): random; two equal peaks (the first is the POC); a
+    profile symmetric about its POC (both sides move at once); zero-volume
+    levels inside the range; 12 empty bars (one level, no volume: some
+    windows hold no volume); one-level bars; windows wider than the grid
+    (``max_levels`` 12: the clip column). Returns ``(low_level int32, n_levels
+    int32, buy float32 (40, 16), sell, max_levels)``."""
+    r = np.random.default_rng(PROFILE_CASES.index(name))
+    n = _PROFILE_BARS
+    if name in ("random", "no_volume", "clip"):
+        low = (1000 + np.cumsum(r.integers(-3, 4, n))).astype(np.int32)
+        nl = r.integers(1, _PROFILE_L + 1, n).astype(np.int32)
+        buy = r.integers(0, 50, (n, _PROFILE_L)).astype(np.float32)
+        sell = r.integers(0, 50, (n, _PROFILE_L)).astype(np.float32)
+        if name == "no_volume":
+            buy[10:22] = sell[10:22] = 0.0
+            nl[10:22] = 1
+        if name == "clip":
+            low = (1000 + 7 * np.arange(n) % 40).astype(np.int32)
+        return low, nl, buy, sell, 12 if name == "clip" else 64
+    if name == "tied_maxima":
+        return (*_profile_bars([1, 6, 2, 0, 3, 6, 1, 1]), 64)
+    if name == "equal_pairs":
+        return (*_profile_bars([1, 1, 2, 2, 9, 2, 2, 1, 1]), 64)
+    if name == "gaps":
+        low = np.where(np.arange(n) % 3 == 0, 1000, 1004)
+        return (*_profile_bars([5, 0, 0, 0, 2, 0, 0, 7, 0, 0, 1, 4], lows=low), 64)
+    if name == "one_level":
+        low = 1000 + np.cumsum(r.integers(-2, 3, n))
+        return (*_profile_bars([3], lows=low, nl=np.ones(n)), 64)
+    raise KeyError(name)

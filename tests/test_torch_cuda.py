@@ -1,4 +1,4 @@
-"""Kernels B, S, C, F, E, H, V, P, R and W on the card against their plain
+"""Kernels B, S, C, F, E, H, V, P, R, W and G on the card against their plain
 versions.
 
 These tests need an NVIDIA GPU and ``nvcc``; elsewhere they skip. The card's
@@ -14,12 +14,13 @@ from finmlkit_tpu_torch.bar.aggregate_q import bar_trade_size_features
 from finmlkit_tpu_torch.bar.footprint_q import comp_bar_footprints_q
 from finmlkit_tpu_torch.bar.fused import median_engine, median_pairs, planes_products
 from finmlkit_tpu_torch.bar.indexers import dollar_bar_indexer_q
-from finmlkit_tpu_torch.feature.kernels import structural_break
+from finmlkit_tpu_torch.feature.kernels import structural_break, volume
 from finmlkit_tpu_torch.ops import event_scan, fused_scan, prefix_scan, scan, segment_hist
-from finmlkit_tpu_torch.testing import (CUSUM_BAD, TILE_CLOSES, adversarial_trades,
+from finmlkit_tpu_torch.testing import (CUSUM_BAD, PROFILE_CASES, PROFILE_TS,
+                                       PROFILE_WINDOW, TILE_CLOSES, adversarial_trades,
                                        assert_close, assert_exact, assert_window_close,
-                                       cusum_bad_inputs, cusum_recurrence, tile_closes,
-                                       zeros_and_twos)
+                                       cusum_bad_inputs, cusum_recurrence, profile_case,
+                                       tile_closes, zeros_and_twos)
 
 pytestmark = pytest.mark.cuda
 
@@ -624,3 +625,54 @@ def test_csw_matches_plain(cuda, case):
     card = structural_break.cusum_test_rolling(_csw_prices(case, n, cuda), w, 30)
     for i, (g, v) in enumerate(zip(card, cpu)):
         assert_close(g, v, rtol=1e-12, atol=1e-12, what=f"{case} card vs cpu {i}")
+
+
+def _profile_inputs(case, device):
+    """Footprint tensors, window starts, first full window and max_levels of
+    ``testing.profile_case`` or of ``"wide"``: 3,000 bars of up to 512 levels
+    with float volumes, about 20 bars a window."""
+    if case == "wide":
+        r = np.random.default_rng(9)
+        n, width = 3000, 512
+        ts = PROFILE_TS[0] + np.cumsum(r.integers(1, 60, n)) * 10**9
+        low = (100_000 + np.cumsum(r.integers(-40, 41, n))).astype(np.int32)
+        nl = r.integers(1, width + 1, n).astype(np.int32)
+        buy = (r.lognormal(0.0, 1.0, (n, width)) * (r.random((n, width)) < 0.6)).astype(np.float32)
+        sell = (r.lognormal(0.0, 1.0, (n, width)) * (r.random((n, width)) < 0.6)).astype(np.float32)
+        window, m = 600, None
+    else:
+        (low, nl, buy, sell, m), ts, window = profile_case(case), PROFILE_TS, PROFILE_WINDOW
+    t = volume._footprint_tensors(ts, low, nl, buy, sell, device)
+    start, first, m = volume._rolling_sizes(t[0], t[1], t[2], buy.shape[1], window * 10**9, m)
+    return t, start, first, m
+
+
+@pytest.mark.parametrize("path", ["shared", "global"])
+@pytest.mark.parametrize("n_bins", [None, 9, 27])
+@pytest.mark.parametrize("case", PROFILE_CASES + ("wide",))
+def test_volume_profile_matches_plain(cuda, case, n_bins, path):
+    """Kernel G's rolling mode, its grid in shared memory or (forced) in the
+    global scratch, against its plain version: it adds in the same order, so
+    POC, HVA, LVA and pct are equal bit for bit."""
+    (_, low, nl, buy, sell), start, first, m = _profile_inputs(case, cuda)
+    before = volume.LAUNCHES
+    got = volume._rolling(start, first, low, nl, buy, sell, m, n_bins, 0.6834,
+                          shared_cap=0 if path == "global" else None)
+    assert volume.LAUNCHES == before + 1
+    want = volume.volume_profile_rolling_plain(start, first, low, nl, buy, sell, m, n_bins,
+                                               0.6834)
+    for g, w, what in zip(got, want, ("poc", "hva", "lva", "pct")):
+        assert_exact(g, w, f"{case} bins {n_bins} {path} {what}")
+
+
+@pytest.mark.parametrize("path", ["shared", "global"])
+@pytest.mark.parametrize("n_bins", [None, 27])
+def test_volume_profile_rows_match_plain(cuda, n_bins, path):
+    """Kernel G's rows mode on the developing grid of 400 bars."""
+    (_, low, nl, buy, sell), _, _, _ = _profile_inputs("wide", cuda)
+    grid, g_lo = volume._developing_grid(low[:400], nl[:400], buy[:400], sell[:400])
+    got = volume._profile_rows(grid, g_lo, n_bins, 0.6834,
+                               shared_cap=0 if path == "global" else None)
+    want = volume._profile_rows_plain(grid, g_lo, n_bins, 0.6834)
+    for g, w, what in zip(got, want, ("poc", "hva", "lva", "pct")):
+        assert_exact(g, w, f"rows bins {n_bins} {path} {what}")

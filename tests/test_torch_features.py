@@ -212,7 +212,11 @@ def test_burst_ratio_even_window_is_not_torch_median():
 
 
 def test_catalog_matches_jax():
-    assert sorted(pk.__all__) == sorted(jk.__all__)
+    """The JAX package's catalog, and the volume profile, which the JAX
+    package exports from ``kernels.volume`` alone."""
+    profile = {"volume_profile_rolling", "volume_profile_developing", "VolumePro"}
+    assert sorted(pk.__all__) == sorted(set(jk.__all__) | profile)
+    assert all(hasattr(jk.volume, name) for name in profile)
 
 
 def test_zscore_on_a_calm_level_within_its_conditioning():
