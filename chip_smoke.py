@@ -100,13 +100,16 @@ bars' features. Phases:
    1e-12, NaN positions, flags and integers exact; TrendSlope and the CSW
    scores within the conditioning of their closed forms, each one's largest
    share of its bound printed), each class's time; ``VolumePro`` (600 s window, 27 bins and none) on the
-   dollar bars' footprints, rebuilt as phase 6 builds them: kernel G against
-   its plain version (levels exact, pct within rtol 1e-12) on the whole
-   month or a leading run of bars, its global-scratch grid forced against its
-   shared-memory grid, 20 bars against a numpy emulation, the developing
-   profile over the last day by G's rows mode against plain; G timed with its
-   bound; B, S, C, R, W and G launched on the phase's path; peak device
-   memory.
+   dollar bars' footprints, rebuilt as phase 6 builds them: the windows'
+   level spans and the value-area walks' step counts; kernel G against its
+   plain version (levels exact, pct within rtol 1e-12) on the whole month or a
+   leading run of bars, its global-scratch grid forced and its walks a warp
+   each against its shared-memory grid and its walks a thread each, 20 bars
+   against a numpy emulation, the developing profile over the last day by G's
+   rows mode against plain (its walks a thread each too), the adversarial
+   profiles of ``testing`` against plain; G timed with its bound, rolling and
+   rows mode, at 27 bins and none; B, S, C, R, W and G launched on the
+   phase's path; peak device memory.
 
 Run from the repository root: ``python3 chip_smoke.py``; ``--phases 1,2,6``
 runs only the order-flow path, ``--phases 1,2,7`` only the information-driven
@@ -197,8 +200,9 @@ KERNELS = {
     "W": ("W csw, the CSW sup statistic, a warp per t (replaces an XLA lax.map, "
           "not a TPU kernel)", "csw.cu",
           "finmlkit_tpu/feature/kernels/structural_break.py:23 and :55"),
-    "G": ("G volume_profile, the rolling and developing value area, a block per "
-          "profile (replaces an XLA lax.map, not a TPU kernel)", "volume_profile.cu",
+    "G": ("G volume_profile, the rolling and developing value area: a block a profile on "
+          "its span, then the walks a thread or a warp each (replaces an XLA lax.map, not a "
+          "TPU kernel)", "volume_profile.cu",
           "finmlkit_tpu/feature/kernels/volume.py:191 and :347"),
 }
 
@@ -2180,6 +2184,113 @@ def profile_numpy(fp, i, start, m, va_pct=PROFILE_VA):
     return lo + p, lo + hv, lo + lv
 
 
+def window_spans(start, first, low, nl, L, m):
+    """Each full window's level span, ``max_j(low_j + n_levels_j) - min_j
+    low_j`` over its bars, within [1, m]: the levels kernel G works on."""
+    import torch
+    n = low.shape[0]
+    i = torch.arange(first, n, device=low.device)
+    s = start[first:]
+    lo = low[i].long()
+    hi = lo + nl[i].long().clamp(0, L)
+    for d in range(int((i - s).max()) + 1 if n > first else 0):
+        j = torch.where(s + d <= i, s + d, i)
+        lo = torch.minimum(lo, low[j].long())
+        hi = torch.maximum(hi, low[j].long() + nl[j].long().clamp(0, L))
+    return (hi - lo).clamp(1, m)
+
+
+def walk_stats(grid, lo, n_bins, va):
+    """The plain value-area walk (``volume._profile_rows_plain``) on each row
+    of ``grid``, counted: the row's span (one past its last nonzero level,
+    after bucketing), its steps, its steps that move both sides, those at zero
+    pairs, and the levels from LVA to HVA."""
+    import torch
+    from finmlkit_tpu_torch.feature.kernels import volume
+    m = grid.shape[1]
+    vol = volume._bucket_plain(grid, lo, n_bins)[0] if n_bins else grid
+    k = torch.arange(m, device=grid.device)
+    span = torch.where(vol != 0, k + 1, 1).amax(1)
+    total = volume._canonical_sum(vol)
+    pidx = torch.argmax(vol, dim=1)
+
+    def at(i):
+        return vol.gather(1, i.clamp(0, m - 1)[:, None])[:, 0]
+
+    thr = total * va
+    cum = at(pidx)
+    up, down, hv, lv = pidx + 1, pidx - 1, pidx.clone(), pidx.clone()
+    steps, both_n, zero_n = (torch.zeros_like(pidx) for _ in range(3))
+    active = cum < thr
+    while bool(active.any()):
+        cu = torch.where(up < m, at(up) + torch.where(up + 1 < m, at(up + 1), 0.0), -1.0)
+        cd = torch.where(down >= 0, at(down) + torch.where(down - 1 >= 0, at(down - 1), 0.0),
+                         -1.0)
+        go_up, go_down = cu > cd, cu < cd
+        both = (cu == cd) & (cu != -1.0)
+        step = active & (go_up | go_down | both)
+        steps += step
+        both_n += step & both
+        zero_n += step & both & (cu == 0)
+        cum = torch.where(step, cum + torch.where(go_up, cu, torch.where(go_down, cd, cu + cd)),
+                          cum)
+        u, d = step & (go_up | both), step & (go_down | both)
+        hv = torch.where(u, torch.clamp(up + 1, max=m - 1), hv)
+        up = torch.where(u, up + 2, up)
+        lv = torch.where(d, torch.clamp(down - 1, min=0), lv)
+        down = torch.where(d, down - 2, down)
+        active = step & (cum < thr)
+    return {"span": span, "steps": steps, "both": both_n, "zero both": zero_n,
+            "levels crossed": hv - lv}
+
+
+def quantiles(x):
+    """Mean, median, 90th and 99th percentiles and maximum of a tensor."""
+    import torch
+    x = x.to(torch.float64)
+    q = torch.quantile(x, torch.tensor([0.5, 0.9, 0.99], dtype=torch.float64, device=x.device))
+    return {"mean": float(x.mean()), "p50": float(q[0]), "p90": float(q[1]),
+            "p99": float(q[2]), "max": float(x.max())}
+
+
+def check_g_cases(card):
+    """Kernel G against its plain version on the adversarial profiles of
+    ``testing.profile_rows_case`` and ``profile_case``, with bins and without,
+    at va_pct 68.34 and 100, in one launch and split over launches of 4, 8,
+    16, ... levels. Returns the number of runs, each equal bit for bit."""
+    import torch
+    from finmlkit_tpu_torch.feature.kernels import volume
+    from finmlkit_tpu_torch.testing import (PROFILE_CASES, PROFILE_EXTRA_CASES,
+                                           PROFILE_ROW_CASES, PROFILE_TS, PROFILE_WINDOW,
+                                           assert_exact, profile_case, profile_rows_case)
+    runs = 0
+    for nb in (None, 27):
+        for va in (0.6834, 1.0):
+            for split in (None, 4):
+                for name in PROFILE_ROW_CASES:
+                    grid, lo = profile_rows_case(name)
+                    g = torch.from_numpy(grid).cuda()
+                    got = volume._profile_rows(g, lo, nb, va, split=split)
+                    for x, y in zip(got, volume._profile_rows_plain(g, lo, nb, va)):
+                        assert_exact(x, y, f"G rows {name} bins {nb} va {va} split {split}")
+                    runs += 1
+                for name in PROFILE_CASES + PROFILE_EXTRA_CASES:
+                    low, nl, buy, sell, m = profile_case(name)
+                    t = volume._footprint_tensors(PROFILE_TS, low, nl, buy, sell, "cuda")
+                    start, first, m = volume._rolling_sizes(t[0], t[1], t[2], buy.shape[1],
+                                                            PROFILE_WINDOW * 10**9, m)
+                    args = (start, first, *t[1:], m, nb, va)
+                    got = volume._rolling(*args, split=split)
+                    for x, y in zip(got, volume.volume_profile_rolling_plain(*args)):
+                        assert_exact(x, y, f"G rolling {name} bins {nb} va {va} split {split}")
+                    runs += 1
+    torch.cuda.synchronize()
+    say(f"kernel G == plain bit for bit on {runs} runs of the adversarial profiles (pair ties, "
+        f"equal running minima, NaN levels, walks to either end and into the zeros past the "
+        f"span, no volume, one level, the clip column, max_levels above every span) [{card}]")
+    return runs
+
+
 def phase_framework(card, month, need):
     """Phase 10: config 4's kit and every transform on the month's time bars,
     VolumePro on its dollar bars' footprints. Returns the path's launches and
@@ -2317,6 +2428,19 @@ def phase_framework(card, month, need):
     start, first, m = volume._rolling_sizes(ts, low, nl, L, int(PROFILE_WINDOW * 1e9), None)
     w_bars = int((torch.arange(n_dollar, device="cuda") - start + 1).max())
     va = PROFILE_VA / 100.0
+    spans = window_spans(start, first, low, nl, L, m)
+    say(f"G's work: the {n_dollar - first:,} full windows span (levels) {quantiles(spans)}; "
+        f"share at most {volume._SPLIT_LEVELS:,} levels (its first launch) "
+        f"{float((spans <= volume._SPLIT_LEVELS).double().mean()):.4f} [{card}]")
+    pick = torch.from_numpy(np.sort(np.random.default_rng(13).choice(
+        np.arange(first, n_dollar), min(2048, n_dollar - first), replace=False))).cuda()
+    sample, s_lo = volume._window_grid_plain(pick, start, low, nl, buy, sell, m)
+    for nb in PROFILE_BINS:
+        st = {k: quantiles(v) for k, v in walk_stats(sample, s_lo, nb, va).items()}
+        say(f"G's walk on {pick.shape[0]:,} bars drawn with seed 13, bins {nb}: "
+            + "; ".join(f"{k} {v}" for k, v in st.items()) + f" [{card}]")
+    del sample
+    g_cases = check_g_cases(card)
     runs, plain_ms, g_ms, scratch_ms, plain_bars = {}, {}, {}, {}, n_dollar
     for nb in PROFILE_BINS:
         runs[nb] = volume._rolling(start, first, low, nl, buy, sell, m, nb, va)
@@ -2348,11 +2472,14 @@ def phase_framework(card, month, need):
         pct_err = max(pct_err, assert_close(runs[nb][3][:k], want[3], rtol=1e-12,
                                             what=f"G {nb} bins pct vs plain"))
         pct_off += int((runs[nb][3][:k] != want[3]).sum())
-        # the global-scratch grid, forced, against the shared-memory grid
+        # the global-scratch grid, forced, against the shared-memory grid; the
+        # walks a warp each (by default a thread each at this count)
         forced = volume._rolling(start, first, low, nl, buy, sell, m, nb, va,
                                  shared_cap=PROFILE_SHARED_CAP)
+        warped = volume._rolling(start, first, low, nl, buy, sell, m, nb, va, walk_warp=True)
         for i in range(4):
             assert_exact(forced[i], runs[nb][i], f"G {nb} bins scratch grid output {i}")
+            assert_exact(warped[i], runs[nb][i], f"G {nb} bins walks a warp each, output {i}")
         g_ms[nb] = cuda_ms(lambda: volume._rolling(start, first, low, nl, buy, sell, m, nb, va))
         scratch_ms[nb] = cuda_ms(lambda: volume._rolling(start, first, low, nl, buy, sell, m,
                                                          nb, va, shared_cap=PROFILE_SHARED_CAP))
@@ -2382,12 +2509,17 @@ def phase_framework(card, month, need):
     room = int(_build.library().fmk_profile_shared_levels())
     dev_ms = {}
     for nb in PROFILE_BINS:
+        st = {k: quantiles(v) for k, v in walk_stats(grid, g_lo, nb, va).items()}
+        say(f"G's walk on the last day's {grid.shape[0]:,} developing rows, bins {nb}: "
+            + "; ".join(f"{k} {v}" for k, v in st.items()) + f" [{card}]")
         got = volume._profile_rows(grid, g_lo, nb, va)
         want = volume._profile_rows_plain(grid, g_lo, nb, va)
         forced = volume._profile_rows(grid, g_lo, nb, va, shared_cap=PROFILE_SHARED_CAP)
+        threads = volume._profile_rows(grid, g_lo, nb, va, walk_warp=False)
         for i in range(3):
             assert_exact(got[i], want[i], f"developing {nb} bins output {i}")
             assert_exact(forced[i], got[i], f"developing {nb} bins scratch grid output {i}")
+            assert_exact(threads[i], got[i], f"developing {nb} bins walks a thread each {i}")
         pct_err = max(pct_err, assert_close(got[3], want[3], rtol=1e-12,
                                             what=f"developing {nb} bins pct"))
         pub = volume.volume_profile_developing(ts, low, nl, buy, sell,
@@ -2400,17 +2532,21 @@ def phase_framework(card, month, need):
         f"{first}; G's shared grid takes up to {room:,} levels): kernel G == plain "
         f"(POC, HVA, LVA exact, pct within rtol 1e-12, {pct_off} not bit-equal) on "
         f"{'the whole month' if plain_bars == n_dollar else f'the first {plain_bars:,} bars'}"
-        f" at bins {PROFILE_BINS}; the global-scratch grid (cap {PROFILE_SHARED_CAP}) == "
-        f"the shared grid; 20 bars == numpy; developing over the last day "
+        f" at bins {PROFILE_BINS}; the global-scratch grid (cap {PROFILE_SHARED_CAP}) and the "
+        f"walks a warp each == the shared grid and the walks a thread each; 20 bars == numpy; "
+        f"developing over the last day "
         f"({grid.shape[0]:,} bars x {grid.shape[1]:,} levels, "
         f"{'shared' if grid.shape[1] <= room else 'global-scratch'} grid, and the "
-        f"global-scratch grid forced) by G's rows mode == plain [{card}]")
+        f"global-scratch grid forced, and the walks a thread each) by G's rows mode == plain "
+        f"[{card}]")
+    # bound of rows mode: each row's levels read once, 20 bytes a row written
+    rows_bound = bound(8 * grid.numel() + 20 * grid.shape[0], grid.numel(), PEAK_F64_OPS_PER_S)
     say("kernel G ms (CUDA events, mean of 5 | plain, one call on the bars compared | "
         "bound): " + ", ".join(
             f"bins {nb}: {g_ms[nb]:.3f} (scratch grid {scratch_ms[nb]:.3f}) | "
             f"{plain_ms[nb]:.1f} | {g_bound[0]:.4f} ({g_bound[1]})" for nb in PROFILE_BINS)
         + "; developing rows: " + ", ".join(f"bins {nb} {v:.3f}" for nb, v in dev_ms.items())
-        + f"; adds {adds:.4g} [{card}]")
+        + f" | bound {rows_bound[0]:.4f} ({rows_bound[1]}); adds {adds:.4g} [{card}]")
     say(f"framework phase: peak device memory {peak_gib:.3f} GiB above its inputs; wall "
         f"{time.perf_counter() - t_phase:.1f} s [{card}]")
     if problems:
@@ -2419,6 +2555,7 @@ def phase_framework(card, month, need):
     entries = {"G": kernel_entry(
         "G", launches["G"], pct_err, g_ms[PROFILE_BINS[0]], plain_ms[PROFILE_BINS[0]],
         g_bound, None, plain_bars=plain_bars, n_bars=n_dollar, max_levels=m,
+        adversarial_runs=g_cases, developing_rows_bound_ms=rows_bound[0],
         times_ms={str(nb): {"kernel": g_ms[nb], "scratch_grid": scratch_ms[nb],
                             "plain": plain_ms[nb], "developing_rows": dev_ms[nb]}
                   for nb in PROFILE_BINS})}

@@ -47,15 +47,18 @@ _SIGNATURES = {
                               _I64, _P],
     "fmk_csw_sup_stat": [_P, _P, _P, _P, _I64, _I64, _P, _P, _P, _P, _P],
     "fmk_profile_shared_levels": [],
-    "fmk_volume_profile_rolling": [_P] * 5 + [_I64] * 4 + [ctypes.c_int, _F64, ctypes.c_int,
-                                                          _I64] + [_P] * 6,
-    "fmk_volume_profile_rows": [_P, _I64, _I64, _I64, ctypes.c_int, _F64, ctypes.c_int,
-                                _I64] + [_P] * 6,
+    "fmk_volume_profile_rolling": [_P] * 5 + [_I64] * 4 + [ctypes.c_int, _F64, _I64,
+                                                          ctypes.c_int, _I64] + [_P] * 9,
+    "fmk_volume_profile_rows": [_P, _I64, _I64, _I64, ctypes.c_int, _F64, _I64, ctypes.c_int,
+                                _I64] + [_P] * 8,
+    "fmk_profile_walk_bytes": [],
+    "fmk_profile_slots": [_P] * 3 + [_I64] * 4 + [_P] * 2,
+    "fmk_profile_walk": [_P, _P, _I64, _I64, _I64, ctypes.c_int, _P, _P, _P],
 }
 _SIZES = {"fmk_scan_scratch_bytes", "fmk_event_scratch_bytes",
           "fmk_planes_scratch_bytes", "fmk_products_scratch_bytes",
           "fmk_ffill_scratch_bytes", "fmk_recurrence_scratch_bytes",
-          "fmk_profile_shared_levels"}
+          "fmk_profile_shared_levels", "fmk_profile_walk_bytes"}
 
 _lib = None
 build_seconds = None  # wall time of the nvcc run in this process, if any

@@ -7,11 +7,12 @@ works on the dense footprints of ``bar/footprint_q.py`` (``low_level``,
 each row of a given grid) it sums the footprints of the bar's trailing time
 window onto one level grid of ``max_levels`` float64 volumes, may bucket that
 grid into odd-width bins, and walks the value area out from the point of
-control. Kernel G (``csrc/volume_profile.cu``) does all of it a block per
-profile; :func:`volume_profile_rolling_plain` and :func:`_profile_rows_plain`
-are its plain versions, batched PyTorch over the bars of a call, with the
-value-area walk as a masked step over every bar until all are done. Both add
-in the same order, so they agree bit for bit.
+control. Kernel G (``csrc/volume_profile.cu``) forms each profile a block on
+its window's own level span and walks the value areas apart, a thread or a
+warp a profile; :func:`volume_profile_rolling_plain` and
+:func:`_profile_rows_plain` are its plain versions, batched PyTorch over the
+bars of a call, with the value-area walk as a masked step over every bar until
+all are done. Both add in the same order, so they agree bit for bit.
 
 The semantics are the JAX package's, quirks included: bars before the first
 full window are 0 (``VolumePro.compute`` turns them, and a real POC at level
@@ -34,6 +35,9 @@ LAUNCHES = 0  # kernel G launches in this process
 
 _THREADS = 256               # kernel G's block: the partial sums' stride
 _SCRATCH_BLOCKS_PER_SM = 4   # blocks of the global-grid path a streaming multiprocessor
+_LISTED_BLOCKS_PER_SM = 8    # blocks of a launch over a list of profiles, a multiprocessor
+_SPLIT_LEVELS = 6144         # kernel G's first rolling launch: spans up to this many levels
+_WARP_WALKS_PER_SM = 64      # fewer profiles than this a multiprocessor: a warp walks each
 _PLAIN_CELLS = 1 << 26       # the plain version's (bars, max_levels) grid per chunk
 _I32_MIN, _I32_MAX = -2**31, 2**31 - 1
 
@@ -223,64 +227,120 @@ def volume_profile_rolling_plain(start, first: int, low, nlev, buy, sell, max_le
     return poc, hva, lva, pct
 
 
-def _launch(lib, mode: str, args, rows: int, m: int, dev, shared_cap):
-    """One kernel G launch over ``rows`` profiles of ``m`` levels; returns
-    ``(poc, hva, lva, pct)`` of the launch's outputs (zeros where it writes
-    nothing). ``shared_cap`` caps the shared-memory grid (None: the device's
-    room), so that a caller can force the global-scratch path."""
+def _launch(lib, mode: str, args, first: int, n_out: int, m: int, dev, shared_cap, split,
+            slots=None, walk_warp=None):
+    """Kernel G over the profiles ``[first, n_out)`` of ``m`` levels (``args``
+    the mode's leading C arguments); returns ``(poc, hva, lva, pct)``, zeros
+    below ``first``. Kernel A forms each profile and leaves its pair volumes
+    in a pool (profile o at the exclusive prefix sum of ``slots`` when given,
+    else at ``o * (m // 2 + 1)``) and its walk record; kernel B walks every
+    profile, a thread each, or a warp each where the profiles are fewer than
+    ``_WARP_WALKS_PER_SM`` a multiprocessor (``walk_warp`` forces either).
+    With ``split`` levels below ``m``, kernel A runs from small shared grids to
+    the full one: the first launch takes the profiles whose span fits
+    ``split`` levels (more blocks a multiprocessor) and lists the others for
+    the next, whose grid is twice as large, and so on; the last takes what is
+    left with the full grid. ``shared_cap`` caps every shared-memory grid
+    (None: the device's room), so that a caller can force the global-scratch
+    path."""
     global LAUNCHES
     if m >= 2**31:
         raise ValueError(f"max_levels {m} too large for kernel G")
+    outs = [torch.zeros(n_out, dtype=torch.int32, device=dev) for _ in range(3)]
+    outs.append(torch.zeros(n_out, dtype=torch.float64, device=dev))
+    rows = n_out - first
+    if rows <= 0:
+        return tuple(outs)
     room = int(lib.fmk_profile_shared_levels())
-    shared = m <= (room if shared_cap is None else min(room, int(shared_cap)))
-    if shared:
-        blocks = min(rows, 1 << 20)
+    if shared_cap is not None:
+        room = min(room, int(shared_cap))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    fn = getattr(lib, f"fmk_volume_profile_{mode}")
+    caps, cap = [], int(split or 0)
+    while 0 < cap < m and cap <= room:
+        caps.append(cap)
+        cap *= 2
+    walks = torch.empty(n_out * int(lib.fmk_profile_walk_bytes()), dtype=torch.uint8, device=dev)
+    if slots is None:
+        pool = torch.empty(n_out * (m // 2 + 1), dtype=torch.float64, device=dev)
+        tail = (pool.data_ptr(), walks.data_ptr())
     else:
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        blocks = min(rows, _SCRATCH_BLOCKS_PER_SM * sms)
-    scratch = None if shared else torch.empty(max(blocks, 1) * m, dtype=torch.float64,
-                                              device=dev)
-    outs = args[-4:]
+        ends = torch.cumsum(slots, 0)
+        offsets = ends - slots
+        pool = torch.empty(max(int(ends[-1]), 1), dtype=torch.float64, device=dev)
+        tail = (pool.data_ptr(), offsets.data_ptr(), walks.data_ptr())
+    poc, hva, lva, pct = outs
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        fn = getattr(lib, f"fmk_volume_profile_{mode}")
-        rc = fn(*args[:-4], int(shared), blocks,
-                None if scratch is None else scratch.data_ptr(),
-                *(o.data_ptr() for o in outs), stream)
-    _build.check(rc, f"kernel G ({mode})")
-    LAUNCHES += 1
-    return outs
+        listed = None
+        for cap in caps:
+            defer = torch.zeros(rows + 1, dtype=torch.int64, device=dev)
+            blocks = min(rows, 1 << 20) if listed is None else min(rows, _LISTED_BLOCKS_PER_SM * sms)
+            rc = fn(*args, cap, 1, blocks, None, None if listed is None else listed.data_ptr(),
+                    defer.data_ptr(), *tail, poc.data_ptr(), pct.data_ptr(), stream)
+            _build.check(rc, f"kernel G ({mode}, spans up to {cap} levels)")
+            LAUNCHES += 1
+            listed = defer
+        shared = m <= room
+        if shared and listed is None:
+            blocks = min(rows, 1 << 20)
+        else:
+            per_sm = _LISTED_BLOCKS_PER_SM if shared else _SCRATCH_BLOCKS_PER_SM
+            blocks = min(rows, per_sm * sms)
+        scratch = None if shared else torch.empty(max(blocks, 1) * m, dtype=torch.float64,
+                                                  device=dev)
+        rc = fn(*args, m, int(shared), blocks, None if scratch is None else scratch.data_ptr(),
+                None if listed is None else listed.data_ptr(), None, *tail, poc.data_ptr(),
+                pct.data_ptr(), stream)
+        _build.check(rc, f"kernel G ({mode})")
+        LAUNCHES += 1
+        warp = rows < _WARP_WALKS_PER_SM * sms if walk_warp is None else bool(walk_warp)
+        rc = lib.fmk_profile_walk(walks.data_ptr(), pool.data_ptr(), first, n_out, m, int(warp),
+                                  hva.data_ptr(), lva.data_ptr(), stream)
+        _build.check(rc, f"kernel G ({mode}, the walks)")
+        LAUNCHES += 1
+    return tuple(outs)
 
 
 def _rolling(start, first: int, low, nlev, buy, sell, max_levels: int, n_bins,
-             va_frac: float, shared_cap=None):
+             va_frac: float, shared_cap=None, split=_SPLIT_LEVELS, lib=None, walk_warp=None):
     """The rolling profile of bars ``[first, n)``, bar i's window ``[start[i],
     i]``: kernel G on CUDA tensors, :func:`volume_profile_rolling_plain` on
     CPU tensors. ``low``, ``nlev`` int32, ``buy``, ``sell`` float32 ``(n, L)``,
-    ``start`` int64. Bars before ``first`` are 0."""
+    ``start`` int64. Bars before ``first`` are 0. ``shared_cap``, ``split``
+    and ``walk_warp`` as in :func:`_launch`; ``lib`` another build of the
+    kernels (the package's by default)."""
+    global LAUNCHES
     dev = buy.device
     if dev.type == "cpu":
         return volume_profile_rolling_plain(start, first, low, nlev, buy, sell, max_levels,
                                             n_bins, va_frac)
     if dev.type != "cuda":
         raise ValueError(f"the volume profile runs on cpu or cuda, not {dev}")
+    lib = lib or _build.library()
     n, L = buy.shape
     start = start.contiguous()
-    outs = [torch.zeros(n, dtype=torch.int32, device=dev) for _ in range(3)]
-    outs.append(torch.zeros(n, dtype=torch.float64, device=dev))
-    if first >= n:
-        return tuple(outs)
+    slots = torch.empty(n, dtype=torch.int64, device=dev)
+    if first < n:
+        with torch.cuda.device(dev):
+            rc = lib.fmk_profile_slots(start.data_ptr(), low.data_ptr(), nlev.data_ptr(), L,
+                                       first, n, max_levels, slots.data_ptr(),
+                                       torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(rc, "kernel G (the pool's slots)")
+        LAUNCHES += 1
     args = (start.data_ptr(), low.data_ptr(), nlev.data_ptr(), buy.data_ptr(),
-            sell.data_ptr(), L, first, n, max_levels, int(n_bins or 0), float(va_frac),
-            *outs)
-    return tuple(_launch(_build.library(), "rolling", args, n - first, max_levels, dev,
-                         shared_cap))
+            sell.data_ptr(), L, first, n, max_levels, int(n_bins or 0), float(va_frac))
+    return _launch(lib, "rolling", args, first, n, max_levels, dev, shared_cap, split,
+                   slots=slots, walk_warp=walk_warp)
 
 
-def _profile_rows(grid, lo: int, n_bins, va_frac: float, shared_cap=None):
+def _profile_rows(grid, lo: int, n_bins, va_frac: float, shared_cap=None, split=None,
+                  lib=None, walk_warp=None):
     """The profile of each row of ``grid`` (float64 ``(rows, M)``, level k at
     ``lo + k``): kernel G's rows mode on a CUDA tensor, :func:`_profile_rows_plain`
-    on a CPU tensor. Returns ``(poc, hva, lva)`` int32 and ``pct``."""
+    on a CPU tensor. Returns ``(poc, hva, lva)`` int32 and ``pct``. A
+    developing profile's rows span most of their grid, so ``split`` is off by
+    default."""
     dev = grid.device
     if dev.type == "cpu":
         return _profile_rows_plain(grid, lo, n_bins, va_frac)
@@ -288,12 +348,9 @@ def _profile_rows(grid, lo: int, n_bins, va_frac: float, shared_cap=None):
         raise ValueError(f"the volume profile runs on cpu or cuda, not {dev}")
     grid = grid.to(torch.float64).contiguous()
     rows, m = grid.shape
-    outs = [torch.zeros(rows, dtype=torch.int32, device=dev) for _ in range(3)]
-    outs.append(torch.zeros(rows, dtype=torch.float64, device=dev))
-    if rows == 0:
-        return tuple(outs)
-    args = (grid.data_ptr(), int(lo), rows, m, int(n_bins or 0), float(va_frac), *outs)
-    return tuple(_launch(_build.library(), "rows", args, rows, m, dev, shared_cap))
+    args = (grid.data_ptr(), int(lo), rows, m, int(n_bins or 0), float(va_frac))
+    return _launch(lib or _build.library(), "rows", args, 0, rows, m, dev, shared_cap, split,
+                   walk_warp=walk_warp)
 
 
 def _footprint_tensors(ts, low_level, n_levels, buy_dense, sell_dense, device):

@@ -9,7 +9,8 @@ import torch
 __all__ = ["to_numpy", "assert_exact", "assert_close", "assert_window_close",
            "adversarial_trades", "tile_closes", "TILE_CLOSES", "zeros_and_twos",
            "cusum_recurrence", "CUSUM_BAD", "cusum_bad_inputs", "PROFILE_CASES",
-           "PROFILE_TS", "PROFILE_WINDOW", "profile_case"]
+           "PROFILE_TS", "PROFILE_WINDOW", "profile_case", "PROFILE_EXTRA_CASES",
+           "PROFILE_ROW_CASES", "profile_rows_case"]
 
 
 def to_numpy(x) -> np.ndarray:
@@ -229,6 +230,7 @@ def cusum_bad_inputs(name: str, n: int = 20_000, at: int = 5000, seed: int = 7):
 
 PROFILE_CASES = ("random", "tied_maxima", "equal_pairs", "gaps", "no_volume", "one_level",
                  "clip")
+PROFILE_EXTRA_CASES = ("wide", "nan")   # max_levels above every span; a NaN volume
 _PROFILE_BARS, _PROFILE_L = 40, 16
 PROFILE_TS = 1_704_067_200 * 10**9 + np.arange(_PROFILE_BARS, dtype=np.int64) * 60 * 10**9
 PROFILE_WINDOW = 300      # seconds: windows of six one-minute bars
@@ -253,8 +255,18 @@ def profile_case(name: str):
     profile symmetric about its POC (both sides move at once); zero-volume
     levels inside the range; 12 empty bars (one level, no volume: some
     windows hold no volume); one-level bars; windows wider than the grid
-    (``max_levels`` 12: the clip column). Returns ``(low_level int32, n_levels
-    int32, buy float32 (40, 16), sell, max_levels)``."""
+    (``max_levels`` 12: the clip column); of ``PROFILE_EXTRA_CASES``, the
+    random bars with ``max_levels`` 200, above every window's span, or with a
+    NaN volume in bar 20. Returns ``(low_level int32, n_levels int32, buy
+    float32 (40, 16), sell, max_levels)``."""
+    if name == "wide":
+        low, nl, buy, sell, _ = profile_case("random")
+        return low, nl, buy, sell, 200
+    if name == "nan":
+        low, nl, buy, sell, m = profile_case("random")
+        buy = buy.copy()
+        buy[20, min(3, int(nl[20]) - 1)] = np.nan
+        return low, nl, buy, sell, m
     r = np.random.default_rng(PROFILE_CASES.index(name))
     n = _PROFILE_BARS
     if name in ("random", "no_volume", "clip"):
@@ -278,4 +290,56 @@ def profile_case(name: str):
     if name == "one_level":
         low = 1000 + np.cumsum(r.integers(-2, 3, n))
         return (*_profile_bars([3], lows=low, nl=np.ones(n)), 64)
+    raise KeyError(name)
+
+
+PROFILE_ROW_CASES = ("pair_ties", "equal_minima", "small_integers", "nan", "reach_ends",
+                     "zero_tail", "all_zero", "one_level", "negative")
+
+
+def _padded(rows, m):
+    out = np.zeros((len(rows), m))
+    for i, r in enumerate(rows):
+        out[i, :len(r)] = r
+    return out
+
+
+def profile_rows_case(name: str):
+    """``(grid float64 (rows, M), lo)`` of developing-profile rows that reach
+    the value-area walk's edge cases (``PROFILE_ROW_CASES``): pairs tied at
+    every step and at zero pairs; equal running minima of the two sides' pairs
+    with unequal raw pairs; values 0-3 everywhere with labels that wrap past
+    int32; a NaN level above, below and at the POC; volume at both ends; walks
+    into the zeros past the span (three rows whose sum in the walk's order
+    ends below their total); no volume (+0.0 and -0.0); one level; every level
+    below the span negative."""
+    r = np.random.default_rng(len(name))
+    if name == "pair_ties":          # both sides tie at every step, at zero pairs too
+        return _padded([[1] * 6 + [9] + [1] * 6, [0, 0, 2, 2, 0, 0, 9, 0, 0, 2, 2, 0, 0],
+                        [3, 3, 3, 3, 3, 3, 3, 3]], 24), 1000
+    if name == "equal_minima":       # equal running minima, unequal raw pairs
+        return _padded([[3, 3, 2, 1, 2, 2, 20, 1, 2, 2, 3, 1, 1],
+                        [1, 0, 2, 3, 3, 2, 0, 1, 1, 2, 30, 2, 2, 1, 1, 1, 1, 0, 5, 1, 1]], 40), -7
+    if name == "small_integers":     # values 0-3: ties and zero pairs everywhere
+        rows = [r.integers(0, 4, r.integers(1, 48)) for _ in range(24)]
+        return _padded(rows, 48), 2**31 - 30          # labels wrap past int32
+    if name == "nan":                # a NaN level above, below and at the POC
+        rows = [[1, 2, 3, 9, 4, np.nan, 2, 1], [1, np.nan, 3, 9, 4, 2, 2, 1],
+                [1, 2, np.nan, 3, 1], [np.nan, 0, 0, 1]]
+        return _padded(rows, 16), 50
+    if name == "reach_ends":         # volume at both ends of the grid
+        return _padded([r.integers(1, 9, 20), np.r_[5, np.zeros(18), 5],
+                        np.r_[9, r.integers(0, 3, 19)], np.r_[r.integers(0, 3, 19), 9]], 20), 0
+    if name == "zero_tail":          # the walk may run into the zeros past the span; the
+        # last three rows sum, in the walk's order, to below their total, so at
+        # va_pct 100 their walks run to the grid's end
+        return _padded([[1, 2, 1, 3, 2, 1, 2, 9, 4, 1], [9, 1, 1], [1, 1, 1, 1, 1, 1, 1, 9],
+                        [0, 0, 0, 5, 0, 1], [1.5, 1.8, 0.1], [1.3, 0.3, 1.0, 1.9, 0.1, 2.6],
+                        [0.1, 0.2, 3.0, 2.6]], 64), 100
+    if name == "all_zero":           # no volume, +0.0 and -0.0
+        return np.vstack([np.zeros(12), np.full(12, -0.0), _padded([[-0.0, 0.0, -0.0]], 12)[0]]), 3
+    if name == "one_level":          # one level of volume, at either end or inside
+        return _padded([[7], [0, 0, 0, 7], np.r_[np.zeros(15), 7]], 16), 10
+    if name == "negative":           # every level below the span negative: the POC is past it
+        return _padded([[-1, -2, -3, -1], [-2], [-1, -0.0, -4]], 10), 0
     raise KeyError(name)

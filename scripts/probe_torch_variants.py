@@ -65,6 +65,24 @@ alone; "no division" is an ablation whose values differ), in turns, on the
 month's bars at window 1000 and on 50,000 log prices at window 500, each
 checked against the plain statistic. The last line is one JSON object of the
 times.
+
+``python3 scripts/probe_torch_variants.py G [names]`` probes kernel G
+(``csrc/volume_profile.cu``) on ``chip_smoke.py`` phase 10's inputs: the
+month's dollar bars' footprints with VolumePro's 600 s window, and the last
+day's developing grid. It prints the windows' level spans (percentiles of
+``max_j(low_j + n_levels_j) - min_j low_j``, clipped to ``max_levels``) and
+the rows' spans, and the value-area walk's step counts (all steps, steps that
+move both sides, both-steps at zero pairs, levels crossed) on 2,048 bars drawn
+with a seed and on every row, without bins and at 27 bins. Then each build
+named, "as built" and each variant of ``G_VARIANTS`` (edits of a source; some
+are ablations whose outputs are wrong), or ``name=dir`` for another
+checkout's ``volume_profile.cu`` (a ``git archive`` of the parent commit
+unpacked under ``build/``; a name of ``G_VARIANTS`` before ``=`` applies that
+variant's edits to it), is built by its own ``nvcc``, held to the plain version
+on the first 2,048 bars and to the first build on every bar, timed in four
+turns (rolling at 27 bins and without, rows mode at both) and traced once under
+``torch.profiler`` (registers, blocks an SM, estimated occupancy). The last
+line is one JSON object of the times.
 """
 import ctypes
 import json
@@ -833,7 +851,253 @@ def probe_rw(names):
     cs.say(json.dumps({"card": card, "r_traced": traced, "w_ms": times, "w_exact": exact}))
 
 
+G_KERNELS = r"profile_kernel\w*"
+# ablations (outputs wrong): the package's kernel G cut after a step ...
+G_FILL = _sub(r"  Labels lab\{false, lo, 0, 0, 1, 0\};\n  if \(a\.n_bins > 0\) \{",
+              "  Labels lab{false, lo, 0, 0, 1, 0};\n  if (a.va_frac > -1.0) return;\n"
+              "  if (a.n_bins > 0) {")
+G_BINS = _sub(r"  // ablation anchor: the reductions\n",
+              "  if (a.va_frac > -1.0) return;\n")
+G_WALK = _sub(r"  const Walk w = walks\[o\];  // ablation anchor: the walk\n",
+              "  const Walk w = walks[o];\n"
+              "  if (w.thr > -1e308) {\n    hva[o] = lva[o] = w.lab.at(w.pidx);\n    return;\n  }\n")
+# ... and the same cuts of the earlier kernel G (a block a profile over all its levels)
+G_PARENT_FILL = _sub(r"  Labels lab\{false, lo, 0, 0, 1, 0\};\n  if \(a\.n_bins > 0\) \{",
+                     "  Labels lab{false, lo, 0, 0, 1, 0};\n  if (a.va_frac > -1.0) return;\n"
+                     "  if (a.n_bins > 0) {")
+G_PARENT_BINS = _sub(r"  // total, and the POC \(first of equal maxima\)\n",
+                     "  if (a.va_frac > -1.0) return;\n")
+G_PARENT_WALK = _sub(r"    while \(cum < thr\) \{", "    while (cum < thr && a.va_frac < -1.0) {")
+G_BLOCKS = r"constexpr int kBlocksPerSM = 6;"
+G_VARIANTS = {
+    "as built": [],
+    "walk without prefetch": [_sub(r"if \(k \+ kAhead >= upf && upf < nu\)", "if (false)"),
+                              _sub(r"if \(k \+ kAhead >= dpf && dpf < nd\)", "if (false)")],
+    "walk prefetching 16 ahead": [_sub(r"constexpr int kAhead = 32;", "constexpr int kAhead = 16;")],
+    "walk prefetching 64 ahead": [_sub(r"constexpr int kAhead = 32;", "constexpr int kAhead = 64;")],
+    "walk prefetching into L2": [_sub(r"prefetch\.global\.L1", "prefetch.global.L2")],
+    "registers for 4 blocks an SM": [_sub(G_BLOCKS, "constexpr int kBlocksPerSM = 4;")],
+    "registers for 5 blocks an SM": [_sub(G_BLOCKS, "constexpr int kBlocksPerSM = 5;")],
+    "fill alone": [G_FILL, G_WALK],    # no record is written: kernel B must not walk
+    "fill alone on buy only": [G_FILL, G_WALK, _sub(
+        r"g\[off \+ c\] = g\[off \+ c\] \+ \(static_cast<double>\(b\[c\]\) \+ static_cast<double>\(q\[c\]\)\);",
+        "g[off + c] = g[off + c] + static_cast<double>(b[c]);")],
+    "fill alone without loads": [G_FILL, G_WALK, _sub(
+        r"g\[off \+ c\] = g\[off \+ c\] \+ \(static_cast<double>\(b\[c\]\) \+ static_cast<double>\(q\[c\]\)\);",
+        "g[off + c] = g[off + c] + 1.0;")],
+    "fill and bins": [G_BINS, G_WALK],
+    "without the walk": [G_WALK],
+    "parent fill alone": [G_PARENT_FILL],
+    "parent fill and bins": [G_PARENT_BINS],
+    "parent without the walk": [G_PARENT_WALK],
+}
+G_SAMPLE = 2048     # bars of the walk's statistics, and of the check against plain
+
+
+def g_library(src_dir, out_dir, edits):
+    """Kernel G from ``src_dir`` (with ``edits``) built alone; returns
+    ``(rolling, rows, ptxas report)``, each call as ``volume._rolling`` and
+    ``volume._profile_rows`` take it. A source without a walk kernel (the
+    earlier kernel G, a block a profile over all its levels) is launched as
+    its own wrapper launched it."""
+    from finmlkit_tpu_torch.feature.kernels import volume
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src = (Path(src_dir) / "volume_profile.cu").read_text()
+    for edit in edits:
+        src = edit(src)
+    (out_dir / "volume_profile.cu").write_text(src)
+    log = nvcc(out_dir, out_dir / "lib.so")
+    lib = ctypes.CDLL(str(out_dir / "lib.so"))
+    lib.fmk_profile_shared_levels.argtypes = []
+    lib.fmk_profile_shared_levels.restype = ctypes.c_longlong
+    listed = "fmk_profile_walk" in src
+    P, I64, I32, F64 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_double
+    if listed:   # the package's signatures
+        for name, types in _build._SIGNATURES.items():
+            if "profile" in name:
+                getattr(lib, name).argtypes = types
+                getattr(lib, name).restype = I64 if name in _build._SIZES else I32
+    else:
+        lib.fmk_volume_profile_rolling.argtypes = [P] * 5 + [I64] * 4 + [I32, F64, I32, I64] \
+            + [P] * 6
+        lib.fmk_volume_profile_rows.argtypes = [P, I64, I64, I64, I32, F64, I32, I64] + [P] * 6
+    if listed:
+        def rolling(*args):
+            return volume._rolling(*args, lib=lib)
+
+        def rows(grid, lo, nb, va):
+            return volume._profile_rows(grid, lo, nb, va, lib=lib)
+        return rolling, rows, ptxas_summary(log, G_KERNELS)
+
+    def launch(mode, args, n_out, m):
+        outs = [torch.zeros(n_out, dtype=torch.int32, device="cuda") for _ in range(3)]
+        outs.append(torch.zeros(n_out, dtype=torch.float64, device="cuda"))
+        rows_ = args[2] if mode == "rows" else args[7] - args[6]
+        shared = m <= lib.fmk_profile_shared_levels()
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        blocks = min(rows_, 1 << 20) if shared else min(rows_, 4 * sms)
+        scratch = None if shared else torch.empty(blocks * m, dtype=torch.float64,
+                                                  device="cuda")
+        rc = getattr(lib, f"fmk_volume_profile_{mode}")(
+            *args, int(shared), blocks, None if scratch is None else scratch.data_ptr(),
+            *(o.data_ptr() for o in outs), torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"kernel G from {src_dir}: CUDA error {rc}")
+        return tuple(outs)
+
+    def rolling(start, first, low, nl, buy, sell, m, nb, va):
+        n, L = buy.shape
+        return launch("rolling", (start.data_ptr(), low.data_ptr(), nl.data_ptr(),
+                                  buy.data_ptr(), sell.data_ptr(), L, first, n, m,
+                                  int(nb or 0), float(va)), n, m)
+
+    def rows(grid, lo, nb, va):
+        return launch("rows", (grid.data_ptr(), int(lo), grid.shape[0], grid.shape[1],
+                               int(nb or 0), float(va)), grid.shape[0], grid.shape[1])
+    return rolling, rows, ptxas_summary(log, G_KERNELS)
+
+
+def probe_g(specs):
+    """Kernel G's builds ``specs`` (name -> source directory and edits) on
+    phase 10's inputs."""
+    from torch.profiler import ProfilerActivity, profile
+    from finmlkit_tpu_torch.feature.kernels import volume
+    card = cs.phase_env()
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(len(specs)) as pool:   # one nvcc a build, all at once
+        jobs = {name: pool.submit(g_library, src, OUT / f"g{i}", edits)
+                for i, (name, (src, edits)) in enumerate(specs.items())}
+    builds = {}
+    for name, job in jobs.items():
+        try:
+            builds[name] = job.result()
+        except Exception as e:   # a variant that does not build is reported, not fatal
+            cs.say(f"G {name}: does not build: {str(e)[-2000:]}")
+            continue
+        for fn, what in builds[name][2]:
+            cs.say(f"G {name}: {fn} {what}")
+    month = cs.make_month(cs.N_MONTH)
+    tr, price, amount = month["tr"], month["price"], month["amount"]
+    dollar, _ = cs.run_dollar(tr, float((price * amount).sum()) / cs.DOLLAR_BARS)
+    fp = dollar["footprints"]
+    ts, low, nl, buy, sell = volume._footprint_tensors(
+        dollar["close_ts"][1:], fp["low_level"], fp["n_levels"], fp["buy_volumes"],
+        fp["sell_volumes"], "cuda")
+    del month, dollar, fp
+    n, L = buy.shape
+    start, first, m = volume._rolling_sizes(ts, low, nl, L, int(cs.PROFILE_WINDOW * 1e9), None)
+    va = cs.PROFILE_VA / 100.0
+    day_s = int(torch.searchsorted(ts, ts[-1:] - 86_400 * 10**9)[0])
+    grid, g_lo = volume._developing_grid(low[day_s:], nl[day_s:], buy[day_s:], sell[day_s:])
+    report = {"card": card, "bars": n, "max_levels": m, "rows": list(grid.shape)}
+
+    spans = cs.window_spans(start, first, low, nl, L, m)
+    report["window spans"] = cs.quantiles(spans)
+    report["share of windows spanning at most"] = {
+        str(c): float((spans <= c).to(torch.float64).mean()) for c in (1024, 2048, 4096, 8192)}
+    cs.say(f"G: {n - first:,} full windows of {n:,} dollar bars, max_levels {m}: spans "
+           f"{report['window spans']}; share at most 1024/2048/4096/8192 levels "
+           f"{report['share of windows spanning at most']} [{card}]")
+    pick = torch.from_numpy(np.sort(np.random.default_rng(13).choice(
+        np.arange(first, n), min(G_SAMPLE, n - first), replace=False))).cuda()
+    sample, s_lo = volume._window_grid_plain(pick, start, low, nl, buy, sell, m)
+    for nb in cs.PROFILE_BINS:
+        for what, (gr, lo_) in {"bars": (sample, s_lo), "rows": (grid, g_lo)}.items():
+            st = {k: cs.quantiles(v) for k, v in cs.walk_stats(gr, lo_, nb, va).items()}
+            report[f"walk, {what}, bins {nb}"] = st
+            cs.say(f"G walk on {gr.shape[0]:,} {what} ({gr.shape[1]:,} levels), bins {nb}: "
+                   + "; ".join(f"{k} {v}" for k, v in st.items()) + f" [{card}]")
+    del sample
+
+    k = min(n, first + G_SAMPLE)
+    plain = {nb: volume.volume_profile_rolling_plain(start[:k], first, low[:k], nl[:k],
+                                                     buy[:k], sell[:k], m, nb, va)
+             for nb in cs.PROFILE_BINS}
+    settings = {f"rolling, bins {nb}": (lambda f, nb=nb: f[0](start, first, low, nl, buy, sell,
+                                                             m, nb, va))
+                for nb in cs.PROFILE_BINS}
+    settings.update({f"rows, bins {nb}": (lambda f, nb=nb: f[1](grid, g_lo, nb, va))
+                     for nb in cs.PROFILE_BINS})
+    ref, checks = {}, {}
+    for name, f in builds.items():
+        for key, fn in settings.items():
+            out = fn(f)
+            torch.cuda.synchronize()
+            if key not in ref:
+                ref[key] = out
+            same = all(torch.equal(a, b) for a, b in zip(out, ref[key]))
+            if key.startswith("rolling"):
+                nb = None if key.endswith("None") else 27
+                same_plain = all(torch.equal(a[:k], b) for a, b in zip(out, plain[nb]))
+            else:
+                same_plain = None
+            checks[f"{key} | {name}"] = {"== first build": same, "== plain": same_plain}
+    times = {}
+    for turn in range(4):
+        order = list(builds) if turn % 2 == 0 else list(reversed(builds))
+        for name in order:
+            for key, fn in settings.items():
+                times.setdefault(f"{key} | {name}", []).append(
+                    cs.cuda_ms(lambda: fn(builds[name]), reps=5))
+    for key in settings:
+        cs.say(f"G {key}, ms in 4 turns (CUDA events, mean of 5 calls each): " + "; ".join(
+            f"{name} " + " ".join(f"{t:.4f}" for t in times[f'{key} | {name}'])
+            + ("" if checks[f"{key} | {name}"]["== first build"] else " (differs from the "
+               "first build)")
+            + ("" if checks[f"{key} | {name}"]["== plain"] is not False else " (differs "
+               "from plain)") for name in builds) + f" [{card}]")
+    # the package's walks by thread and by warp, in turns
+    for key, fn in {"rolling, bins None": lambda w: volume._rolling(
+            start, first, low, nl, buy, sell, m, None, va, walk_warp=w),
+                    "rows, bins None": lambda w: volume._profile_rows(grid, g_lo, None, va,
+                                                                      walk_warp=w)}.items():
+        outs = {w: fn(w) for w in (False, True)}
+        same = all(torch.equal(a, b) for a, b in zip(outs[False], outs[True]))
+        for turn in range(3):
+            for w in ((False, True) if turn % 2 == 0 else (True, False)):
+                times.setdefault(f"{key}, {'warp' if w else 'thread'} walks | package",
+                                 []).append(cs.cuda_ms(lambda: fn(w), reps=5))
+        cs.say(f"G {key}, the package's build, ms in 3 turns: a thread a walk " + " ".join(
+            f"{t:.4f}" for t in times[f"{key}, thread walks | package"]) + "; a warp a walk "
+            + " ".join(f"{t:.4f}" for t in times[f"{key}, warp walks | package"])
+            + f" (equal: {same}) [{card}]")
+    # the package's rolling launches split by span at other first grids, in turns
+    splits = (None, 2048, 4096, 6144, 8192)
+    for nb in cs.PROFILE_BINS:
+        for turn in range(3):
+            for sp in (splits if turn % 2 == 0 else splits[::-1]):
+                times.setdefault(f"rolling, bins {nb}, split {sp} | package", []).append(
+                    cs.cuda_ms(lambda: volume._rolling(start, first, low, nl, buy, sell, m, nb,
+                                                       va, split=sp), reps=5))
+        cs.say(f"G rolling, bins {nb}, the package's build split at (levels; ms in 3 turns): "
+               + "; ".join(f"{sp} " + " ".join(
+                   f"{t:.4f}" for t in times[f'rolling, bins {nb}, split {sp} | package'])
+                   for sp in splits) + f" [{card}]")
+    traced = {}
+    for i, (name, f) in enumerate(builds.items()):
+        for key in ("rolling, bins 27", "rolling, bins None"):
+            settings[key](f)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                settings[key](f)
+                torch.cuda.synchronize()
+            path = OUT / f"g_trace_{i}_{key.split()[-1]}.json"
+            prof.export_chrome_trace(str(path))
+            traced[f"{key} | {name}"] = kernel_args(path)
+            cs.say(f"G {name}, {key}, traced: " + json.dumps(traced[f"{key} | {name}"]))
+    cs.say(json.dumps(dict(report, checks=checks, ms=times, traced=traced)))
+
+
 def main():
+    if len(sys.argv) > 1 and sys.argv[1] == "G":
+        if not torch.cuda.is_available():
+            cs.fail("no CUDA device")
+        specs = {}
+        for spec in (sys.argv[2].split(",") if len(sys.argv) > 2 else ["as built"]):
+            name, _, src = spec.partition("=")
+            d = ROOT / src / "finmlkit_tpu_torch" / "csrc" if src else CSRC
+            specs[name] = (d if d.is_dir() else ROOT / src, G_VARIANTS.get(name, []))
+        return probe_g(specs)
     if len(sys.argv) > 1 and sys.argv[1] == "RW":
         if not torch.cuda.is_available():
             cs.fail("no CUDA device")

@@ -16,10 +16,11 @@ from finmlkit_tpu_torch.bar.fused import median_engine, median_pairs, planes_pro
 from finmlkit_tpu_torch.bar.indexers import dollar_bar_indexer_q
 from finmlkit_tpu_torch.feature.kernels import structural_break, volume
 from finmlkit_tpu_torch.ops import event_scan, fused_scan, prefix_scan, scan, segment_hist
-from finmlkit_tpu_torch.testing import (CUSUM_BAD, PROFILE_CASES, PROFILE_TS,
-                                       PROFILE_WINDOW, TILE_CLOSES, adversarial_trades,
-                                       assert_close, assert_exact, assert_window_close,
-                                       cusum_bad_inputs, cusum_recurrence, profile_case,
+from finmlkit_tpu_torch.testing import (CUSUM_BAD, PROFILE_CASES, PROFILE_EXTRA_CASES,
+                                       PROFILE_ROW_CASES, PROFILE_TS, PROFILE_WINDOW,
+                                       TILE_CLOSES, adversarial_trades, assert_close,
+                                       assert_exact, assert_window_close, cusum_bad_inputs,
+                                       cusum_recurrence, profile_case, profile_rows_case,
                                        tile_closes, zeros_and_twos)
 
 pytestmark = pytest.mark.cuda
@@ -658,7 +659,7 @@ def test_volume_profile_matches_plain(cuda, case, n_bins, path):
     before = volume.LAUNCHES
     got = volume._rolling(start, first, low, nl, buy, sell, m, n_bins, 0.6834,
                           shared_cap=0 if path == "global" else None)
-    assert volume.LAUNCHES == before + 1
+    assert volume.LAUNCHES == before + 3     # the pool's slots, the profiles, the walks
     want = volume.volume_profile_rolling_plain(start, first, low, nl, buy, sell, m, n_bins,
                                                0.6834)
     for g, w, what in zip(got, want, ("poc", "hva", "lva", "pct")):
@@ -676,3 +677,40 @@ def test_volume_profile_rows_match_plain(cuda, n_bins, path):
     want = volume._profile_rows_plain(grid, g_lo, n_bins, 0.6834)
     for g, w, what in zip(got, want, ("poc", "hva", "lva", "pct")):
         assert_exact(g, w, f"rows bins {n_bins} {path} {what}")
+
+
+SPAN_CASES = [("rows", k) for k in PROFILE_ROW_CASES] \
+    + [("rolling", k) for k in PROFILE_CASES + PROFILE_EXTRA_CASES]
+SPAN_PATHS = {"shared": {}, "global": {"shared_cap": 0}, "split": {"split": 4},
+              "thread_walks": {"walk_warp": False}}
+
+
+@pytest.mark.parametrize("path", list(SPAN_PATHS))
+@pytest.mark.parametrize("va_pct", [68.34, 99.999, 100.0])
+@pytest.mark.parametrize("n_bins", [None, 9, 27])
+@pytest.mark.parametrize("mode,name", SPAN_CASES, ids=[f"{a}-{b}" for a, b in SPAN_CASES])
+def test_volume_profile_span_cases_match_plain(cuda, mode, name, n_bins, va_pct, path):
+    """Kernel G on each profile's span, on the adversarial profiles of
+    ``testing.profile_rows_case`` and ``profile_case`` (pair ties, equal
+    running minima, NaN levels, walks to either end and into the zeros past
+    the span, no volume, one level, the clip column, ``max_levels`` above every
+    span), in one shared-memory launch, on the global-scratch grid, split by
+    span over launches of 4, 8, 16, ... levels, and with its walks a thread
+    each (these few profiles take a warp each by default): equal to the plain
+    version bit for bit."""
+    before = volume.LAUNCHES
+    if mode == "rows":
+        grid, lo = profile_rows_case(name)
+        g = torch.from_numpy(grid).to(cuda)
+        got = volume._profile_rows(g, lo, n_bins, va_pct / 100.0, **SPAN_PATHS[path])
+        want = volume._profile_rows_plain(g, lo, n_bins, va_pct / 100.0)
+    else:
+        (_, low, nl, buy, sell), start, first, m = _profile_inputs(name, cuda)
+        got = volume._rolling(start, first, low, nl, buy, sell, m, n_bins, va_pct / 100.0,
+                              **SPAN_PATHS[path])
+        want = volume.volume_profile_rolling_plain(start, first, low, nl, buy, sell, m, n_bins,
+                                                   va_pct / 100.0)
+    assert volume.LAUNCHES > before
+    for g_, w, what in zip(got, want, ("poc", "hva", "lva", "pct")):
+        assert_exact(g_, w, f"{mode} {name} bins {n_bins} va {va_pct} {path} {what}")
+

@@ -8,9 +8,10 @@ package builds the developing grid and its cumulative sum in float32, so the
 developing profile is held to it exactly on integer volumes whose sums stay
 below 2^24, where float32 sums are exact, and to a float64 sequential
 emulation on general volumes. ``_kernel_model`` walks kernel G's scheme as one
-block of 256 threads would (its partial sums, its tree, its in-place
-bucketing one chunk of bins at a time, its clip column) and is held to the
-plain version bit for bit.
+block of 256 threads would (each window trimmed to its level span, its partial
+sums, its tree, its in-place bucketing one chunk of bins at a time, its clip
+column, its pair volumes and its walk reading zeros past the span) and is held
+to the plain version bit for bit, also on adversarial profiles.
 
 The JAX functions compile once per shape and static argument, so the built
 cases share one length, one window and one ``max_levels``.
@@ -23,8 +24,9 @@ import torch
 from finmlkit_tpu.bar import TimeBarKit, TradesData
 from finmlkit_tpu.feature.kernels import volume as jv
 from finmlkit_tpu_torch.feature.kernels import volume as pv
-from finmlkit_tpu_torch.testing import (PROFILE_CASES, PROFILE_TS, PROFILE_WINDOW,
-                                       assert_close, assert_exact, profile_case)
+from finmlkit_tpu_torch.testing import (PROFILE_CASES, PROFILE_EXTRA_CASES, PROFILE_ROW_CASES,
+                                       PROFILE_TS, PROFILE_WINDOW, assert_close, assert_exact,
+                                       profile_case, profile_rows_case)
 from tests.conftest import generate_trades
 
 KEYS = ("timestamp", "low_level", "n_levels", "buy_volumes", "sell_volumes")
@@ -115,91 +117,175 @@ def test_default_max_levels_is_the_widest_window(fp):
 THREADS = 256
 
 
-def _model_profile(g, lo, n_bins, va_frac):
-    """Kernel G's ``profile`` on one grid (numpy float64, modified in place),
-    thread by thread."""
-    m = len(g)
-    wrap = lambda v: int((v + 2**31) % 2**32 - 2**31)   # noqa: E731
-    pos = np.flatnonzero(g > 0)
+def _wrap(v):
+    return int((v + 2**31) % 2**32 - 2**31)
+
+
+def _block_sum(vals):
+    """Kernel G's block sum: partial t adds levels t, t + 256, ... in order,
+    then a fixed tree halves the 256 partials."""
+    part = np.zeros(THREADS)
+    for k, v in enumerate(vals):
+        part[k % THREADS] = part[k % THREADS] + v
+    s = THREADS
+    while s > 1:
+        s //= 2
+        part[:s] = part[:s] + part[s:2 * s]
+    return part[0]
+
+
+def _first_max(vals):
+    """The block argmax: the first of equal maxima, NaN the largest."""
+    best, ib = None, None
+    for k, v in enumerate(vals):
+        if ib is None or (np.isnan(v) and not np.isnan(best)) or \
+                (not np.isnan(v) and not np.isnan(best) and v > best):
+            best, ib = v, k
+    return ib, best
+
+
+def _model_walk(up, down, n_up_m, cum, thr):
+    """Kernel G's ``walk`` in one thread: the steps taken up and down over the
+    pair volumes ``up`` (then zeros up to ``n_up_m``, then -1) and ``down``
+    (then -1). Its fast loops (both sides stored; the down side ended; the up
+    side reading zeros against a down pair of at least zero) and, for anything
+    else, one step of the plain walk."""
+    nu, nd = len(up), len(down)
+    a = b = 0
+    general = False
+    while cum < thr:
+        if not general and a < nu and b < nd:
+            while True:
+                u, d = up[a], down[b]
+                if not (u > d or u < d or (u == d and u != -1.0)):
+                    general = True
+                    break
+                cum = cum + (u if u > d else d if u < d else u + d)
+                a, b = a + (not u < d), b + (not u > d)
+                if not (cum < thr and a < nu and b < nd):
+                    break
+        elif not general and a < nu:
+            while True:
+                if not up[a] > -1.0:
+                    general = True
+                    break
+                cum, a = cum + up[a], a + 1
+                if not (cum < thr and a < nu):
+                    break
+        elif not general and a < n_up_m and b < nd:
+            while True:
+                d = down[b]
+                if d > 0.0:
+                    cum, b = cum + d, b + 1
+                elif d == 0.0:
+                    cum, a, b = cum + (0.0 + d), a + 1, b + 1
+                else:
+                    general = True
+                    break
+                if not (cum < thr and a < n_up_m and b < nd):
+                    break
+        else:
+            cu = up[a] if a < nu else (0.0 if a < n_up_m else -1.0)
+            cd = down[b] if b < nd else -1.0
+            go_up, go_down, both = cu > cd, cu < cd, cu == cd and cu != -1.0
+            if not (go_up or go_down or both):
+                break
+            if go_up and b >= nd and a >= nu:   # zeros to the end
+                a = n_up_m
+                break
+            cum = cum + (cu if go_up else cd if go_down else cu + cd)
+            a += go_up or both
+            b += go_down or both
+            general = False
+    return a, b
+
+
+def _model_profile(g, lo, n_bins, va_frac, m=None):
+    """Kernel G's ``profile`` on a grid trimmed to its span (numpy float64 of
+    S levels, modified in place; levels S to m - 1 are zeros): the bins that
+    can hold volume formed in place a chunk of 256 at a time, the sums and the
+    POC over the span, the pair volumes of both sides formed in place, then the
+    one-thread walk over them, reading zeros up to m and -1 past it."""
+    S = len(g)
+    m = S if m is None else m
     binned = bool(n_bins)
     if binned:
-        has = pos.size > 0
-        kmin = int(pos[0]) if has else 0
-        mn = wrap(lo + pos[0]) if has else 2**31 - 1
-        mx = wrap(lo + pos[-1]) if has else -2**31
-        rng = wrap(mx - mn)
+        pos = [k for k in range(S) if g[k] > 0]
+        has = bool(pos)
+        kmin, kmax = (pos[0], pos[-1]) if has else (0, -1)
+        mn = _wrap(lo + kmin) if has else 2**31 - 1
+        mx = _wrap(lo + kmax) if has else -2**31
+        rng = _wrap(mx - mn)
         bw = max(1, rng // n_bins)
-        bw = wrap(bw + 1) if bw % 2 == 0 else bw
-        n_full = max(wrap(rng + bw - 1) // bw, 1)
-        for cb in range(0, m, THREADS):          # one chunk of bins: read all, then write
+        bw = _wrap(bw + 1) if bw % 2 == 0 else bw
+        n_full = max(_wrap(rng + bw - 1) // bw, 1)
+        nb = (kmax - kmin) // bw + 1 if has else 1
+        for cb in range(0, nb, THREADS):          # one chunk of bins: read all, then write
             sums = []
-            for b in range(cb, min(cb + THREADS, m)):
+            for b in range(cb, min(cb + THREADS, nb)):
                 s = 0.0
                 if has:
-                    for k in range(kmin + b * bw, min(kmin + b * bw + bw, m)):
+                    for k in range(kmin + b * bw, min(kmin + b * bw + bw, S)):
                         if g[k] > 0:
                             s = s + g[k]
                 sums.append(s)
             g[cb:cb + len(sums)] = sums
+        S = nb
 
     def label(k):
         if not binned:
-            return wrap(lo + k)
-        edges = wrap(mn + wrap(k * bw))
-        return wrap(edges + (bw - 1) // 2) if k < n_full else (mx if k == n_full else edges)
+            return _wrap(lo + k)
+        edges = _wrap(mn + _wrap(k * bw))
+        return _wrap(edges + (bw - 1) // 2) if k < n_full else (mx if k == n_full else edges)
 
-    def block_sum(vals):
-        part = np.zeros(THREADS)
-        for t in range(THREADS):
-            acc = 0.0
-            for k in range(t, m, THREADS):
-                acc = acc + vals[k]
-            part[t] = acc
-        s = THREADS
-        while s > 1:
-            s //= 2
-            part[:s] = part[:s] + part[s:2 * s]
-        return part[0]
-
-    total = block_sum(g)
-    pidx = int(np.argmax(g))
-    poc = label(pidx)
-    above = block_sum([g[k] if label(k) > poc else 0.0 for k in range(m)])
-    thr = total * va_frac
-    cum, up, down, hv, lv = g[pidx], pidx + 1, pidx - 1, pidx, pidx
-    while cum < thr:
-        cu = g[up] + (g[up + 1] if up + 1 < m else 0.0) if up < m else -1.0
-        cd = g[down] + (g[down - 1] if down - 1 >= 0 else 0.0) if down >= 0 else -1.0
-        go_up, go_down, both = cu > cd, cu < cd, cu == cd and cu != -1.0
-        if not (go_up or go_down or both):
-            break
-        cum = cum + (cu if go_up else cd if go_down else cu + cd)
-        if go_up or both:
-            hv, up = min(up + 1, m - 1), up + 2
-        if go_down or both:
-            lv, down = max(down - 1, 0), down - 2
+    total = _block_sum(g[:S])
+    p, best = _first_max(g[:S])
+    if S < m and best < 0:                       # every level below S negative
+        p = S
+    poc = label(p)
+    above = _block_sum([g[k] if label(k) > poc else 0.0 for k in range(S)])
+    n_up = (S - p) // 2 if p + 1 < S else 0
+    n_down, n_up_m = (p + 1) // 2, (m - p) // 2
+    cum = g[p] if p < S else 0.0
+    up = [g[x] + (g[x + 1] if x + 1 < S else 0.0) for x in range(p + 1, p + 1 + 2 * n_up, 2)]
+    down = [g[x] + (g[x - 1] if x >= 1 else 0.0) for x in range(p - 1, p - 1 - 2 * n_down, -2)]
+    a, b = _model_walk(up, down, n_up_m, cum, total * va_frac)
+    hv = min(p + 2 * a, m - 1) if a else p
+    lv = max(p - 2 * b, 0) if b else p
     pct = above / total if total > 0 and above > 0 else 0.0
     return poc, label(hv), label(lv), pct
 
 
+def _model_row(row, lo, n_bins, va_frac):
+    """Kernel G's rows mode on one row: trimmed one past its last nonzero."""
+    nz = np.flatnonzero(row != 0)
+    span = int(nz[-1]) + 1 if nz.size else 1
+    return _model_profile(np.array(row[:span], np.float64), lo, n_bins, va_frac, len(row))
+
+
 def _kernel_model(ts, low, nl, buy, sell, window, n_bins, va_pct, m):
-    """Kernel G's rolling mode on the CPU: each bar's window filled bar by bar
-    (columns below m - 1 by their threads, the clip column by thread 0 in
-    column order), then ``_model_profile``."""
-    n = len(ts)
-    start = np.searchsorted(ts, ts - window * 10**9)
-    first = np.searchsorted(ts, ts[0] + window * 10**9)
+    """Kernel G's rolling mode on the CPU: each bar's window spans
+    ``max_j(low_j + n_levels_j) - min_j low_j`` levels (within [1, m]); its
+    grid of that many levels is filled bar by bar (a column past m - 1 lands on
+    m - 1 in column order), then ``_model_profile``."""
+    n, width = buy.shape
+    window_ns = int(window * 1e9)
+    start = np.searchsorted(ts, ts - window_ns)
+    first = np.searchsorted(ts, ts[0] + window_ns)
+    nlc = np.clip(np.asarray(nl, np.int64), 0, width)
     out = [np.zeros(n, np.int32) for _ in range(3)] + [np.zeros(n)]
     for i in range(first, n):
-        lo = int(low[start[i]:i + 1].min())
-        g = np.zeros(m)
-        for j in range(start[i], i + 1):
+        s = start[i]
+        lo = int(low[s:i + 1].min())
+        span = min(max(int((low[s:i + 1].astype(np.int64) + nlc[s:i + 1]).max()) - lo, 1), m)
+        g = np.zeros(span)
+        for j in range(s, i + 1):
             off = int(low[j]) - lo
-            for c in range(min(int(nl[j]), buy.shape[1])):
+            for c in range(nlc[j]):
                 v = np.float64(buy[j, c]) + np.float64(sell[j, c])
                 col = off + c if off + c < m - 1 else m - 1
                 g[col] = g[col] + v
-        for o, v in zip(out, _model_profile(g, lo, n_bins, va_pct / 100.0)):
+        for o, v in zip(out, _model_profile(g, lo, n_bins, va_pct / 100.0, m)):
             o[i] = v
     return out
 
@@ -233,10 +319,45 @@ def test_rows_model_matches_plain_past_one_chunk():
     for n_bins in (None, 3, 600, 700):
         got = pv._profile_rows(torch.from_numpy(grid.copy()), 5000, n_bins, 0.6834)
         for row in range(grid.shape[0]):
-            want = _model_profile(grid[row].copy(), 5000, n_bins, 0.6834)
+            want = _model_row(grid[row], 5000, n_bins, 0.6834)
             for g, w in zip(got, want):
                 assert_exact(g[row:row + 1], np.asarray([w], g.numpy().dtype),
                              f"row {row} bins {n_bins}")
+
+
+# --- the span-trimmed scheme on adversarial profiles ------------------------
+
+SPAN_CASES = [("rows", k) for k in PROFILE_ROW_CASES] \
+    + [("rolling", k) for k in PROFILE_CASES + PROFILE_EXTRA_CASES]
+
+
+@pytest.mark.parametrize("va_pct", [68.34, 99.999, 100.0])
+@pytest.mark.parametrize("n_bins", [None, 9, 27])
+@pytest.mark.parametrize("mode,name", SPAN_CASES, ids=[f"{a}-{b}" for a, b in SPAN_CASES])
+def test_span_model_matches_plain(mode, name, n_bins, va_pct):
+    """The span-trimmed scheme (``_model_profile``: sums over each profile's
+    span, pairs formed in place, the walk reading zeros past the span up to
+    ``max_levels``) equals the plain version bit for bit on profiles with pair
+    ties, equal running minima, NaN levels, walks to either end and into the
+    zeros past the span (va_pct 100 and 99.999), no volume, one level, the clip
+    column and ``max_levels`` above every span."""
+    if mode == "rows":
+        grid, lo = profile_rows_case(name)
+        got = pv._profile_rows(torch.from_numpy(grid.copy()), lo, n_bins, va_pct / 100.0)
+        for row in range(grid.shape[0]):
+            want = _model_row(grid[row], lo, n_bins, va_pct / 100.0)
+            for g, w, what in zip(got, want, ("poc", "hva", "lva", "pct")):
+                assert_exact(g[row:row + 1], np.asarray([w], g.numpy().dtype),
+                             f"{name} row {row} {what}")
+        if name == "zero_tail" and n_bins is None and va_pct == 100.0:
+            assert int((got[1] == lo + grid.shape[1] - 1).sum()) >= 3   # HVA at the grid's end
+        return
+    low, nl, buy, sell, m = profile_case(name)
+    got = pv.volume_profile_rolling(BAR_TS, low, nl, buy, sell, WINDOW, n_bins=n_bins,
+                                    va_pct=va_pct, max_levels=m, device="cpu")
+    want = _kernel_model(BAR_TS, low, nl, buy, sell, WINDOW, n_bins, va_pct, m)
+    for g, w, what in zip(got, want, ("poc", "hva", "lva", "pct")):
+        assert_exact(g, w, f"{name} {what}")
 
 
 # --- the developing profile and VolumePro ---------------------------------
@@ -275,7 +396,7 @@ def _seq_developing(a, s, e, va_pct=68.34):
         n = int(a["n_levels"][j])
         grid[o:o + n] += (a["buy_volumes"][j, :n].astype(np.float64)
                           + a["sell_volumes"][j, :n])
-        out.append(_model_profile(grid.copy(), int(g_lo), None, va_pct / 100.0)[:3])
+        out.append(_model_row(grid, int(g_lo), None, va_pct / 100.0)[:3])
     return [np.array(v, np.int32) for v in zip(*out)]
 
 
