@@ -86,11 +86,14 @@ bars' features. Phases:
    the CSW critical values equal, floats within rtol and atol 1e-12; R and W
    launched; kernel R against its plain version (EWMA's recurrence at 1M
    points and span 100, a time-varying decay, y0, a NaN, lengths 1, 2047,
-   2049 and the month's trade count; rtol 1e-12, equal run to run) and
-   kernel W against its plain version bit for bit (50,000 log prices at
-   window 500, the month's bars at 1000, flat runs), each timed with its
-   bound; the six-feature pass as one stage, each function's time, peak
-   device memory;
+   2049 and the month's trade count; rtol 1e-12, equal run to run and beside
+   another stream that keeps the SMs busy; its look-back distances, a call's
+   wall and host time on the bars' count) and kernel W against its plain
+   version bit for bit (50,000 log prices at window 500, the month's bars at
+   1000, flat runs, the filter's adversarial series of
+   ``testing.csw_filter_case``; the share of lags its pass 2 walks and
+   divides), each timed with its bound; the six-feature pass as one stage,
+   each function's time, peak device memory;
 10. the feature framework and the volume profile: BASELINE config 4's kit
    (``FeatureKit``, topo order) on the month's time bars and its planned
    graph (``fuse.FusedGraph.run_device``), each output equal bit for bit to
@@ -194,11 +197,13 @@ KERNELS = {
           "finmlkit_tpu/ops/fused_scan.py:1342"),
     "P": ("P io_floor (replaces P1, P2 and P3)", "io_floor.cu",
           "finmlkit_tpu/ops/fused_scan.py:1185, :1213 and :1236"),
-    "R": ("R recurrence, three passes over tiles of affine maps (replaces an XLA "
-          "associative_scan, not a TPU kernel)", "recurrence.cu",
+    "R": ("R recurrence, one pass over tiles of affine maps with a look-back whose "
+          "carries a warp scan a group of 32 tiles and a scalar chain over the groups fix "
+          "(replaces an XLA associative_scan, not a TPU kernel)", "recurrence.cu",
           "finmlkit_tpu/ops/scan.py:21"),
-    "W": ("W csw, the CSW sup statistic, a warp per t (replaces an XLA lax.map, "
-          "not a TPU kernel)", "csw.cu",
+    "W": ("W csw, the CSW sup statistic, a warp per t: a division-free pass bounds "
+          "each side, then the exact quotients of the lags that may win (replaces an XLA "
+          "lax.map, not a TPU kernel)", "csw.cu",
           "finmlkit_tpu/feature/kernels/structural_break.py:23 and :55"),
     "G": ("G volume_profile, the rolling and developing value area: a block a profile on "
           "its span, then the walks a thread or a warp each (replaces an XLA lax.map, not a "
@@ -1954,25 +1959,40 @@ def phase_features(card, month):
     say("feature ms (CUDA events, mean of 3): " + ", ".join(
         f"{k} {v:.3f}" for k, v in each.items()) + f" [{card}]")
 
-    return launches, {"R": kernel_r(card, launches["R"]),
+    return launches, {"R": kernel_r(card, launches["R"], n_bars),
                       "W": kernel_w(card, b, launches["W"])}
 
 
-def kernel_r(card, launches):
+def kernel_r(card, launches, n_bars=45_705):
     """Kernel R alone against its plain version on the card: EWMA's
     recurrence at 1M points and span 100 (BASELINE.md row 3), ewmst's
     time-varying decay, y0, a NaN in b, lengths around the 2048-value tile
     and the month's trade count; within rtol 1e-12 of the terms' magnitude,
-    equal from run to run; timed with its bound."""
+    equal from run to run, also beside another stream that keeps the SMs
+    busy; timed with its bound; its look-back lengths (a tile's place in its
+    group plus 32 for each group map applied) at the month's count and at the
+    bars' count, and a call's wall and host time on ``n_bars`` values."""
     import torch
     from finmlkit_tpu_torch.ops import scan
     from finmlkit_tpu_torch.testing import assert_exact, assert_window_close
     g = torch.Generator(device="cuda").manual_seed(11)
     oma = 1.0 - 2.0 / 101.0                             # span 100
-    worst, times = 0.0, {}
-    for n in R_LENGTHS:
-        prices = 107_000.0 * torch.exp(torch.cumsum(
+    worst, times, dists = 0.0, {}, {}
+
+    def walk(n):
+        return 107_000.0 * torch.exp(torch.cumsum(
             torch.randn(n, dtype=torch.float64, device="cuda", generator=g) * 2e-5, 0))
+
+    def distances(what, a, bb):
+        n_ = bb.shape[-1]
+        d = torch.zeros(-(-n_ // scan.tile_of(a, n_)), dtype=torch.int32, device="cuda")
+        out = scan._kernel(a, bb, None, d)
+        d = d[1:].double()
+        dists[what] = (float(d.median()) if d.numel() else 0.0,
+                       float(d.max()) if d.numel() else 0.0)
+        return out
+    for n in R_LENGTHS:
+        prices = walk(n)
         dt = torch.rand(n, dtype=torch.float64, device="cuda", generator=g) * 0.14
         a_var = torch.exp(-dt / 60.0)                 # ewmst: a per step from the gaps
         nan_b = prices.clone()
@@ -1997,57 +2017,135 @@ def kernel_r(card, launches):
                     cuda_ms(lambda: scan.linear_recurrence(a, bb), reps=20),
                     cuda_ms(lambda: scan.linear_recurrence_plain(a, bb), reps=2),
                     bound(nb, 2 * n, PEAK_F64_OPS_PER_S))
+        if n == N_MONTH:
+            for what in ("ewma", "ewmst"):
+                a, bb, _ = cases[what]
+                assert_exact(distances(f"{what} n={n}", a, bb), scan.linear_recurrence(a, bb),
+                             f"R {what} with its distances counted")
+            # beside a stream that keeps the SMs busy: the stops move, the bits do not
+            a, bb, _ = cases["ewmst"]
+            quiet = scan.linear_recurrence(a, bb)
+            x = torch.randn(4096, 4096, device="cuda", generator=g)
+            side = torch.cuda.Stream()
+            for i in range(3):
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    for _ in range(6):
+                        x = torch.tanh(x @ x * 1e-3)
+                assert_exact(distances(f"ewmst n={n}, beside a busy stream ({i + 1})", a, bb),
+                             quiet, "R beside a busy stream")
+            torch.cuda.synchronize()
+            del x
         del prices, dt, a_var, nan_b, cases
+    # a call on the bars' count: wall time (synchronized) and host time (enqueue)
+    bars = walk(n_bars)
+    distances(f"ewma n={n_bars}", 1.0 - 2.0 / 21.0, bars)
+    scan.linear_recurrence(1.0 - 2.0 / 21.0, bars)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        scan.linear_recurrence(1.0 - 2.0 / 21.0, bars)
+    host_us = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        scan.linear_recurrence(1.0 - 2.0 / 21.0, bars)
+        torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) / 200 * 1e6
+    bars_ms = cuda_ms(lambda: scan.linear_recurrence(1.0 - 2.0 / 21.0, bars), reps=200)
     say(f"kernel R == plain within rtol 1e-12 (largest |diff| {worst:.3g}) at n = "
         + ", ".join(map(str, R_LENGTHS)) + " (constant and time-varying a, y0, a NaN), "
-        "equal run to run; ms (kernel | plain | bound): " + ", ".join(
+        "equal run to run and beside a busy stream; ms (kernel | plain | bound): " + ", ".join(
             f"{k} {t:.4f} | {p:.3f} | {bd[0]:.4f}" for k, (t, p, bd) in times.items())
+        + f"; on {n_bars:,} values a call {wall_us:.1f} us wall, {host_us:.1f} us host, "
+        f"{bars_ms * 1e3:.2f} us a call by CUDA events over 200 calls (the host's rate "
+        "where it is slower than the card's); look-back tiles (median, largest): " + ", ".join(f"{k} {m:g}, {x:g}" for k, (m, x) in dists.items())
         + f" [{card}]")
     t, p, bd = times[f"ewmst n={N_MONTH}"]
     return kernel_entry("R", launches, worst, t, p, bd, None,
                         times_ms={k: {"kernel": v[0], "plain": v[1], "bound": v[2][0]}
-                                  for k, v in times.items()})
+                                  for k, v in times.items()},
+                        lookback_tiles={k: {"median": m, "largest": x}
+                                        for k, (m, x) in dists.items()},
+                        bars_call_us={"wall": wall_us, "host": host_us,
+                                      "events": bars_ms * 1e3})
+
+
+def w_series(bars):
+    """Kernel W's timed inputs: ``name -> (prices, window)`` on the card."""
+    import torch
+    r = np.random.default_rng(12)
+    walk = 100.0 * np.exp(np.cumsum(r.normal(0.0, 1e-3, 50_000)))
+    steps = r.choice([-1, 0, 0, 0, 1], 50_000).astype(np.float64)
+    steps[20_000:21_000] = 0.0
+    return {"50,000 log prices, window 500": (torch.from_numpy(walk).cuda(), 500),
+            f"the month's {bars['close'].shape[0]:,} bars, window {CSW_WINDOW}":
+                (bars["close"], CSW_WINDOW),
+            "flat runs, window 500": (torch.from_numpy(100.0 + 0.5 * np.cumsum(steps)).cuda(),
+                                      500)}
+
+
+def w_shares(stats):
+    """From kernel W's ``stats`` (n, 4): the shares of the admissible lags
+    walked in pass 2 and divided there, the t's on the exact path, and the
+    lanes walked again a t."""
+    st = stats.double()
+    lags = float(st[:, 0].sum())
+    return {"walked": float(st[:, 1].sum()) / max(lags, 1.0),
+            "exact": float(st[:, 2].sum()) / max(lags, 1.0),
+            "exact_path_t": int((stats[:, 3] < 0).sum() - (stats[:, 3] == -3).sum()),
+            "lanes_again_mean": float(st[:, 3].clamp(min=0).mean())}
 
 
 def kernel_w(card, bars, launches):
     """Kernel W alone against its plain version on the card, bit for bit:
     50,000 log prices at window 500 (BASELINE.md row 5), the month's bars at
-    window 1000, and a tick-grid series with flat runs (ties at 0, where the
-    largest lag must win); timed with its bound."""
+    window 1000, a tick-grid series with flat runs (ties at 0, where the
+    largest lag must win), and the filter's adversarial series of
+    ``testing.csw_filter_case``; timed with its bound; the share of lags that
+    pass 2 walks and divides on each timed input."""
     import torch
     from finmlkit_tpu_torch.feature.kernels import structural_break as sb
-    from finmlkit_tpu_torch.testing import assert_exact
-    r = np.random.default_rng(12)
-    walk = 100.0 * np.exp(np.cumsum(r.normal(0.0, 1e-3, 50_000)))
-    steps = r.choice([-1, 0, 0, 0, 1], 50_000).astype(np.float64)
-    steps[20_000:21_000] = 0.0
-    cases = {"50,000 log prices, window 500": (torch.from_numpy(walk).cuda(), 500),
-             f"the month's {bars['close'].shape[0]:,} bars, window {CSW_WINDOW}":
-                 (bars["close"], CSW_WINDOW),
-             "flat runs, window 500": (torch.from_numpy(100.0 + 0.5 * np.cumsum(steps)).cuda(), 500)}
-    times = {}
+    from finmlkit_tpu_torch.testing import CSW_FILTER_CASES, assert_exact, csw_filter_case
+    for case in CSW_FILTER_CASES:
+        yn, sn, w = csw_filter_case(case)
+        y, sigma = torch.from_numpy(yn).cuda(), torch.from_numpy(sn).cuda()
+        tables = sb._tables(w, y.device)
+        for i, (gg, ww) in enumerate(zip(sb._sup_stat(y, sigma, w, *tables),
+                                          sb._sup_stat_plain(y, sigma, w, *tables))):
+            assert_exact(gg, ww, f"W on the filter series {case}, output {i}")
+    cases = w_series(bars)
+    times, shares = {}, {}
     for what, (p, w) in cases.items():
         y = torch.log(p)
         n = y.shape[0]
         _, sigma = sb._sigma(y, w)
         tables = sb._tables(w, y.device)
-        got = sb._sup_stat(y, sigma, w, *tables)
+        stats = torch.zeros(n, 4, dtype=torch.int32, device="cuda")
+        got = sb._sup_stat(y, sigma, w, *tables, stats=stats)
         for i, (gg, ww) in enumerate(zip(got, sb._sup_stat_plain(y, sigma, w, *tables))):
             assert_exact(gg, ww, f"W {what} output {i}")
+        shares[what] = w_shares(stats)
         t_loc = np.minimum(np.arange(n), w)
         pairs = float(np.maximum(t_loc - 2, 0).sum())
         times[what] = (cuda_ms(lambda: sb._sup_stat(y, sigma, w, *tables), reps=10),
                        cuda_ms(lambda: sb._sup_stat_plain(y, sigma, w, *tables), reps=2),
                        bound(48 * n + 16 * w, 4 * pairs, PEAK_F64_OPS_PER_S))
     say("kernel W == plain bit for bit (up, down, critical values) on " + ", ".join(cases)
+        + " and the filter series " + ", ".join(CSW_FILTER_CASES)
         + "; ms (kernel | plain | bound): " + ", ".join(
             f"{k} {t:.4f} | {p:.3f} | {bd[0]:.4f} ({bd[1]})" for k, (t, p, bd) in times.items())
-        + f" [{card}]")
+        + "; lags walked in pass 2 | divided there (shares of the admissible lags; each "
+        "lane also divides once a side, at its best lag), t's on the exact path, lanes "
+        "walked again a t: " + ", ".join(
+            f"{k} {v['walked']:.4%} | {v['exact']:.4%}, {v['exact_path_t']}, "
+            f"{v['lanes_again_mean']:.2f}" for k, v in shares.items()) + f" [{card}]")
     key = next(k for k in times if k.startswith("the month"))
     t, p, bd = times[key]
     return kernel_entry("W", launches, 0.0, t, p, bd, None,
                         times_ms={k: {"kernel": v[0], "plain": v[1], "bound": v[2][0]}
-                                  for k, v in times.items()})
+                                  for k, v in times.items()},
+                        pass2=shares)
 
 
 def config4_kit():
@@ -2568,7 +2666,7 @@ def phase_framework(card, month, need):
         entries["C"] = kernel_c(card, tr, dollar["ci"], dollar["footprints"]["low_level"],
                                 launches)
     if "R" in need:
-        entries["R"] = kernel_r(card, launches["R"])
+        entries["R"] = kernel_r(card, launches["R"], b["close"].shape[0])
     if "W" in need:
         entries["W"] = kernel_w(card, b, launches["W"])
     return launches, entries

@@ -44,8 +44,8 @@ _SIGNATURES = {
     "fmk_io_floor_stacked": [_P, ctypes.c_int, _I64, _P, _P],
     "fmk_recurrence_scratch_bytes": [_I64, _I64],
     "fmk_linear_recurrence": [_P, _F64, _I64, ctypes.c_int, _P, _P, _P, _P, _I64,
-                              _I64, _P],
-    "fmk_csw_sup_stat": [_P, _P, _P, _P, _I64, _I64, _P, _P, _P, _P, _P],
+                              _I64, _P, _P],
+    "fmk_csw_sup_stat": [_P] * 5 + [_I64, _I64] + [_P] * 6,
     "fmk_profile_shared_levels": [],
     "fmk_volume_profile_rolling": [_P] * 5 + [_I64] * 4 + [ctypes.c_int, _F64, _I64,
                                                           ctypes.c_int, _I64] + [_P] * 9,

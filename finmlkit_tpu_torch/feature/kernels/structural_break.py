@@ -3,16 +3,22 @@
 Counterpart of ``finmlkit_tpu/feature/kernels/structural_break.py``. For each
 t the statistic is the supremum over earlier points of
 ``(y_t - y_{t-k}) / (sigma_t * sqrt(k))``, an O(w) loop over the lags k, so
-O(n * w) in all. Kernel W (``csrc/csw.cu``) takes one warp per t and keeps
-only the running maximum; :func:`_sup_stat_plain` is the plain version, the
-JAX package's ``(block, lags)`` matrices over blocks of t's. Both read
-``sqrt(k)`` and ``sqrt(4.6 + log k)`` from tables computed once on the host,
-so they do the same float operations and agree bit for bit.
+O(n * w) in all. Kernel W (``csrc/csw.cu``) takes one warp per t: a pass
+without division bounds each side's largest quotient from below, and only the
+lags that a division-free test cannot rule out take the exact quotient (its
+header argues why the result is the same bit for bit).
+:func:`_sup_stat_plain` is the plain version, the JAX package's ``(block,
+lags)`` matrices over blocks of t's. Both read ``sqrt(k)`` and
+``sqrt(4.6 + log k)`` from tables computed once on the host, so they do the
+same float operations and agree bit for bit.
 
 Ties keep the largest lag, as the reference's loop does (it walks the lags
 downward and replaces its maximum only on a strictly greater value); the
 critical value is ``sqrt(4.6 + log k*)`` at that lag.
 """
+import functools
+
+import numpy as np
 import torch
 
 from ... import _build
@@ -27,11 +33,30 @@ _PLAIN_ELEMENTS = 1 << 20  # the plain version's (block, lags) matrices
 
 def _tables(w: int, device):
     """``sqrt(k)`` and ``sqrt(4.6 + log k)`` for k < w (0 at k = 0), computed
-    on the host so that every device reads the same bits."""
+    on the host so that every device reads the same bits; kept for the last
+    few ``(w, device)``, so a call copies nothing."""
+    return _all_tables(w, _device_key(device))[:2]
+
+
+def _device_key(device) -> str:
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return str(d)
+
+
+@functools.lru_cache(maxsize=16)
+def _all_tables(w: int, device: str):
+    """:func:`_tables`, and kernel W's filter table ``isq[k] = 2^100 /
+    sqrt_k[k]`` rounded to nearest (``inf`` at k = 0), all from the same host
+    bits."""
     k = torch.arange(w, dtype=torch.float64)
     crit = torch.sqrt(4.6 + torch.log(k))
     crit[:1] = 0.0
-    return k.sqrt().to(device), crit.to(device)
+    sqrt_k = k.sqrt()
+    with np.errstate(divide="ignore"):
+        isq = np.ldexp(1.0 / sqrt_k.numpy(), 100)
+    return sqrt_k.to(device), crit.to(device), torch.from_numpy(isq).to(device)
 
 
 def _sup_stat_plain(y, sigma, w: int, sqrt_k, crit):
@@ -67,10 +92,13 @@ def _sup_stat_plain(y, sigma, w: int, sqrt_k, crit):
     return tuple(out)
 
 
-def _sup_stat(y, sigma, w: int, sqrt_k, crit):
+def _sup_stat(y, sigma, w: int, sqrt_k, crit, *, stats=None):
     """``(up, down, cu, cd)`` for every t: kernel W on a CUDA tensor,
     :func:`_sup_stat_plain` on a CPU tensor; ``sqrt_k`` and ``crit`` are
-    :func:`_tables` on ``y``'s device."""
+    :func:`_tables` on ``y``'s device (kernel W reads the filter table kept
+    beside them). ``stats``, if given, is an int32
+    tensor of ``(n, 4)`` that receives, for each t, the admissible lags, the
+    lags walked in pass 2, the quotients taken and the path (``csw.cu``)."""
     global LAUNCHES
     if y.device.type == "cpu":
         return _sup_stat_plain(y, sigma, w, sqrt_k, crit)
@@ -80,12 +108,14 @@ def _sup_stat(y, sigma, w: int, sqrt_k, crit):
     out = [torch.empty_like(y) for _ in range(4)]
     if y.shape[0] == 0:
         return tuple(out)
+    isq = _all_tables(w, _device_key(y.device))[2]
     lib = _build.library()
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream
         rc = lib.fmk_csw_sup_stat(y.data_ptr(), sigma.data_ptr(), sqrt_k.data_ptr(),
-                                  crit.data_ptr(), y.shape[0], w,
-                                  *(o.data_ptr() for o in out), stream)
+                                  isq.data_ptr(), crit.data_ptr(), y.shape[0], w,
+                                  *(o.data_ptr() for o in out),
+                                  None if stats is None else stats.data_ptr(), stream)
     _build.check(rc, "cusum_test_rolling")
     LAUNCHES += 1
     return tuple(out)

@@ -10,7 +10,7 @@ __all__ = ["to_numpy", "assert_exact", "assert_close", "assert_window_close",
            "adversarial_trades", "tile_closes", "TILE_CLOSES", "zeros_and_twos",
            "cusum_recurrence", "CUSUM_BAD", "cusum_bad_inputs", "PROFILE_CASES",
            "PROFILE_TS", "PROFILE_WINDOW", "profile_case", "PROFILE_EXTRA_CASES",
-           "PROFILE_ROW_CASES", "profile_rows_case"]
+           "PROFILE_ROW_CASES", "profile_rows_case", "CSW_FILTER_CASES", "csw_filter_case"]
 
 
 def to_numpy(x) -> np.ndarray:
@@ -342,4 +342,99 @@ def profile_rows_case(name: str):
         return _padded([[7], [0, 0, 0, 7], np.r_[np.zeros(15), 7]], 16), 10
     if name == "negative":           # every level below the span negative: the POC is past it
         return _padded([[-1, -2, -3, -1], [-2], [-1, -0.0, -4]], 10), 0
+    raise KeyError(name)
+
+
+# Series for kernel W's filter (csrc/csw.cu): log prices y, a sigma for each t
+# (given, not derived, so it can sit at the edges) and the window w.
+CSW_FILTER_CASES = ("walk", "tie_subnormal", "tie_normal", "flat", "nonfinite",
+                    "subnormal", "sigma_edge", "sigma_huge", "huge_dyn", "w3")
+
+
+def _walk_sigma(y, w):
+    """Sigma as the CSW test computes it (the std of the changes over the
+    window), in numpy."""
+    n = len(y)
+    d2 = np.r_[0.0, np.diff(y) ** 2]
+    cum = np.cumsum(d2)
+    idx = np.arange(n)
+    t_loc = np.minimum(idx, w)
+    return np.sqrt((cum - cum[np.clip(idx - t_loc, 0, n - 1)]) / np.maximum(t_loc - 1, 1))
+
+
+def _tie(y, sigma, t, sig, d_small, d_large, sign, d_4=None):
+    """At t: lags 9 and 36 (sqrt 3 and 6, denominators exactly 2x apart) with
+    quotients d_small / (3 sig) > d_large / (6 sig) that round to the same
+    double, so the larger lag, with the smaller quotient, must win; with
+    ``d_4``, lag 4 (kernel W's lane of lag 36, so that 36 is not its lane's
+    best lag) ties too; every other lag's dyn 0."""
+    y[t - 60:t + 1] = y[t]
+    sigma[t] = sig
+    y[t - 9] = y[t] - sign * d_small
+    y[t - 36] = y[t] - sign * d_large
+    if d_4 is not None:
+        y[t - 4] = y[t] - sign * d_4
+
+
+def csw_filter_case(name: str):
+    """``(y, sigma, w)``, float64 numpy arrays and an int: adversarial series
+    for kernel W's filter, each named for what it holds."""
+    r = np.random.default_rng(CSW_FILTER_CASES.index(name) + 31)
+    if name == "walk":
+        y = np.log(100.0) + np.cumsum(r.normal(0.0, 1e-3, 300))
+        return y, _walk_sigma(y, 100), 100
+    if name == "tie_subnormal":      # quotients near 5 * 2^-1074: ties on the subnormal grid
+        y, sigma = np.zeros(160), np.ones(160)
+        sig = 2.0 ** 1000
+        d_small, d_large = 15.6 * 2.0 ** -74, 28.8 * 2.0 ** -74   # 5.2 and 4.8 x 2^-1074
+        d_4 = 10.2 * 2.0 ** -74                                      # 5.1 x 2^-1074
+        for t, sign in ((70, 1.0), (150, -1.0)):   # up, then down
+            _tie(y, sigma, t, sig, d_small, d_large, sign, d_4)
+        return y, sigma, 64
+    if name == "tie_normal":         # two adjacent numerators over one denominator round equal
+        y, sigma = np.zeros(160), np.ones(160)
+        for t, sign in ((70, 1.0), (150, -1.0)):
+            sig = 1.7 / 3.0 * (1.0 + r.random() * 0.01)
+            den = 3.0 * sig
+            while True:
+                a = 1.8 + 0.2 * r.random()
+                lo = np.nextafter(a, 0.0)
+                if a / den == lo / den:
+                    break
+            _tie(y, sigma, t, sig, a, 2.0 * lo, sign)
+        return y, sigma, 64
+    if name == "flat":               # a tick grid with flat runs: ties at 0, sigma 0
+        steps = r.choice([-1, 0, 0, 0, 1], 300).astype(np.float64)
+        steps[100:190] = 0.0
+        y = np.log(100.0 + 0.5 * np.cumsum(steps))
+        return y, _walk_sigma(y, 60), 60
+    if name == "nonfinite":          # NaN, +inf and -inf among the prices; sigma finite
+        y = np.log(100.0) + np.cumsum(r.normal(0.0, 1e-3, 260))
+        sigma = np.full(260, 1e-3)
+        y[60], y[120], y[180] = np.nan, np.inf, -np.inf
+        return y, sigma, 50
+    if name == "subnormal":          # dyn on the subnormal grid; quotients at and near 0
+        y = r.integers(-5, 6, 200) * 5e-324
+        sigma = np.where(np.arange(200) % 3 == 0, 1e-10, 1.0)
+        return y, sigma, 40
+    if name == "sigma_edge":         # the first admissible lag mid-window, at the rounding edge
+        y = np.log(100.0) + np.cumsum(r.normal(0.0, 1e-3, 200))
+        k = r.integers(2, 60, 200)
+        sigma = 1e-16 / np.sqrt(k.astype(np.float64))
+        for j in range(200):
+            for _ in range(int(r.integers(-3, 4)) % 7):
+                sigma[j] = np.nextafter(sigma[j], np.inf if j % 2 else 0.0)
+        return y, sigma, 60
+    if name == "sigma_huge":         # finite huge, overflowing, infinite, NaN, zero and tiny sigma
+        y = np.log(100.0) + np.cumsum(r.normal(0.0, 1e-3, 200))
+        vals = np.array([1e300, 1e307, np.finfo(np.float64).max, np.inf, np.nan, 0.0, -0.0,
+                         1e-300, 5e-324, 2.0 ** 1020])
+        return y, vals[np.arange(200) % len(vals)], 50
+    if name == "huge_dyn":           # quotients that overflow, products p that overflow
+        y = r.choice([-1.0, 1.0], 120) * 10.0 ** r.uniform(290, 308, 120)
+        sigma = np.where(np.arange(120) % 2 == 0, 1e-10, 1.0)
+        return y, sigma, 40
+    if name == "w3":                 # the smallest window: one lag
+        y = np.log(100.0) + np.cumsum(r.normal(0.0, 1e-3, 100))
+        return y, _walk_sigma(y, 3), 3
     raise KeyError(name)

@@ -56,15 +56,23 @@ to its plain version (the fills bit for bit, the closes exactly). Then one
 its kernels and memsets, their device time and count. The last line is one
 JSON object of the times.
 
-``python3 scripts/probe_torch_variants.py RW [W variant names]`` traces
-kernel R's three passes under ``torch.profiler`` (device time, registers and
-estimated occupancy of each) at the month's trade count, with a constant and
-a time-varying decay, and on the month's one-minute bars; then times the
-kernel W builds of ``W_VARIANTS`` named (``csrc/csw.cu`` with edits, built
-alone; "no division" is an ablation whose values differ), in turns, on the
-month's bars at window 1000 and on 50,000 log prices at window 500, each
-checked against the plain statistic. The last line is one JSON object of the
-times.
+``python3 scripts/probe_torch_variants.py RW [names]`` probes kernels R
+(``csrc/recurrence.cu``) and W (``csrc/csw.cu``): "as built", each variant of
+``RW_VARIANTS`` named (edits of the package's ``csw.cu`` and
+``recurrence.cu``; those of ``ABLATIONS``, such as "without pass 2" and "R
+without look-back", compute other values)
+and each ``name=dir`` whose directory holds another checkout's
+``finmlkit_tpu_torch`` (a ``git archive`` of the parent commit unpacked under
+``build/``), each built by its own ``nvcc`` and called through its C entry
+points as the package's wrappers call them. Each build is held to the plain
+versions (R within rtol 1e-12 and equal run to run, W bit for bit), then
+timed in four turns: R at the month's trade count with a constant and a
+time-varying decay and on the month's one-minute bars, W on the month's bars
+at window 1000, 50,000 log prices and a flat series at window 500. Then R's
+look-back distances and W's pass-2 shares where a build reports them, a call
+of R on the bars in wall and host time, and one ``torch.profiler`` trace of
+each build (device time, registers, estimated occupancy). The last line is
+one JSON object.
 
 ``python3 scripts/probe_torch_variants.py G [names]`` probes kernel G
 (``csrc/volume_profile.cu``) on ``chip_smoke.py`` phase 10's inputs: the
@@ -749,59 +757,125 @@ def probe_fe(specs):
                               for name in builds}}))
 
 
-RW_KERNELS = r"tile_maps_kernel|tile_ends_kernel|scan_tiles_kernel|csw_kernel"
-W_VARIANTS = {
-    "as built": [],
-    # an ablation: the quotient taken as a product (wrong values), to weigh
-    # the float64 division against the rest of the loop
-    "no division": [_sub(r"__ddiv_rn\(fabs\(dyn\), denom\)", "__dmul_rn(fabs(dyn), denom)")],
+RW_KERNELS = r"tile_maps_kernel|tile_ends_kernel|scan_tiles_kernel|recurrence_kernel\w*|csw_kernel"
+# variants of kernels W and R: edits of csrc/csw.cu and csrc/recurrence.cu
+# built beside the named builds; name -> (csw.cu edits, recurrence.cu edits)
+RW_VARIANTS = {
+    # ablations of W (values differ): pass 2 skipped (only the best lags'
+    # offers and (0, kmax) reach the sides), and pass 1 alone (no division, no
+    # pass 2, no merge), to weigh the parts
+    "without pass 2": ([_sub(r"  while \(lanes\) \{", "  while (lanes && sig < 0.0) {")], []),
+    "pass 1 alone": ([_sub(r"  if \(__any_sync\(kFull, bad\)\) \{  // the exact path",
+                           "  if (sig > -1.0) return pu > 1e300 || pd < -1e300 || ku > 0x7ffffff0"
+                           " || kd > 0x7ffffff0;\n  if (__any_sync(kFull, bad)) {")], []),
+    # a mutation of W: T = L, without the step to the double below (values
+    # differ: the filter series show it)
+    "W without the ulp step": ([_sub(r"const double tu = pred\(lu\), td = pred\(ld\);",
+                                     "const double tu = lu, td = ld;")], []),
+    # a kernel that returns at once: what CUDA events read for a call whose
+    # device time is below the probe's host time a call
+    "W empty": ([_sub(r"  const int lane = threadIdx.x & 31;\n  const int kmax",
+                      "  if (n > 0) return;\n  const int lane = threadIdx.x & 31;\n"
+                      "  const int kmax")], []),
+    # W with 5 or 6 blocks an SM asked of the register allocator, not 4
+    # (values equal)
+    "W 5 blocks": ([_sub(r"__launch_bounds__\(kThreads, 4\)\ncsw_kernel",
+                         "__launch_bounds__(kThreads, 5)\ncsw_kernel")], []),
+    "W 6 blocks": ([_sub(r"__launch_bounds__\(kThreads, 4\)\ncsw_kernel",
+                         "__launch_bounds__(kThreads, 6)\ncsw_kernel")], []),
+    # R with tiles of 2048 and of 4096 where a is a constant or one a row, not
+    # 8192 (values equal)
+    "R tiles of 2048": ([], [_sub(r"return form == kElem \? 8 : 32;", "return 8;")]),
+    "R tiles of 4096": ([], [_sub(r"return form == kElem \? 8 : 32;",
+                                  "return form == kElem ? 8 : 16;")]),
+    # R polling without the sleep between polls (values equal)
+    "R no back-off": ([], [_sub(r"  __nanosleep\(ns\);\n", "")]),
+    # an ablation of R (values differ): no look-back, every carry 0, to weigh
+    # the look-back against the tile's own loads, scans and writes
+    "R without look-back": ([], [_sub(
+        r"const double carry = look_back\(lb, g, r, grp, row \* groups_of\(tiles\) \+ grp, "
+        r"total, &walked\);", "const double carry = 0.0;")]),
 }
+# the variants whose values differ from the plain versions'
+ABLATIONS = {"without pass 2", "pass 1 alone", "W without the ulp step", "W empty",
+             "R without look-back"}
 
 
-def w_library(out_dir, edits):
-    """Kernel W (``csrc/csw.cu`` with ``edits``) built alone; returns its C
-    entry and ptxas's report."""
+def rw_library(src_dir, out_dir, edits=((), ())):
+    """Kernels R and W from ``src_dir`` (with ``edits``, a pair of lists for
+    ``csw.cu`` and ``recurrence.cu``) built alone; returns
+    ``(r, w, ptxas report)``: ``r(a, b, dist=None)`` and ``w(y, sigma, w,
+    stats=None)`` on CUDA tensors, each as the package's wrapper calls it (the
+    output and scratch from ``torch.empty``). An earlier source (R's three
+    launches, W without its filter table) is called with its own arguments."""
+    from finmlkit_tpu_torch.feature.kernels import structural_break as sb
     out_dir.mkdir(parents=True, exist_ok=True)
-    src = (CSRC / "csw.cu").read_text()
-    for edit in edits:
-        src = edit(src)
-    (out_dir / "csw.cu").write_text(src)
+    csw = (Path(src_dir) / "csw.cu").read_text()
+    for edit in edits[0]:
+        csw = edit(csw)
+    (out_dir / "csw.cu").write_text(csw)
+    rec = (Path(src_dir) / "recurrence.cu").read_text()
+    for edit in edits[1]:
+        rec = edit(rec)
+    (out_dir / "recurrence.cu").write_text(rec)
     log = nvcc(out_dir, out_dir / "lib.so")
     lib = ctypes.CDLL(str(out_dir / "lib.so"))
-    P, I64 = ctypes.c_void_p, ctypes.c_longlong
-    lib.fmk_csw_sup_stat.argtypes = [P, P, P, P, I64, I64, P, P, P, P, P]
-    return lib.fmk_csw_sup_stat, ptxas_summary(log, RW_KERNELS)
+    P, I64, F64, I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_double, ctypes.c_int
+    filtered, one_pass = "isq" in csw, "look_back" in rec
+    lib.fmk_csw_sup_stat.argtypes = ([P] * 5 + [I64, I64] + [P] * 6 if filtered
+                                     else [P] * 4 + [I64, I64] + [P] * 5)
+    lib.fmk_recurrence_scratch_bytes.argtypes = [I64, I64]
+    lib.fmk_recurrence_scratch_bytes.restype = I64
+    lib.fmk_linear_recurrence.argtypes = [P, F64, I64, I32, P, P, P, P, I64, I64] + (
+        [P, P] if one_pass else [P])
+
+    def r(a, b, dist=None):
+        n = b.shape[-1]
+        out = torch.empty_like(b)
+        scratch = torch.empty(lib.fmk_recurrence_scratch_bytes(1, n), dtype=torch.uint8,
+                              device="cuda")
+        const = not torch.is_tensor(a)
+        args = [None if const else a.data_ptr(), float(a) if const else 0.0, 0,
+                0 if const else 1, b.data_ptr(), None, out.data_ptr(), scratch.data_ptr(),
+                1, n] + ([None if dist is None else dist.data_ptr()] if one_pass else [])
+        rc = lib.fmk_linear_recurrence(*args, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"kernel R from {src_dir}: CUDA error {rc}")
+        return out
+
+    def w(y, sigma, win, stats=None):
+        sqrt_k, crit = sb._tables(win, y.device)
+        out = [torch.empty_like(y) for _ in range(4)]
+        ptrs = [y.data_ptr(), sigma.data_ptr(), sqrt_k.data_ptr()]
+        if filtered:
+            ptrs.append(sb._all_tables(win, sb._device_key(y.device))[2].data_ptr())
+        ptrs += [crit.data_ptr(), y.shape[0], win, *(o.data_ptr() for o in out)]
+        if filtered:
+            ptrs.append(None if stats is None else stats.data_ptr())
+        rc = lib.fmk_csw_sup_stat(*ptrs, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"kernel W from {src_dir}: CUDA error {rc}")
+        return out
+    return r, w, ptxas_summary(log, RW_KERNELS)
 
 
-def trace_r(card, what, a, b):
-    """One kernel R call's passes under torch.profiler (5 calls traced)."""
+def probe_rw(specs):
+    """Kernels R and W of the builds ``specs`` (name -> (source dir, W
+    edits)) in turns: R at the month's trade count with a constant and a
+    time-varying decay and on the month's one-minute bars (a call's wall and
+    host time there too), W on the month's bars at window 1000, 50,000 log
+    prices and the flat series at 500; the look-back distances and W's pass-2
+    shares of the builds that report them; one ``torch.profiler`` trace of
+    each build's R and W (device time, registers, occupancy)."""
     from torch.profiler import ProfilerActivity, profile
-    from finmlkit_tpu_torch.ops import scan
-    scan.linear_recurrence(a, b)
-    torch.cuda.synchronize()
-    path = OUT / f"r_trace_{re.sub(r'[^a-z0-9]+', '_', what)}.json"
-    path.parent.mkdir(parents=True, exist_ok=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            scan.linear_recurrence(a, b)
-        torch.cuda.synchronize()
-    prof.export_chrome_trace(str(path))
-    rows = {k: dict(v, ms=v["ms"] / 5, launches=v["launches"] // 5)
-            for k, v in kernel_args(path).items()}
-    call = cs.cuda_ms(lambda: scan.linear_recurrence(a, b), reps=20)
-    cs.say(f"R, {what}: " + ", ".join(
-        f"{k} {v['ms']:.4f} ms ({v.get('registers per thread')} registers, est. "
-        f"occupancy {v.get('est. achieved occupancy %')}%)" for k, v in rows.items())
-        + f"; the call {call:.4f} ms (CUDA events, 20 calls) [{card}]")
-    return dict(rows, call_ms=call)
-
-
-def probe_rw(names):
-    """Kernel R's passes traced at the month's trade count and on the month's
-    bars; kernel W's builds ``names`` timed in turns on the month's bars at
-    window 1000 and on 50,000 log prices at window 500."""
     from finmlkit_tpu_torch.feature.kernels import structural_break as sb
+    from finmlkit_tpu_torch.ops import scan
     card = cs.phase_env()
+    builds = {}
+    for i, (name, (src, edits)) in enumerate(specs.items()):
+        builds[name] = rw_library(src, OUT / f"rw{i}", edits)
+        for fn, what in builds[name][2]:
+            cs.say(f"RW {name}: {fn} {what}")
     bars = cs.month_bars(cs.make_month(cs.N_MONTH))
     nb = bars["close"].shape[0]
     g = torch.Generator(device="cuda").manual_seed(11)
@@ -809,46 +883,119 @@ def probe_rw(names):
     b = 107_000.0 * torch.exp(torch.cumsum(
         torch.randn(n, dtype=torch.float64, device="cuda", generator=g) * 2e-5, 0))
     a = torch.exp(-torch.rand(n, dtype=torch.float64, device="cuda", generator=g) * 0.14 / 60.0)
-    traced = {f"constant a, n={n}": trace_r(card, f"constant a, n={n}", 1.0 - 2.0 / 101.0, b),
-              f"varying a, n={n}": trace_r(card, f"varying a, n={n}", a, b),
-              f"the month's {nb} bars": trace_r(card, f"the month's {nb} bars",
-                                                1.0 - 2.0 / 21.0, bars["close"])}
-    del a, b
-
-    builds = {name: w_library(OUT / f"w{i}", W_VARIANTS[name]) for i, name in enumerate(names)}
-    for name, (_, regs) in builds.items():
-        cs.say(f"W {name}: " + "; ".join(f"{k} {v}" for k, v in regs))
-    r = np.random.default_rng(12)
-    walk = torch.from_numpy(100.0 * np.exp(np.cumsum(r.normal(0.0, 1e-3, 50_000)))).cuda()
-    shapes = {f"the month's {nb:,} bars, window {cs.CSW_WINDOW}": (bars["close"], cs.CSW_WINDOW),
-              "50,000 log prices, window 500": (walk, 500)}
-    times, exact = {}, {}
-    for shape, (p, w) in shapes.items():
-        y = torch.log(p)
-        _, sigma = sb._sigma(y, w)
-        sqrt_k, crit = sb._tables(w, y.device)
-        want = sb._sup_stat_plain(y, sigma, w, sqrt_k, crit)
-        out = [torch.empty_like(y) for _ in range(4)]
-        for turn in range(4):
-            order = list(builds) if turn % 2 == 0 else list(reversed(builds))
-            for name in order:
-                fn = builds[name][0]
-
-                def run():
-                    rc = fn(y.data_ptr(), sigma.data_ptr(), sqrt_k.data_ptr(), crit.data_ptr(),
-                            y.shape[0], w, *(o.data_ptr() for o in out),
-                            torch.cuda.current_stream().cuda_stream)
-                    if rc != 0:
-                        raise RuntimeError(f"W {name}: CUDA error {rc}")
-                times.setdefault(f"{shape} | {name}", []).append(cs.cuda_ms(run, reps=20))
-                exact[f"{shape} | {name}"] = all(
-                    bool(((o == v) | (torch.isnan(o) & torch.isnan(v))).all())
-                    for o, v in zip(out, want))
-        cs.say(f"W on {shape} (4 turns): " + ", ".join(
-            f"{name} {min(times[f'{shape} | {name}']):.4f}-{max(times[f'{shape} | {name}']):.4f} ms"
-            + ("" if exact[f"{shape} | {name}"] else " (ablation: values differ)")
-            for name in builds) + f" [{card}]")
-    cs.say(json.dumps({"card": card, "r_traced": traced, "w_ms": times, "w_exact": exact}))
+    r_in = {f"varying a, n={n}": (a, (1.0 - a) * b), f"constant a, n={n}": (1.0 - 2.0 / 101.0, b),
+            f"the month's {nb:,} bars": (1.0 - 2.0 / 21.0, bars["close"])}
+    r_bound = {k: cs.bound((24 if torch.is_tensor(aa) else 16) * bb.shape[0], 2 * bb.shape[0],
+                           cs.PEAK_F64_OPS_PER_S)[0] for k, (aa, bb) in r_in.items()}
+    w_in = cs.w_series(bars)
+    w_args = {}
+    for k, (prices, win) in w_in.items():
+        y = torch.log(prices)
+        w_args[k] = (y, sb._sigma(y, win)[1], win)
+    # every build held to the plain versions first
+    close, exact, dists, shares = {}, {}, {}, {}
+    for k, (aa, bb) in r_in.items():
+        want = scan.linear_recurrence_plain(aa, bb)
+        mag = float(want.abs().max())
+        for name, (r, _, _) in builds.items():
+            got = r(aa, bb)
+            close[f"{k} | {name}"] = float(((got - want).abs() / (want.abs() + mag)).max())
+            if name not in ABLATIONS and not close[f"{k} | {name}"] <= 1e-12:
+                cs.fail(f"R {name} on {k}: {close[f'{k} | {name}']} above 1e-12 of plain")
+            if name not in ABLATIONS and not torch.equal(r(aa, bb), got):
+                cs.fail(f"R {name} on {k}: not equal from run to run")
+            if "look_back" in (Path(specs[name][0]) / "recurrence.cu").read_text():
+                d = torch.zeros(-(-bb.shape[0] // scan.tile_of(aa, bb.shape[0])),
+                                dtype=torch.int32, device="cuda")
+                r(aa, bb, d)
+                d = d[1:].double()
+                dists[f"{k} | {name}"] = (float(d.median()) if d.numel() else 0.0,
+                                          float(d.max()) if d.numel() else 0.0)
+    for k, (y, sigma, win) in w_args.items():
+        want = sb._sup_stat_plain(y, sigma, win, *sb._tables(win, y.device))
+        for name, (_, w, _) in builds.items():
+            stats = torch.zeros(y.shape[0], 4, dtype=torch.int32, device="cuda")
+            got = w(y, sigma, win, stats)
+            exact[f"{k} | {name}"] = all(
+                bool(((o == v) | (torch.isnan(o) & torch.isnan(v))).all())
+                for o, v in zip(got, want))
+            if "isq" in (Path(specs[name][0]) / "csw.cu").read_text():
+                shares[f"{k} | {name}"] = cs.w_shares(stats)
+    # W on the filter's adversarial series (testing.csw_filter_case), bit for bit
+    from finmlkit_tpu_torch.testing import CSW_FILTER_CASES, csw_filter_case
+    series_fail = {name: [] for name in builds}
+    for case in CSW_FILTER_CASES:
+        yn, sn, win = csw_filter_case(case)
+        y, sigma = torch.from_numpy(yn).cuda(), torch.from_numpy(sn).cuda()
+        want = sb._sup_stat_plain(y, sigma, win, *sb._tables(win, y.device))
+        for name, (_, w, _) in builds.items():
+            got = w(y, sigma, win)
+            if not all(bool(((o == v) | (torch.isnan(o) & torch.isnan(v))).all())
+                       for o, v in zip(got, want)):
+                series_fail[name].append(case)
+    cs.say("W on the filter series, the cases that differ from plain by build: "
+           + json.dumps(series_fail))
+    cs.say("R within rtol 1e-12 of plain (largest |diff| / (|want| + magnitude)): "
+           + json.dumps(close) + "; look-back tiles (median, largest): " + json.dumps(dists))
+    cs.say("W == plain bit for bit: " + json.dumps(exact) + "; pass-2 shares: "
+           + json.dumps(shares))
+    # in turns: parent, change, change, parent, ...
+    times = {}
+    for turn in range(4):
+        order = list(builds) if turn % 2 == 0 else list(reversed(builds))
+        for name in order:
+            r, w, _ = builds[name]
+            for k, (aa, bb) in r_in.items():
+                times.setdefault(f"R {k} | {name}", []).append(
+                    cs.cuda_ms(lambda: r(aa, bb), reps=20 if bb.shape[0] > 10**6 else 200))
+            for k, (y, sigma, win) in w_args.items():
+                times.setdefault(f"W {k} | {name}", []).append(
+                    cs.cuda_ms(lambda: w(y, sigma, win), reps=20))
+    for key, v in times.items():
+        cs.say(f"{key}: {min(v):.4f}-{max(v):.4f} ms in 4 turns [{card}]")
+    # a call on the bars through each build as the wrapper calls it: wall time
+    # (each call synchronized) and host time (200 calls enqueued)
+    aa, bb = r_in[f"the month's {nb:,} bars"]
+    call_us = {}
+    for turn in range(2):
+        for name in (list(builds) if turn == 0 else list(reversed(builds))):
+            r = builds[name][0]
+            r(aa, bb)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                r(aa, bb)
+            host = (time.perf_counter() - t0) / 200 * 1e6
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                r(aa, bb)
+                torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / 200 * 1e6
+            call_us.setdefault(name, []).append({"wall": wall, "host": host})
+    cs.say("R on the bars, us a call (wall, host) in 2 turns: " + json.dumps(call_us)
+           + f" [{card}]")
+    # one trace of each build's R (varying a at the month's count) and W (the month's bars)
+    OUT.mkdir(parents=True, exist_ok=True)
+    path = OUT / "rw_trace.json"
+    ra, rb = r_in[f"varying a, n={n}"]
+    wy, ws, ww = w_args[next(k for k in w_args if k.startswith("the month"))]
+    rows = {}
+    for name, (r, w, _) in builds.items():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                r(ra, rb)
+                w(wy, ws, ww)
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(str(path))
+        rows[name] = {k: dict(v, ms=v["ms"] / 5) for k, v in kernel_args(path).items()}
+    cs.say("traced, a call of R (varying a, the month's count) and W (the month's bars) of "
+           "each build (device ms, registers, occupancy by kernel): "
+           + json.dumps(rows) + f" [{card}]")
+    cs.say(json.dumps({"card": card, "ms": times, "bounds_ms": r_bound, "r_close": close,
+                       "w_filter_series_differ": series_fail,
+                       "r_lookback_tiles": dists, "w_exact": exact, "w_pass2": shares,
+                       "r_bars_call_us": call_us, "traced": rows}))
 
 
 G_KERNELS = r"profile_kernel\w*"
@@ -1101,7 +1248,12 @@ def main():
     if len(sys.argv) > 1 and sys.argv[1] == "RW":
         if not torch.cuda.is_available():
             cs.fail("no CUDA device")
-        return probe_rw(sys.argv[2].split(",") if len(sys.argv) > 2 else list(W_VARIANTS))
+        specs = {}
+        for spec in (sys.argv[2].split(",") if len(sys.argv) > 2 else ["as built"]):
+            name, _, src = spec.partition("=")
+            d = ROOT / src / "finmlkit_tpu_torch" / "csrc" if src else CSRC
+            specs[name] = (d if d.is_dir() else ROOT / src, RW_VARIANTS.get(name, ((), ())))
+        return probe_rw(specs)
     if len(sys.argv) > 1 and sys.argv[1] == "FE":
         if not torch.cuda.is_available():
             cs.fail("no CUDA device")

@@ -16,12 +16,13 @@ from finmlkit_tpu_torch.bar.fused import median_engine, median_pairs, planes_pro
 from finmlkit_tpu_torch.bar.indexers import dollar_bar_indexer_q
 from finmlkit_tpu_torch.feature.kernels import structural_break, volume
 from finmlkit_tpu_torch.ops import event_scan, fused_scan, prefix_scan, scan, segment_hist
-from finmlkit_tpu_torch.testing import (CUSUM_BAD, PROFILE_CASES, PROFILE_EXTRA_CASES,
+from finmlkit_tpu_torch.testing import (CSW_FILTER_CASES, CUSUM_BAD, PROFILE_CASES,
+                                       PROFILE_EXTRA_CASES,
                                        PROFILE_ROW_CASES, PROFILE_TS, PROFILE_WINDOW,
                                        TILE_CLOSES, adversarial_trades, assert_close,
                                        assert_exact, assert_window_close, cusum_bad_inputs,
-                                       cusum_recurrence, profile_case, profile_rows_case,
-                                       tile_closes, zeros_and_twos)
+                                       csw_filter_case, cusum_recurrence, profile_case,
+                                       profile_rows_case, tile_closes, zeros_and_twos)
 
 pytestmark = pytest.mark.cuda
 
@@ -547,9 +548,9 @@ def test_io_floor_matches_plain(cuda, n):
     assert fused_scan.IO_FLOOR_LAUNCHES == before + 9
 
 
-# kernel R's tiles hold 2048 values; past 2048 tiles (4,194,304 values) its
-# second pass walks the tile maps in more than one round
-REC_NS = [1, 2, 2047, 2048, 2049, 2048 * 2048 + 1, 1_000_000]
+# kernel R's tiles hold 2048 values (8192 where a is a float or one a row), in
+# groups of 32 tiles; 2048 * 2048 + 1 values make 65 groups (17 of the wider)
+REC_NS = [1, 2, 2047, 2048, 2049, 8193, 2048 * 2048 + 1, 1_000_000]
 
 
 def _recurrence_case(kind, n, device, seed):
@@ -591,6 +592,57 @@ def test_recurrence_matches_plain(cuda, kind, n):
         assert_exact(scan.linear_recurrence(a, b, y0=y0), got, "run to run")
 
 
+@pytest.mark.parametrize("n", REC_NS)
+@pytest.mark.parametrize("kind", ["varying", "rows"])
+def test_recurrence_repeats_over_50_calls(cuda, kind, n):
+    """Kernel R's look-back may stop at any tile; the result must not depend
+    on it: 50 calls give the same bits."""
+    a, b, y0 = _recurrence_case(kind, n, cuda, n + 7)
+    first = scan.linear_recurrence(a, b, y0=y0)
+    for i in range(50):
+        assert_exact(scan.linear_recurrence(a, b, y0=y0), first, f"call {i}")
+
+
+def test_recurrence_repeats_beside_a_busy_stream(cuda):
+    """With another stream keeping the SMs busy, tiles are scheduled and
+    published in another pattern and look-backs stop elsewhere; the bits stay
+    those of a quiet call."""
+    n = 2048 * 2048 + 1
+    a, b, _ = _recurrence_case("varying", n, cuda, 3)
+    quiet = scan.linear_recurrence(a, b)
+    x = torch.randn(4096, 4096, device=cuda)
+    side = torch.cuda.Stream()
+    dists = set()
+    for _ in range(5):
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(8):
+                x = torch.tanh(x @ x * 1e-3)
+        dist = torch.zeros(-(-n // scan.tile_of(a, n)), dtype=torch.int32, device=cuda)
+        got = scan._kernel(a, b, None, dist)
+        assert_exact(got, quiet, "beside a busy stream")
+        dists.add(tuple(torch.bincount(dist.cpu().long()).tolist()))
+    torch.cuda.synchronize()
+    assert all(len(d) >= 2 for d in dists)   # every tile but the first looked back
+
+
+@pytest.mark.parametrize("rows,n", [(1, 1), (1, 2049), (1, 2048 * 2048 + 1), (3, 5000)])
+def test_recurrence_launches_one_kernel(cuda, rows, n):
+    """A call of kernel R is one memset and one kernel, whatever its size."""
+    from torch.profiler import ProfilerActivity, profile
+    b = torch.rand(rows, n, dtype=torch.float64, device=cuda).squeeze(0)
+    a = torch.rand(n, dtype=torch.float64, device=cuda)
+    scan.linear_recurrence(a, b)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        scan.linear_recurrence(a, b)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+    kernels = [m for m in names if "recurrence_kernel" in m]
+    memsets = [m for m in names if "memset" in m.lower()]
+    assert len(kernels) == 1 and len(memsets) == 1 and len(names) == 2, names
+
+
 CSW_CASES = {"walk": (20_000, 500), "flat": (20_000, 500), "nan": (5_000, 300),
              "short_window": (3_000, 3)}
 
@@ -626,6 +678,24 @@ def test_csw_matches_plain(cuda, case):
     card = structural_break.cusum_test_rolling(_csw_prices(case, n, cuda), w, 30)
     for i, (g, v) in enumerate(zip(card, cpu)):
         assert_close(g, v, rtol=1e-12, atol=1e-12, what=f"{case} card vs cpu {i}")
+
+
+@pytest.mark.parametrize("case", CSW_FILTER_CASES)
+def test_csw_filter_cases_match_plain(cuda, case):
+    """Kernel W on the filter's adversarial series (ties of distinct quotients
+    on the subnormal grid and in the normal range, flat runs, NaN and infinite
+    prices, subnormal differences, sigma at the 1e-16 edge and huge, quotients
+    and products that overflow, w = 3): bit for bit its plain version."""
+    y, sigma, w = (torch.from_numpy(v).to(cuda) if isinstance(v, np.ndarray) else v
+                   for v in csw_filter_case(case))
+    tables = structural_break._tables(w, cuda)
+    stats = torch.zeros(y.shape[0], 4, dtype=torch.int32, device=cuda)
+    got = structural_break._sup_stat(y, sigma, w, *tables, stats=stats)
+    want = structural_break._sup_stat_plain(y, sigma, w, *tables)
+    for i, (g, v) in enumerate(zip(got, want)):
+        assert_exact(g, v, f"{case} output {i}")
+    st = stats.cpu().numpy()
+    assert (st[:, 2] <= st[:, 1]).all() and (st[:, 1] <= st[:, 0]).all()
 
 
 def _profile_inputs(case, device):
