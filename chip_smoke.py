@@ -9,8 +9,9 @@ triple-barrier labels -> uniqueness and return-attribution weights), the
 order-flow path of ``bench.py`` config 2 (dollar bars at total dollars /
 40000 -> bar products and medians -> dense footprints -> trade-size
 features), the information-driven bars of config 6 through the kits, the
-time bars' products through every median engine and bar scan, and the time
-bars' features. Phases:
+time bars' products through every median engine and bar scan, the time
+bars' features, and the chain from raw trades to final sample weights.
+Phases:
 
 1. environment: torch, CUDA, nvcc, triton, the card's name and power limit;
 2. build the kernels (``build/finmlkit_tpu_torch/``);
@@ -112,12 +113,34 @@ bars' features. Phases:
    rows mode against plain (its walks a thread each too), the adversarial
    profiles of ``testing`` against plain; G timed with its bound, rolling and
    rows mode, at 27 bins and none; B, S, C, R, W and G launched on the
-   phase's path; peak device memory.
+   phase's path; peak device memory;
+11. the chain, ``examples/quickstart.py``'s flow on the month: a
+   ``TradesData`` from the raw trades (ids 0..n-1, the sides as
+   ``is_buyer_maker``; its host seconds; equal to the input columns, since the
+   month has no split trades), ``TimeBarKit`` on it (1-minute bars), the
+   pipeline (``bar_feature_dispatch`` and ``bar_feature_drain``) with BASELINE
+   config 4's six features as a planned graph, ``cusum_filter`` on the closes
+   (0.002), ``TBMLabel`` on the features frame at the events (target realized
+   volatility 30, its leading NaNs trimmed by the kit; a 30-minute vertical
+   barrier over every trade), ``compute_weights`` and
+   ``SampleWeights.compute_final_weights`` (intercept 0.5, the attribution,
+   the vertical-touch weights and the labels), ``z_score_peak_filter`` on the
+   closes' log returns (window 50, threshold 3); through the kernels and
+   through the plain versions. The pipeline's bars equal the kit's
+   ``build_ohlcv`` and ``build_directional_features`` and its features
+   config 4's kit build, bit for bit; kernel path against plain path: bars,
+   features, events, event and touch indices and labels exact, uniqueness,
+   attribution and final weights within rtol 1e-12 of their prefix
+   magnitude, the final weights equal between two kernel runs, the z-score
+   events equal but for z-scores within 1e-9 of the threshold (counted);
+   B, S and R launched; each stage's time, the chain end to end, peak device
+   memory. B, S and R are timed here when no earlier phase timed them.
 
 Run from the repository root: ``python3 chip_smoke.py``; ``--phases 1,2,6``
 runs only the order-flow path, ``--phases 1,2,7`` only the information-driven
 bars, ``--phases 1,2,8`` only the engines, ``--phases 1,2,9`` only the
-features, ``--phases 1,2,10`` only the framework and the profile, and
+features, ``--phases 1,2,10`` only the framework and the profile,
+``--phases 1,2,11`` only the chain, and
 ``--profile`` adds, after phase 6, the
 footprint features' own time, a ``torch.profiler`` table of one run of the
 order-flow path and its device idle share. Any failure exits non-zero
@@ -2672,10 +2695,260 @@ def phase_framework(card, month, need):
     return launches, entries
 
 
+# phase 11: the chain (examples/quickstart.py's flow) on the month
+CHAIN_CUSUM = 0.002            # cusum_filter's threshold on the closes (as phase 5's)
+CHAIN_BARRIER_MIN = 30         # the vertical barrier, minutes
+CHAIN_TARGET = "close_ret1_rv30"   # config 4's realized volatility 30
+CHAIN_INTERCEPT = 0.5          # the time decay's last weight
+Z_WINDOW, Z_THRESHOLD = 50, 3.0
+Z_TIE = 1e-9                   # z-scores this close (relative) to the threshold may flip
+CHAIN_STAGES = ("bars", "dispatch", "drain", "cusum", "labels", "weights", "final",
+                "zscore")
+
+
+def chain_trades(month):
+    """The month as a ``TradesData`` from raw trades (ids 0..n-1, the sides as
+    ``is_buyer_maker``), preprocessed on the host; returns it and its host
+    seconds."""
+    from finmlkit_tpu_torch.bar import TradesData
+    t0 = time.perf_counter()
+    td = TradesData(month["ts"], month["price"], month["amount"],
+                    np.arange(month["n"], dtype=np.int64),
+                    is_buyer_maker=month["side"] < 0, preprocess=True)
+    return td, time.perf_counter() - t0
+
+
+def chain_graph():
+    """Config 4's kit and its planned graph over the pipeline's bar columns."""
+    from finmlkit_tpu_torch.feature import fuse
+    kit4, _ = config4_kit()
+    topo = {str(f.name): f for f in kit4.features}
+    cols = dict.fromkeys(("open", "high", "low", "close", "volume", "vwap", "trades"))
+    return kit4, fuse.build_fused_from_specs([topo[n] for n in kit4.topological_order()],
+                                             cols, "timestamp")
+
+
+def run_chain(trades, graph, device="cuda", plain=False):
+    """The chain on ``trades`` (a ``TradesData``): 1-minute time bars through
+    the kit, bars -> medians -> config 4's features through the pipeline,
+    CUSUM events on the closes, ``TBMLabel`` at the events over every trade,
+    the info weights and the final weights, the z-score filter on the closes'
+    log returns. Returns outputs and stage times (ms, CUDA events; wall time
+    on the CPU)."""
+    import datetime
+    import torch
+    from finmlkit_tpu_torch import pipeline
+    from finmlkit_tpu_torch.bar import TimeBarKit
+    from finmlkit_tpu_torch.label import SampleWeights, TBMLabel
+    from finmlkit_tpu_torch.ops import prefix_scan
+    from finmlkit_tpu_torch.sampling import cusum_filter, z_score_peak_filter
+    cumsum = prefix_scan.fast_cumsum_plain if plain else prefix_scan.fast_cumsum
+    on_card = torch.device(device).type == "cuda"
+    marks = []
+
+    def mark():
+        if on_card:
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            marks.append(e)
+        else:
+            marks.append(time.perf_counter())
+
+    mark()
+    kit = TimeBarKit(trades, datetime.timedelta(minutes=1), device=device, plain=plain)
+    bar_ts = kit.bar_close_timestamps
+    ci, tr = kit._ci, kit.trades
+    mark()
+    handles = pipeline.bar_feature_dispatch(
+        tr.ticks, tr.units, ci, tr.sides, tick_size=tr.tick_size,
+        amount_scale=tr.amount_scale, graph=graph, bar_ts=bar_ts,
+        amounts_f32=tr.amounts, plain=plain)
+    mark()
+    ohlcv, direc, feats = pipeline.bar_feature_drain(handles)
+    mark()
+    close = torch.from_numpy(ohlcv["close"]).to(device)
+    events = cusum_filter(close, [CHAIN_CUSUM])
+    frame = {"timestamp": bar_ts[events], "close": close[events],
+             **{k: torch.from_numpy(v).to(device)[events] for k, v in feats.items()}}
+    mark()
+    label_kit = TBMLabel(frame, target_ret_col=CHAIN_TARGET, min_ret=0.0,
+                         horizontal_barriers=(1.0, 1.0),
+                         vertical_barrier=datetime.timedelta(minutes=CHAIN_BARRIER_MIN))
+    used, out = label_kit.compute_labels(trades)
+    mark()
+    info = label_kit.compute_weights(trades, cumsum=cumsum)
+    mark()
+    final = SampleWeights.compute_final_weights(
+        info["avg_uniqueness"], CHAIN_INTERCEPT,
+        return_attribution=info["return_attribution"],
+        vertical_touch_weights=out["vertical_touch_weights"], labels=out["labels"],
+        cumsum=cumsum)
+    mark()
+    z = z_score_peak_filter(log_return(close)[1:], Z_WINDOW, Z_THRESHOLD, cumsum=cumsum)
+    mark()
+    if on_card:
+        torch.cuda.synchronize()
+        times = [marks[i].elapsed_time(marks[i + 1]) for i in range(len(marks) - 1)]
+        total = marks[0].elapsed_time(marks[-1])
+    else:
+        times = [(marks[i + 1] - marks[i]) * 1e3 for i in range(len(marks) - 1)]
+        total = (marks[-1] - marks[0]) * 1e3
+    stages = dict(zip(CHAIN_STAGES, times), total=total)
+    return dict(kit=kit, ohlcv=ohlcv, directional=direc, features=feats, events=events,
+                used=used, out=out, info=info, final=final, z=z), stages
+
+
+def z_ties(ret, window=Z_WINDOW, threshold=Z_THRESHOLD, rel=Z_TIE):
+    """Indices of ``ret`` (float64 numpy) whose z-score over the ``window``
+    values before them lies within ``rel`` of the threshold."""
+    from numpy.lib.stride_tricks import sliding_window_view
+    win = sliding_window_view(ret[:-1], window)
+    mean, std = win.mean(axis=1), win.std(axis=1)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        z = np.abs(ret[window:] - mean) / std
+    return set((np.flatnonzero(np.abs(z - threshold) <= rel * threshold) + window).tolist())
+
+
+def check_chain(k, p, trades):
+    """The chain's kernel path ``k`` against its plain path ``p`` (run_chain
+    outputs). Returns (largest window-close deviation, z-score ties)."""
+    import torch
+    from finmlkit_tpu_torch.label.weights import return_attribution
+    from finmlkit_tpu_torch.ops import prefix_scan
+    from finmlkit_tpu_torch.testing import assert_exact, assert_window_close
+    for part in ("ohlcv", "directional", "features"):
+        for key in p[part]:
+            assert_exact(k[part][key], p[part][key], f"chain {part}.{key}")
+    assert_exact(k["events"], p["events"], "chain events")
+    for key in ("timestamp", "touch_time", "event_idx", "touch_idx", "labels"):
+        assert_exact(k["out"][key], p["out"][key], f"chain {key}")
+    log_scale = float(np.abs(np.log(trades.data["price"])).max())
+    assert_window_close(k["out"]["returns"], p["out"]["returns"], log_scale, 1e-12,
+                        "chain returns")
+    # uniqueness: a window sum of 1 / concurrency; attribution: of log returns
+    # over concurrency; the final weights carry the attribution's at its scale
+    t = trades.tensors(p["out"]["event_idx"].device)
+    ev, touch = p["out"]["event_idx"], p["out"]["touch_idx"]
+    n = t["price"].shape[0]
+    conc = torch.zeros(n + 1, dtype=torch.float64, device=ev.device)
+    conc.index_add_(0, ev, torch.ones_like(ev, dtype=torch.float64))
+    conc.index_add_(0, touch + 1, -torch.ones_like(ev, dtype=torch.float64))
+    conc = torch.cumsum(conc, 0)[:-1]
+    inv_scale = float(torch.where(conc > 0, 1.0 / conc.clamp(min=1), 0.0).sum())
+    lr = torch.log(t["price"][1:] / t["price"][:-1]) / conc[1:].clamp(min=1)
+    lr = torch.where(conc[1:] > 0, lr, 0.0)
+    lr_scale = float(torch.cumsum(lr, 0).abs().max())
+    worst = max(
+        assert_window_close(k["info"]["avg_uniqueness"], p["info"]["avg_uniqueness"],
+                            inv_scale, 1e-12, "chain uniqueness"),
+        assert_window_close(k["info"]["return_attribution"],
+                            p["info"]["return_attribution"], lr_scale, 1e-12,
+                            "chain attribution"))
+    raw = p["info"]["return_attribution"]
+    ra_scale = lr_scale * raw.shape[0] / float(raw.sum())
+    ra, w = p["final"]["return_attribution"], p["final"]["weights"]
+    w_scale = float((w / ra)[ra > 0].max()) * ra_scale
+    worst = max(worst, assert_window_close(k["final"]["weights"], w, w_scale, 1e-12,
+                                           "chain final weights"),
+                assert_window_close(k["final"]["time_decay_weights"],
+                                    p["final"]["time_decay_weights"], 1.0, 1e-12,
+                                    "chain time decay"))
+    ret = np.log(p["ohlcv"]["close"][1:] / p["ohlcv"]["close"][:-1])
+    ties = z_ties(ret)
+    zk, zp = set(k["z"].tolist()), set(p["z"].tolist())
+    if (zk ^ zp) - ties:
+        fail(f"z-score events differ outside the ties: {sorted((zk ^ zp) - ties)[:10]}")
+    return worst, ties
+
+
+def phase_chain(card, month, need):
+    """Phase 11: the chain on the month, through the kernels and the plain
+    versions. Returns the path's launches and the ``kernels`` entries of
+    those of ``need`` that no earlier phase timed."""
+    import torch
+    from finmlkit_tpu_torch.ops import fused_scan, prefix_scan, scan
+    from finmlkit_tpu_torch.testing import assert_exact
+    t_phase = time.perf_counter()
+    trades, td_s = chain_trades(month)
+    d = trades.data
+    for key, want in (("timestamp", month["ts"]), ("price", month["price"]),
+                      ("amount", month["amount"]), ("side", month["side"])):
+        assert_exact(d[key], want, f"TradesData {key}")
+    say(f"chain: TradesData of {month['n']:,} trades (ids, sort, gap scan, split merge, "
+        f"sides) in {td_s:.2f} s on the host; equal to the input columns "
+        f"(missing {trades.missing_pct}%, data_ok {trades.data_ok}) [{card}]")
+    kit4, graph = chain_graph()
+
+    run_chain(trades, graph)                      # warm: allocator, tables, tensors
+    run_chain(trades, graph, plain=True)
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fused_scan.LAUNCHES = prefix_scan.LAUNCHES = prefix_scan.FLOAT_LAUNCHES = 0
+    scan.LAUNCHES = 0
+    k_out, k_st = run_chain(trades, graph)        # the path's counted run
+    torch.cuda.synchronize()
+    launches = {"B": fused_scan.LAUNCHES, "S": prefix_scan.LAUNCHES,
+                "S float": prefix_scan.FLOAT_LAUNCHES, "R": scan.LAUNCHES}
+    peak_gib = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
+    if min(launches[x] for x in ("B", "S", "R")) < 1:
+        fail(f"a kernel of the chain did not launch: {launches}")
+    p_out, p_st = run_chain(trades, graph, plain=True)
+    k2, k_st2 = run_chain(trades, graph)
+    stages = {False: [k_st, k_st2], True: [p_st]}
+
+    # --- the pipeline against the kit, and its features against the kit's ---
+    kit = k_out["kit"]
+    o, dr = kit.build_ohlcv(), kit.build_directional_features()
+    for key in k_out["ohlcv"]:
+        assert_exact(k_out["ohlcv"][key], o[key], f"pipeline ohlcv.{key} vs the kit")
+    for key in k_out["directional"]:
+        assert_exact(k_out["directional"][key], dr[key],
+                     f"pipeline directional.{key} vs the kit")
+    frame = {c: o[c] for c in ("open", "high", "low", "close", "vwap", "trades")}
+    frame.update(volume=o["volume"].to(torch.float64), timestamp=o["timestamp"])
+    want = kit4.build(frame, order="topo")
+    for key, v in k_out["features"].items():
+        assert_exact(v, want[key], f"pipeline feature {key} vs the kit's build")
+    # --- kernel path against plain path, and the final weights run to run ---
+    worst, ties = check_chain(k_out, p_out, trades)
+    for key in k_out["final"]:
+        assert_exact(k2["final"][key], k_out["final"][key], f"final {key} run to run")
+    n_ev, used = len(k_out["events"]), k_out["out"]["labels"].shape[0]
+    lab = k_out["out"]["labels"]
+    counts = {int(v): int((lab == v).sum()) for v in (-1, 0, 1)}
+    w = k_out["final"]["weights"]
+    if used == 0 or not bool(torch.isfinite(w).all()) or abs(float(w.mean()) - 1.0) > 0.5:
+        fail(f"chain weights: {used} events, mean {float(w.mean())}")
+    say(f"chain: {kit.bar_close_indices.shape[0]:,} bars, {n_ev:,} CUSUM events, {used:,} "
+        f"labelled ({counts}), z-score events {len(k_out['z']):,} ({len(ties)} within "
+        f"{Z_TIE:g} of the threshold); launches {launches}; kernel path == plain path "
+        f"(bars, features, events, indices, labels exact; weights max deviation "
+        f"{worst:.3g}; final weights equal run to run); pipeline == kit, features == "
+        f"config 4's kit [{card}]")
+    for plain in (True, False):
+        stages[plain].append(run_chain(trades, graph, plain=plain)[1])
+    med = {p: {key: float(np.median([r[key] for r in stages[p]])) for key in k_st}
+           for p in (False, True)}
+    say("chain stage ms, median (kernel | plain): " + ", ".join(
+        f"{key} {med[False][key]:.2f} | {med[True][key]:.2f}" for key in k_st)
+        + f"; TradesData {td_s * 1e3:.0f} ms on the host; the chain end to end "
+        f"{med[False]['total'] + td_s * 1e3:.0f} ms with it; peak device memory "
+        f"{peak_gib:.3f} GiB above the trades; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+
+    entries = {}
+    if need & {"B", "S"}:      # no earlier phase timed them: at this path's shapes
+        entries.update(kernels_b_s(card, kit.trades, kit._ci, launches))
+    if "R" in need:
+        entries["R"] = kernel_r(card, launches["R"], kit.bar_close_indices.shape[0])
+    return launches, entries
+
+
 def main():
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--profile", action="store_true",
                     help="after phase 6, time the footprint features alone "
@@ -2715,7 +2988,7 @@ def main():
         if s_float is not None:
             kernels["S"].setdefault("float_launches_by_path", {})[path] = s_float
 
-    month = make_month(N_MONTH) if phases & {5, 6, 7, 8, 9, 10} else None
+    month = make_month(N_MONTH) if phases & {5, 6, 7, 8, 9, 10, 11} else None
     if 5 in phases:
         merge("time", *phase_month(card, month))
     if 6 in phases:
@@ -2734,6 +3007,9 @@ def main():
     if 10 in phases:
         need = {"B", "S", "C", "R", "W"} - set(kernels)
         merge("framework", *phase_framework(card, month, need))
+    if 11 in phases:
+        need = {"B", "S", "R"} - set(kernels)
+        merge("chain", *phase_chain(card, month, need))
     say(f"smoke run: {time.perf_counter() - t_start:.1f} s, the kernels' build "
         f"included")
     if kernels:

@@ -41,8 +41,15 @@ median engine (``ops.segment_select``).
 A wrapper given a CPU tensor runs its kernel's plain PyTorch version; given a
 CUDA tensor it launches the kernel or raises.
 
+The user-facing chain: ``bar.TradesData`` (raw trades and their
+preprocessing), the bar kits (``bar.TimeBarKit`` and the others), the
+feature framework (``feature.FeatureKit``), ``pipeline`` (bars -> features
+on the device, one readback), ``sampling`` (``cusum_filter``,
+``z_score_peak_filter``) and ``label`` (``TBMLabel``, ``SampleWeights``).
+
 This package never imports JAX, pandas or ``finmlkit_tpu``.
 """
 from ._version import __version__
+from . import pipeline
 
-__all__ = ["__version__"]
+__all__ = ["__version__", "pipeline"]

@@ -1,0 +1,242 @@
+"""Raw trades and their preprocessing, on the host, without pandas.
+
+Counterpart of ``TradesData`` in ``finmlkit_tpu/bar/data_model.py``. The JAX
+class keeps a pandas DataFrame with a ``DatetimeIndex``; this one keeps a dict
+of numpy columns with the int64 timestamps under ``"timestamp"``, the frame
+convention of the port (the bar kits' and the feature framework's dicts).
+The preprocessing is the JAX class's, step for step: unit inference and
+conversion to ns, the sort by trade id and the drop of duplicate ids, the scan
+of id gaps (``missing_pct``, ``data_ok``, ``discontinuities``), the merge of
+split executions (``bar/utils.merge_split_trades``), the timestamp resolution
+``proc_res``, and the tick-rule sides when no sides are known.
+
+``FootprintData`` and the HDF5 store (``save_h5``, ``load_trades_h5``,
+``finmlkit_tpu/data/store.py``) are not ported yet.
+"""
+import datetime
+import logging
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .utils import comp_trade_side_vector, merge_split_trades
+
+__all__ = ["TradesData"]
+
+logger = logging.getLogger(__name__)
+
+_UNIT_SCALE = {"s": 1_000_000_000, "ms": 1_000_000, "us": 1_000, "ns": 1}
+_GAP_NS = 60 * 10**9       # id gaps longer than one minute are discontinuities
+
+
+def _to_ns(t) -> int:
+    """int64 ns since the epoch of ``t``: an int (ns), a ``datetime.datetime``
+    (naive means UTC, as the JAX class's naive ``DatetimeIndex``), a
+    ``numpy.datetime64`` or an ISO 8601 string."""
+    if isinstance(t, (int, np.integer)):
+        return int(t)
+    if isinstance(t, datetime.datetime):
+        if t.tzinfo is not None:
+            t = t.astimezone(datetime.timezone.utc).replace(tzinfo=None)
+        return int(np.datetime64(t, "ns").astype(np.int64))
+    if isinstance(t, (str, np.datetime64)):
+        return int(np.datetime64(t, "ns").astype(np.int64))
+    raise TypeError(f"cannot read {t!r} as a time")
+
+
+def _timedelta(ns: int) -> datetime.timedelta:
+    """``ns`` as a ``datetime.timedelta``, rounded half up to microseconds (as
+    ``pandas.Timedelta.to_pytimedelta`` rounds)."""
+    return datetime.timedelta(microseconds=(int(ns) + 500) // 1000)
+
+
+class TradesData:
+    """Raw trades with the JAX class's preprocessing (see the module
+    docstring).
+
+    ``ts``, ``px`` and ``qty`` (and ``id``) are numpy arrays of one length.
+    ``is_buyer_maker`` gives the sides (a maker buyer is a market sell) and
+    ``side`` gives them directly; with ``preprocess=True`` the sides come from
+    ``is_buyer_maker`` after the merge, or from the tick rule without it (a
+    ``side`` given then is dropped, as the JAX class drops it). ``preprocess``
+    needs ``id``. ``proc_res`` floors the ns timestamps to a coarser unit.
+
+    :attr:`data` is a dict of numpy columns: ``timestamp`` (int64; ns after
+    preprocessing, the input's unit without it), ``price`` float64,
+    ``amount`` float32, ``side`` int8 where known, and ``id`` when given
+    without preprocessing. The rows are in the JAX class's order. Kits take a
+    ``TradesData`` in place of their columns; :meth:`tensors` copies the
+    columns to a device once.
+
+    Two things differ from the JAX class. The JAX class sorts the rows by id
+    but merges with ``is_buyer_maker`` in its input order, so its sides
+    belong to other trades when the ids were not sorted, and it fails to
+    broadcast when duplicate ids were dropped (ROADMAP.md, Queue 3, R13); here
+    ``is_buyer_maker`` follows the rows. And there is no ``dt_index``: the
+    rows are keyed by their timestamps.
+    """
+
+    def __init__(self, ts, px, qty, id=None, *, is_buyer_maker=None, side=None,
+                 timestamp_unit: Optional[str] = None, preprocess: bool = False,
+                 proc_res: Optional[str] = None, name=None):
+        for arr, label in ((ts, "ts"), (px, "px"), (qty, "qty")):
+            if not isinstance(arr, np.ndarray):
+                raise TypeError(f"{label} must be a np.ndarray")
+        if id is not None and not isinstance(id, np.ndarray):
+            raise TypeError("id must be a np.ndarray")
+
+        self._start = self._end = None
+        self._tensors = {}
+        self.name = name
+        self._orig_timestamp_unit = timestamp_unit or self._infer_timestamp_unit(ts)
+        self._data = {"timestamp": ts.astype(np.int64, copy=False),
+                      "price": px.astype(np.float64, copy=False),
+                      "amount": qty.astype(np.float32, copy=False)}
+        if id is not None:
+            self._data["id"] = id
+        if side is not None:
+            self._data["side"] = np.asarray(side).astype(np.int8, copy=False)
+
+        self.missing_pct = 0
+        self.data_ok = None
+        self.discontinuities = []
+        if preprocess:
+            if id is None:
+                raise ValueError("id is required if preprocess is True")
+            ts = self._timestamps_to_ns(ts)
+            ts, px, qty, maker = self._sort_trades(ts, px, qty, id, is_buyer_maker)
+            ts, px, qty, sides = merge_split_trades(
+                ts.astype(np.int64), px.astype(np.float64), qty.astype(np.float32),
+                maker)
+            ts = self._apply_timestamp_resolution(ts, proc_res)
+            if maker is None:
+                sides = comp_trade_side_vector(px)
+            self._data = {"timestamp": ts, "price": px, "amount": qty, "side": sides}
+
+    # ------------------------------------------------------------------
+    @property
+    def data(self) -> dict:
+        """The columns in the view range (:meth:`set_view_range`), both ends
+        included, or all of them."""
+        if self._start is None:
+            return self._data
+        ts = self._data["timestamp"]
+        a = np.searchsorted(ts, self._start, side="left")
+        b = np.searchsorted(ts, self._end, side="right")
+        return {k: v[a:b] for k, v in self._data.items()}
+
+    @property
+    def start_date(self) -> Optional[int]:
+        return self._start
+
+    @property
+    def end_date(self) -> Optional[int]:
+        return self._end
+
+    @property
+    def orig_timestamp_unit(self) -> str:
+        return self._orig_timestamp_unit
+
+    def set_view_range(self, start, end):
+        """Restrict :attr:`data` to the trades with ``start <= timestamp <=
+        end``; ``start`` and ``end`` are int ns, ``datetime.datetime``,
+        ``numpy.datetime64`` or ISO strings. The timestamps must not
+        decrease."""
+        start, end = _to_ns(start), _to_ns(end)
+        if start >= end:
+            raise ValueError("Start timestamp must be before end timestamp.")
+        ts = self._data["timestamp"]
+        if np.any(ts[1:] < ts[:-1]):
+            raise ValueError("a view range needs timestamps in ascending order")
+        self._start, self._end = start, end
+
+    def tensors(self, device="cuda") -> dict:
+        """The view range's timestamps, prices, amounts and sides as tensors on
+        ``device``, copied once and kept for later calls with the same
+        device and range."""
+        key = (str(torch.device(device)), self._start, self._end)
+        if key not in self._tensors:
+            self._tensors = {key: {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                                   for k, v in self.data.items() if k != "id"}}
+        return self._tensors[key]
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _infer_timestamp_unit(ts) -> str:
+        max_ts = np.max(ts) if len(ts) else np.nan
+        if max_ts > 1e18:
+            return "ns"
+        if max_ts > 1e15:
+            return "us"
+        if max_ts > 1e12:
+            return "ms"
+        logger.warning("Timestamp unit is set to seconds. Please verify the data.")
+        return "s"
+
+    def _timestamps_to_ns(self, ts):
+        if self.orig_timestamp_unit not in _UNIT_SCALE:
+            raise ValueError(
+                f"Invalid timestamp format! Must be one of: {', '.join(_UNIT_SCALE)}")
+        return np.multiply(ts, _UNIT_SCALE[self.orig_timestamp_unit], dtype=np.int64)
+
+    def _sort_trades(self, ts, px, qty, ids, maker):
+        """Sort by id, drop duplicate ids (the first after the sort stays),
+        scan the id gaps, and sort by (timestamp, id) if the timestamps then
+        decrease anywhere.
+
+        The JAX class sorts through pandas, whose ``sort_values`` is numpy's
+        quicksort: not stable, so among duplicate ids the row kept is the
+        one quicksort puts first. The same sort here keeps the same row."""
+        self.data_ok = True
+        self.discontinuities = []
+        order = np.argsort(ids, kind="quicksort")
+        ids = ids[order]
+        keep = np.ones(len(ids), dtype=bool)
+        keep[1:] = ids[1:] != ids[:-1]
+        if not keep.all():
+            logger.warning(f"{self.name} | Trade IDs contain duplicates.")
+            order, ids = order[keep], ids[keep]
+            self.data_ok = False
+        ts = ts[order]
+        self._validate_ids(ids, ts)
+        if np.any(ts[1:] < ts[:-1]):
+            logger.warning(f"{self.name} | timestamps non-monotonic after id sort.")
+            by_time = np.lexsort((ids, ts))
+            order, ts = order[by_time], ts[by_time]
+        return (ts, px[order], qty[order],
+                None if maker is None else np.asarray(maker)[order])
+
+    def _validate_ids(self, ids, ts):
+        """The trade-id gap scan: ``missing_pct`` and the gaps of more than a
+        minute (``discontinuities``, which clear ``data_ok``)."""
+        gap_indices = np.flatnonzero(np.diff(ids) > 1)
+        if len(gap_indices) == 0:
+            return
+        logger.warning(
+            f"{self.name} | Found {len(gap_indices):,} discontinuities in trade IDs.")
+        gap_sizes = ids[gap_indices + 1] - ids[gap_indices] - 1
+        pre_t, post_t = ts[gap_indices], ts[gap_indices + 1]
+        tdiff = post_t - pre_t
+        large = np.flatnonzero(tdiff > _GAP_NS)
+        if len(large):
+            self.data_ok = False
+            for k in large:
+                i = gap_indices[k]
+                self.discontinuities.append({
+                    "start_id": int(ids[i]),
+                    "end_id": int(ids[i + 1]),
+                    "missing_ids": int(gap_sizes[k]),
+                    "pre_gap_time": int(pre_t[k]),
+                    "post_gap_time": int(post_t[k]),
+                    "time_interval": _timedelta(tdiff[k]),
+                })
+        self.missing_pct = float(gap_sizes.sum()) / len(ids) * 100
+
+    def _apply_timestamp_resolution(self, ts, proc_res):
+        if proc_res and proc_res != self.orig_timestamp_unit:
+            if proc_res not in _UNIT_SCALE:
+                raise ValueError(f"Invalid processing resolution: {proc_res}.")
+            res = _UNIT_SCALE[proc_res]
+            return (ts // res) * res
+        return ts

@@ -38,7 +38,7 @@ from ..ops.segment_select import segment_median_pair_select
 __all__ = ["bar_products_final", "median_pairs", "bar_finals", "median_engine",
            "median_sort_device", "median_rowsort_device", "median_select_device",
            "median_hist_device", "gather_planes", "planes_products",
-           "planes_products_plain", "MEDIAN_ENGINES"]
+           "planes_products_plain", "MEDIAN_ENGINES", "bar_scan", "SCANS"]
 
 def median_pairs(amounts_f32: torch.Tensor, ci: torch.Tensor, *,
                  cumsum=fast_cumsum):
@@ -239,6 +239,23 @@ def planes_products_plain(ticks, units, sides, ci):
     """:func:`planes_products` through the plain planes, on any device."""
     return gather_planes(fused_scan.bar_scan_planes_plain(ticks, units, sides, ci),
                          ticks, ci)
+
+
+_ROWTAIL = (bar_scan_products, fused_scan.bar_scan_products_plain)
+_SCANS = {"rowtail": _ROWTAIL, "rowtail4": _ROWTAIL,
+          "planes": (planes_products, planes_products_plain)}
+SCANS = tuple(_SCANS)
+
+
+def bar_scan(name: str, *, plain: bool = False):
+    """The bar scan called ``name``, a function ``(ticks, units, sides, ci)
+    -> (p64, p32, pf)``: "rowtail" (the default) or "rowtail4" (both kernel
+    B, as the JAX package's two rowtail kernels compute one function) or
+    "planes" (:func:`planes_products`, kernel V). ``plain=True`` gives its
+    plain version. Any other name raises."""
+    if name not in _SCANS:
+        raise ValueError(f"unknown bar scan {name!r}; choose one of {SCANS}")
+    return _SCANS[name][plain]
 
 
 def bar_products_final(ticks, units, ci, sides, *, tick_size, amount_scale,

@@ -2,8 +2,9 @@
 
 Counterpart of ``finmlkit_tpu/bar/kit.py`` (``BarBuilderBase`` and the seven
 kits). The JAX kits take a pandas ``TradesData`` and return DataFrames; the
-card's host has no pandas, so these take the trade columns as numpy arrays
-and every ``build_*`` method returns a dict of tensors on the kit's device,
+card's host has no pandas, so these take the port's ``TradesData``
+(``bar/data_model.py``, a dict of numpy columns) or its four columns as numpy
+arrays, and every ``build_*`` method returns a dict of tensors on the kit's device,
 one value per bar, with the bars' close timestamps under ``"timestamp"``
 (the DataFrames' index).
 
@@ -17,18 +18,19 @@ the kernels of the port, or with ``plain=True`` their plain PyTorch versions
 scan that ``FMKT_MEDIANS`` and ``FMKT_SCAN`` select in the JAX kits are the
 keyword arguments ``medians`` and ``scan`` here.
 """
+import functools
 from abc import ABC, abstractmethod
 
 import numpy as np
 import torch
 
 from .. import interop
-from ..ops import event_scan, fused_scan, prefix_scan
+from ..ops import event_scan, prefix_scan
 from . import indexers
+from .data_model import TradesData
 from .aggregate_q import bar_trade_size_features
 from .footprint_q import bar_footprints
-from .fused import (bar_products_final, median_engine, planes_products,
-                    planes_products_plain)
+from .fused import bar_products_final, bar_scan, median_engine
 from .quantize import quantize_trades
 
 __all__ = ["BarBuilderBase", "TimeBarKit", "TickBarKit", "VolumeBarKit",
@@ -36,11 +38,19 @@ __all__ = ["BarBuilderBase", "TimeBarKit", "TickBarKit", "VolumeBarKit",
 
 _OHLCV = ("open", "high", "low", "close", "volume", "trades",
           "median_trade_size", "vwap")
-# bar scan name -> (kernel path, plain version)
-_ROWTAIL = (fused_scan.bar_scan_products, fused_scan.bar_scan_products_plain)
-_SCANS = {"rowtail": _ROWTAIL, "rowtail4": _ROWTAIL,
-          "planes": (planes_products, planes_products_plain)}
-SCANS = tuple(_SCANS)
+
+
+def _takes_trades(init):
+    """Let a kit's ``__init__`` take a :class:`TradesData` as its first
+    argument, in place of its four trade columns (``timestamps, prices,
+    amounts, sides``), as the JAX kits take one (``kit.py:343``)."""
+    @functools.wraps(init)
+    def wrapped(self, *args, **kw):
+        if args and isinstance(args[0], TradesData):
+            d = args[0].data
+            args = (d["timestamp"], d["price"], d["amount"], d.get("side"), *args[1:])
+        init(self, *args, **kw)
+    return wrapped
 
 
 class BarBuilderBase(ABC):
@@ -50,7 +60,8 @@ class BarBuilderBase(ABC):
 
     ``timestamps`` int64 ns, ``prices`` float64, ``amounts`` float32 and
     ``sides`` int8 (+1 buy, -1 sell; None when unknown) are host arrays of
-    one length. ``device`` is where the kit works ("cuda" unless the caller
+    one length; every kit also takes a :class:`TradesData` in their place
+    (its ``data``). ``device`` is where the kit works ("cuda" unless the caller
     asks for the CPU); ``plain`` runs every kernel's plain version instead.
 
     ``medians`` names the bar products' median engine (``bar/fused.py
@@ -86,9 +97,7 @@ class BarBuilderBase(ABC):
         self._prices = None
         self._ts_first, self._ts_last = int(ts[0]), int(ts[-1])
         self._plain = bool(plain)
-        if scan not in _SCANS:
-            raise ValueError(f"unknown bar scan {scan!r}; choose one of {SCANS}")
-        self._bar_scan = _SCANS[scan][self._plain]
+        self._bar_scan = bar_scan(scan, plain=self._plain)
         self._medians = median_engine(medians, plain=self._plain)
         self._close_ts = None
         self._ci = None
@@ -193,6 +202,7 @@ class TimeBarKit(BarBuilderBase):
     """Fixed-interval time bars (``kit.py:340-352``); ``period`` in seconds
     (or a ``datetime.timedelta``)."""
 
+    @_takes_trades
     def __init__(self, timestamps, prices, amounts, sides, period, **kw):
         super().__init__(timestamps, prices, amounts, sides, **kw)
         seconds = getattr(period, "total_seconds", None)
@@ -207,6 +217,7 @@ class TimeBarKit(BarBuilderBase):
 class TickBarKit(BarBuilderBase):
     """Fixed tick-count bars (``kit.py:355-364``)."""
 
+    @_takes_trades
     def __init__(self, timestamps, prices, amounts, sides, tick_count_thrs: int,
                  **kw):
         super().__init__(timestamps, prices, amounts, sides, **kw)
@@ -221,6 +232,7 @@ class VolumeBarKit(BarBuilderBase):
     """Volume-threshold bars, reset-to-zero semantics (``kit.py:367-387``),
     on the integer amount units."""
 
+    @_takes_trades
     def __init__(self, timestamps, prices, amounts, sides, volume_ths: float,
                  **kw):
         super().__init__(timestamps, prices, amounts, sides, **kw)
@@ -237,6 +249,7 @@ class DollarBarKit(BarBuilderBase):
     """Dollar-threshold bars, carry-remainder semantics (``kit.py:390-413``),
     on the integer dollar units."""
 
+    @_takes_trades
     def __init__(self, timestamps, prices, amounts, sides, dollar_thrs: float,
                  **kw):
         super().__init__(timestamps, prices, amounts, sides, **kw)
@@ -255,6 +268,7 @@ class _InfoBarKitBase(BarBuilderBase):
 
     _indexer = None  # set by the subclass
 
+    @_takes_trades
     def __init__(self, timestamps, prices, amounts, sides, mode: str = "tick",
                  *, threshold=None, expected_ticks_init=None,
                  expected_rate_init=None, alpha_ticks: float = 0.0,
@@ -303,6 +317,7 @@ class CUSUMBarKit(BarBuilderBase):
     """Adaptive-threshold CUSUM bars (``kit.py:476-511``), in float64.
     ``sigma`` holds one value per trade; NaNs are forward-filled."""
 
+    @_takes_trades
     def __init__(self, timestamps, prices, amounts, sides, sigma,
                  sigma_floor: float = 5e-4, sigma_mult: float = 2.0, **kw):
         super().__init__(timestamps, prices, amounts, sides, **kw)

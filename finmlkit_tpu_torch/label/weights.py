@@ -1,4 +1,5 @@
-"""AFML ch. 4 sample weights: average uniqueness and return attribution.
+"""AFML ch. 4 sample weights: average uniqueness, return attribution, time
+decay and class balance.
 
 Counterpart of ``finmlkit_tpu/label/weights.py``, with the float64 semantics of
 its CPU path (``weights.py:69-74,103-113``) and no fixed point: the concurrency
@@ -6,12 +7,16 @@ is an int32 prefix sum of +1/-1 increments and the per-event window sums are
 differences of float64 prefixes, both through kernel S
 (``ops.prefix_scan.fast_cumsum``). A window sum is the difference of two
 prefixes, so its rounding error scales with the prefix, not with the window.
+The time decay takes its cumulative uniqueness from kernel S too; the class
+sums are one masked ``torch.sum`` a class, so they add in the same order on
+every run (no float atomics).
 """
 import torch
 
 from ..ops.prefix_scan import fast_cumsum
 
-__all__ = ["average_uniqueness", "return_attribution"]
+__all__ = ["average_uniqueness", "return_attribution", "time_decay",
+           "class_balance_weights"]
 
 
 def _concurrency(event_idxs, touch_idxs, n: int, cumsum):
@@ -69,3 +74,50 @@ def return_attribution(event_idxs, touch_idxs, close, concurrency,
             raise ValueError("Sum of weights is zero or negative, cannot normalize.")
         w = w * (len(event_idxs) / s)
     return w
+
+
+def time_decay(avg_uniqueness, last_weight: float, *, cumsum=fast_cumsum):
+    """Linear time decay over the cumulative uniqueness (AFML ch. 4 p. 70),
+    float64 per event on the device of ``avg_uniqueness``.
+
+    The newest event weighs 1 and the oldest ``last_weight``, in [-1, 1]; a
+    negative ``last_weight`` sets the oldest share of the events to 0.
+    ``cumsum`` defaults to kernel S.
+    """
+    if not -1.0 <= last_weight <= 1.0:
+        raise ValueError("last_weight must lie in [-1, 1]")
+    cum = cumsum(avg_uniqueness.to(torch.float64).contiguous())
+    total = cum[-1]
+    if float(total) == 0.0:
+        raise ValueError("The sum of all average uniqueness weights must be greater than 0.")
+    one = torch.ones((), dtype=torch.float64, device=cum.device)
+    if last_weight >= 0.0:
+        slope = (one - last_weight) / total
+    else:   # at -1 the slope is infinite and every weight NaN, as in the JAX package
+        slope = one / ((last_weight + 1.0) * total)
+    const = 1.0 - slope * total
+    w = const + slope * cum
+    if last_weight < 0.0:
+        w = torch.clamp(w, min=0.0)
+    return w
+
+
+def class_balance_weights(labels, base_w):
+    """Class-balance multipliers from the weighted class counts.
+
+    ``labels`` (any integer dtype) and ``base_w`` are per event on one device.
+    Each class weighs ``total / (n_classes * its sum)``, and 0 where its sum
+    is not positive. Returns ``(unique_labels, class_weights, sum_w_class,
+    final_weights)``: the sorted classes, and float64 tensors.
+    """
+    base = base_w.to(labels.device, torch.float64)
+    uniq = torch.unique(labels, sorted=True)
+    label_idx = torch.searchsorted(uniq, labels)
+    zero = torch.zeros((), dtype=torch.float64, device=base.device)
+    sum_w_class = torch.stack([torch.where(label_idx == k, base, zero).sum()
+                               for k in range(len(uniq))])
+    total = sum_w_class.sum()
+    pos = sum_w_class > 0.0
+    class_w = torch.where(pos, total / (len(uniq) * torch.where(pos, sum_w_class, 1.0)),
+                          zero)
+    return uniq, class_w, sum_w_class, base * class_w[label_idx]

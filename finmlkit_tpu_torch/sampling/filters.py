@@ -1,12 +1,16 @@
-"""Event sampling filters.
+"""Event sampling filters: the symmetric CUSUM filter and the z-score peak
+filter.
 
-Counterpart of ``finmlkit_tpu/sampling/filters.py``; the symmetric CUSUM filter
-is ported so far.
+Counterpart of ``finmlkit_tpu/sampling/filters.py``. The JAX z-score filter's
+``dtype=`` (a float32 fast path for the TPU) does not cross: the port's filter
+works in float64.
 """
 import numpy as np
 import torch
 
-__all__ = ["cusum_filter"]
+from ..ops.prefix_scan import fast_cumsum
+
+__all__ = ["cusum_filter", "z_score_peak_filter"]
 
 
 def cusum_filter(raw_time_series: torch.Tensor, threshold) -> torch.Tensor:
@@ -46,3 +50,49 @@ def cusum_filter(raw_time_series: torch.Tensor, threshold) -> torch.Tensor:
             s_pos = 0.0
             events.append(i)
     return torch.tensor(events, dtype=torch.int64, device=raw_time_series.device)
+
+
+def z_score_peak_filter(y, window: int, threshold: float = 3, *, cumsum=fast_cumsum,
+                        device="cuda") -> torch.Tensor:
+    """Causal z-score peak filter (``filters.py:121-169``).
+
+    Index ``i`` is an event iff ``i >= window``, the ``window`` observations
+    before ``i`` are not all equal and their population std is positive, and
+    ``|y[i] - mean| > threshold * std`` over them. The series is centred on
+    its mean first (z-scores do not move with a shift), and the window means
+    and variances are differences of two float64 prefix sums (``cumsum``,
+    kernel S by default).
+
+    Whether a window is flat is decided exactly, from an int32 prefix sum of
+    the places where ``y`` changes: a flat window never signals. The JAX
+    function decides it from its variance alone, which the rounding of the
+    prefix differences leaves positive on flat windows (every window of one
+    observation, a run of equal prices), so it signals there (ROADMAP.md,
+    Queue 3, R14).
+
+    ``y`` is a 1-D tensor, or an array that goes to ``device``. Returns the
+    events' int64 indices on the device of ``y``.
+    """
+    if not torch.is_tensor(y):
+        y = torch.from_numpy(np.asarray(y, dtype=np.float64)).to(device)
+    if window < 1:
+        raise ValueError("window must be >= 1")
+    if y.shape[0] < window + 2:
+        raise ValueError("y must have at least window + 2 observations")
+    y = y.to(torch.float64).contiguous()
+    yc = y - y.mean()
+    zero = yc.new_zeros(1)
+    c = torch.cat([zero, cumsum(yc)])
+    c2 = torch.cat([zero, cumsum(yc * yc)])
+    changes = torch.cat([torch.zeros(1, dtype=torch.int32, device=y.device),
+                         cumsum((y[1:] != y[:-1]).to(torch.int32))])
+    i = torch.arange(yc.shape[0], device=yc.device)
+    lo = torch.clamp(i - window, min=0)
+    w = torch.tensor(float(window), dtype=torch.float64, device=yc.device)
+    mean = (c[i] - c[lo]) / w
+    var = torch.clamp((c2[i] - c2[lo]) / w - mean * mean, min=0.0)
+    std = torch.sqrt(var)
+    varies = changes[torch.clamp(i - 1, min=0)] > changes[lo]
+    thr = torch.tensor(float(threshold), dtype=torch.float64, device=yc.device)
+    mask = (i >= window) & varies & (std > 0.0) & (torch.abs(yc - mean) > thr * std)
+    return torch.nonzero(mask).reshape(-1)

@@ -1,5 +1,6 @@
 """Kernels B, S, C, F, E, H, V, P, R, W and G on the card against their plain
-versions.
+versions, and the chain of ``chip_smoke.py`` phase 11 (trades to final
+weights) through the kernels against its plain path.
 
 These tests need an NVIDIA GPU and ``nvcc``; elsewhere they skip. The card's
 host has no JAX, so run them there without the suite's conftest:
@@ -784,3 +785,45 @@ def test_volume_profile_span_cases_match_plain(cuda, mode, name, n_bins, va_pct,
     for g_, w, what in zip(got, want, ("poc", "hva", "lva", "pct")):
         assert_exact(g_, w, f"{mode} {name} bins {n_bins} va {va_pct} {path} {what}")
 
+
+
+def test_chain_kernel_path_matches_plain(cuda):
+    """The chain of ``chip_smoke.py`` phase 11 at 1M trades: ``TradesData``,
+    time bars, the pipeline with config 4's features, CUSUM events,
+    ``TBMLabel`` over the trades, the info and final weights, the z-score
+    filter; the kernel path against the plain path with that phase's checks
+    (bars, features, events, indices and labels exact, weights at their prefix
+    magnitude, z-score events equal off the ties), the final weights equal run
+    to run, and B, S and R launched."""
+    import chip_smoke
+    ts, price, amount, side = chip_smoke.synth_trades(1_000_000, seed=3)
+    month = dict(n=len(ts), ts=ts, price=price, amount=amount, side=side)
+    trades, _ = chip_smoke.chain_trades(month)
+    _, graph = chip_smoke.chain_graph()
+    counts = (fused_scan.LAUNCHES, prefix_scan.LAUNCHES, scan.LAUNCHES)
+    k, _ = chip_smoke.run_chain(trades, graph)
+    assert fused_scan.LAUNCHES > counts[0] and prefix_scan.LAUNCHES > counts[1] \
+        and scan.LAUNCHES > counts[2]
+    p, _ = chip_smoke.run_chain(trades, graph, plain=True)
+    chip_smoke.check_chain(k, p, trades)
+    again, _ = chip_smoke.run_chain(trades, graph)
+    for key in k["final"]:
+        assert_exact(again["final"][key], k["final"][key], f"final {key} run to run")
+    assert k["out"]["labels"].shape[0] > 10
+
+
+def test_class_balance_repeats(cuda):
+    """``class_balance_weights`` sums each class without float atomics: equal
+    bits over runs, and to its CPU run within rounding."""
+    from finmlkit_tpu_torch.label.weights import class_balance_weights
+    g = torch.Generator(device="cuda").manual_seed(11)
+    labels = torch.randint(-1, 2, (3_000_000,), device=cuda, generator=g).to(torch.int8)
+    base = torch.rand(3_000_000, dtype=torch.float64, device=cuda, generator=g)
+    first = class_balance_weights(labels, base)
+    for _ in range(5):
+        for a, b in zip(class_balance_weights(labels, base), first):
+            assert_exact(a, b, "class balance run to run")
+    cpu = class_balance_weights(labels.cpu(), base.cpu())
+    assert_exact(first[0], cpu[0], "classes")
+    for a, b in zip(first[1:], cpu[1:]):
+        assert_close(a, b, rtol=1e-12)

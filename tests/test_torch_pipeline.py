@@ -159,6 +159,9 @@ def test_import_leaves_out_jax_and_pandas():
         "import finmlkit_tpu_torch.bar.footprint_q, finmlkit_tpu_torch.bar.aggregate_q\n"
         "import finmlkit_tpu_torch.ops.segment, finmlkit_tpu_torch.ops.event_scan\n"
         "import finmlkit_tpu_torch.bar.kit\n"
+        "import finmlkit_tpu_torch.bar.data_model, finmlkit_tpu_torch.bar.utils\n"
+        "import finmlkit_tpu_torch.label, finmlkit_tpu_torch.label.kit\n"
+        "import finmlkit_tpu_torch.sampling, finmlkit_tpu_torch.pipeline\n"
         "new = {m.split('.')[0] for m in set(sys.modules) - before}\n"
         "bad = new & {'jax', 'jaxlib', 'pandas', 'finmlkit_tpu'}\n"
         "assert 'torch' in sys.modules and not bad, bad\n")
