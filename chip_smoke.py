@@ -10,7 +10,8 @@ order-flow path of ``bench.py`` config 2 (dollar bars at total dollars /
 40000 -> bar products and medians -> dense footprints -> trade-size
 features), the information-driven bars of config 6 through the kits, the
 time bars' products through every median engine and bar scan, the time
-bars' features, and the chain from raw trades to final sample weights.
+bars' features, the chain from raw trades to final sample weights, and the
+same month with its prices off every tick grid through the kits' float64 path.
 Phases:
 
 1. environment: torch, CUDA, nvcc, triton, the card's name and power limit;
@@ -134,13 +135,29 @@ Phases:
    magnitude, the final weights equal between two kernel runs, the z-score
    events equal but for z-scores within 1e-9 of the threshold (counted);
    B, S and R launched; each stage's time, the chain end to end, peak device
-   memory. B, S and R are timed here when no earlier phase timed them.
+   memory. B, S and R are timed here when no earlier phase timed them;
+12. the off-grid month: the same draws with the prices left off the 0.1 grid
+   (``quantize_trades`` gives None), through the kits' float64 path:
+   ``TimeBarKit`` (1-minute bars: OHLCV, directional features, trade-size
+   features with theta the bars' median trade size, footprints on the 0.1
+   grid), ``VolumeBarKit`` at total volume / 40000 and ``DollarBarKit`` at
+   total dollars / 40000, with the launches of S, C and D counted on that
+   run; then the same path through the functions the kits call, through the
+   kernels and through the plain versions: the kits equal those functions
+   and the kernel path equals itself run to run, bit for bit; kernel path
+   against plain path: close indices (kernel D against its plain loop on the
+   whole month, both modes) and footprints exact, the products within
+   ``testing.hold_float_path``'s bounds; sampled bars against numpy, sampled
+   footprint bars against ``np.add.at``; kernel D alone with its bound in
+   both modes, its plain loop timed on the host; stage and end-to-end times,
+   peak device memory. S and C are timed here, on float64 streams, when no
+   earlier phase timed them.
 
 Run from the repository root: ``python3 chip_smoke.py``; ``--phases 1,2,6``
 runs only the order-flow path, ``--phases 1,2,7`` only the information-driven
 bars, ``--phases 1,2,8`` only the engines, ``--phases 1,2,9`` only the
 features, ``--phases 1,2,10`` only the framework and the profile,
-``--phases 1,2,11`` only the chain, and
+``--phases 1,2,11`` only the chain, ``--phases 12`` only the off-grid month, and
 ``--profile`` adds, after phase 6, the
 footprint features' own time, a ``torch.profiler`` table of one run of the
 order-flow path and its device idle share. Any failure exits non-zero
@@ -193,6 +210,8 @@ PROFILE_BINS = (27, None)    # VolumePro's default bins, and none
 PROFILE_VA = 68.34           # VolumePro's default value-area share
 PROFILE_PLAIN_S = 60.0       # the plain profile runs on the whole month if it takes less
 PROFILE_SHARED_CAP = 64      # levels: forces kernel G's global-scratch grid
+# phase 12: the off-grid month
+OFFGRID_TICK = 0.1           # the footprints' grid: the rounded month's tick
 
 
 # name, source in finmlkit_tpu_torch/csrc and the functions it replaces (the
@@ -232,6 +251,9 @@ KERNELS = {
           "its span, then the walks a thread or a warp each (replaces an XLA lax.map, not a "
           "TPU kernel)", "volume_profile.cu",
           "finmlkit_tpu/feature/kernels/volume.py:191 and :347"),
+    "D": ("D float_walk, the exact float64 volume and dollar walks: a block stages "
+          "chunks of trades, one thread walks (replaces host C++, not a TPU kernel)",
+          "float_walk.cu", "finmlkit_tpu/native/seg_stats.cpp:183 and :199"),
 }
 
 
@@ -262,13 +284,16 @@ def fail(msg):
     sys.exit(1)
 
 
-def synth_trades(n, seed=0):
+def synth_trades(n, seed=0, rounded=True):
     """The synthetic month of bench.py:78-86 (about 32 days at 70 ms mean
-    spacing for 39.17M trades)."""
+    spacing for 39.17M trades); ``rounded=False`` leaves the prices off the
+    0.1 grid (the same draws, the round left out)."""
     r = np.random.default_rng(seed)
     dt = (r.exponential(70.0, n) * 1e6).astype(np.int64)
     ts = 1_751_328_000_000_000_000 + np.cumsum(dt)  # 2025-07-01 epoch ns
-    price = np.round(107_000.0 * np.exp(np.cumsum(r.normal(0, 2e-5, n))), 1)
+    price = 107_000.0 * np.exp(np.cumsum(r.normal(0, 2e-5, n)))
+    if rounded:
+        price = np.round(price, 1)
     amount = np.maximum(np.round(r.lognormal(-4.0, 1.5, n), 5), 1e-5).astype(np.float32)
     side = np.where(r.random(n) < 0.5, 1, -1).astype(np.int8)
     return ts, price, amount, side
@@ -2945,10 +2970,282 @@ def phase_chain(card, month, need):
     return launches, entries
 
 
+def run_offgrid(tr, ts_first, ts_last, thr_v, thr_d, plain=False):
+    """The float64 path on the float form ``tr`` of trades off every tick
+    grid, through the functions the kits call: 1-minute time bars, their
+    products, trade-size features (theta the bars' median trade size) and
+    footprints on the 0.1 grid, then volume and dollar bars. Returns outputs
+    and stage times (ms, CUDA events)."""
+    import torch
+    from finmlkit_tpu_torch.bar import aggregate
+    from finmlkit_tpu_torch.bar.footprint_q import bar_footprints
+    from finmlkit_tpu_torch.bar.indexers import (dollar_bar_indexer, time_bar_indexer,
+                                                 volume_bar_indexer)
+    from finmlkit_tpu_torch.ops import float_walk, prefix_scan
+    cumsum = prefix_scan.fast_cumsum_plain if plain else prefix_scan.fast_cumsum
+    cols = prefix_scan.fast_cumsum_cols_plain if plain else prefix_scan.fast_cumsum_cols
+    vwalk = float_walk.volume_walk_plain if plain else float_walk.volume_walk
+    dwalk = float_walk.dollar_walk_plain if plain else float_walk.dollar_walk
+    marks = []
+
+    def mark():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        marks.append(e)
+
+    mark()
+    clock, ci = time_bar_indexer(tr.timestamps, 60.0, ts_first=ts_first, ts_last_i=ts_last)
+    mark()
+    ohlcv = aggregate.comp_bar_ohlcv(tr.prices, tr.amounts, ci, cumsum=cumsum)
+    direc = aggregate.comp_bar_directional_features(tr.prices, tr.amounts, ci, tr.sides,
+                                                    cumsum=cumsum, cumsum_cols=cols)
+    mark()
+    tsf = aggregate.comp_bar_trade_size_features(tr.amounts, ohlcv["median_trade_size"],
+                                                 ci, 5.0, cumsum=cumsum)
+    mark()
+    fp = bar_footprints(None, tr.amounts, ci, tr.sides, ohlcv, tick_size=None,
+                        price_tick_size=OFFGRID_TICK, prices=tr.prices, cumsum=cumsum,
+                        cumsum_cols=cols)
+    mark()
+    _, v_ci = volume_bar_indexer(tr.timestamps, tr.amounts, thr_v, walk=vwalk)
+    mark()
+    _, d_ci = dollar_bar_indexer(tr.timestamps, tr.prices, tr.amounts, thr_d, walk=dwalk)
+    mark()
+    torch.cuda.synchronize()
+    names = ("index", "products", "trade size", "footprints", "volume index",
+             "dollar index")
+    stages = {k: marks[i].elapsed_time(marks[i + 1]) for i, k in enumerate(names)}
+    stages["total"] = marks[0].elapsed_time(marks[-1])
+    out = dict(ci=ci, ohlcv=ohlcv, directional=direc, trade_size=tsf, footprints=fp,
+               v_ci=v_ci, d_ci=d_ci)
+    return out, stages
+
+
+def run_offgrid_kits(ts, price, amount, side, thr_v, thr_d):
+    """Phase 12's main path as a user drives it: ``TimeBarKit`` (60 s) with its
+    four builds, ``VolumeBarKit`` and ``DollarBarKit``, on numpy columns."""
+    import torch
+    from finmlkit_tpu_torch.bar import DollarBarKit, TimeBarKit, VolumeBarKit
+    cols = (ts, price, amount, side)
+    tk = TimeBarKit(*cols, 60.0)
+    o = tk.build_ohlcv()
+    out = dict(ohlcv=o, directional=tk.build_directional_features(),
+               trade_size=tk.build_trade_size_features(o["median_trade_size"], 5.0),
+               footprints=tk.build_footprints(OFFGRID_TICK))
+    vk, dk = VolumeBarKit(*cols, thr_v), DollarBarKit(*cols, thr_d)
+    vk.bar_close_indices, dk.bar_close_indices          # the walks
+    out.update(ci=tk._ci, v_ci=vk._ci, d_ci=dk._ci)
+    torch.cuda.synchronize()
+    return out
+
+
+def check_offgrid_bars_numpy(out, price, amount, side, n_sample=200):
+    """Sampled float64 bars against numpy on the host arrays: prices, counts,
+    medians and the tick splits exact, the volume within a float32 ulp."""
+    from finmlkit_tpu_torch.testing import assert_within, ulp32
+    ci = out["ci"].cpu().numpy()
+    o = {k: v.cpu().numpy() for k, v in out["ohlcv"].items()}
+    d = {k: v.cpu().numpy() for k, v in out["directional"].items()}
+    g = np.random.default_rng(12)
+    nonempty = np.flatnonzero(np.diff(ci) > 0)
+    for k in g.choice(nonempty, min(n_sample, len(nonempty)), replace=False):
+        s, e = ci[k] + 1, ci[k + 1] + 1
+        p, a = price[s:e], amount[s:e].astype(np.float64)
+        want = {"open": p[0], "high": p.max(), "low": p.min(), "close": p[-1],
+                "trades": e - s, "median_trade_size": np.median(a),
+                "ticks_buy": int((side[s:e] == 1).sum()),
+                "ticks_sell": int((side[s:e] == -1).sum())}
+        for key, v in want.items():
+            got = o[key][k] if key in o else d[key][k]
+            if got != v:
+                fail(f"off-grid bar {k} {key}: {got!r} vs numpy {v!r}")
+        vol = np.float32(a.sum())
+        assert_within(o["volume"][k:k + 1], np.array([vol]), ulp32(vol),
+                      f"off-grid bar {k} volume")
+
+
+def hold_offgrid(got, want, price, amount, what, exact=False):
+    """Phase 12's outputs of two runs: close indices and footprints exact;
+    the products exact (``exact``) or as ``testing.hold_float_path`` holds
+    them. Returns the products' largest shares of their bounds."""
+    from finmlkit_tpu_torch.testing import assert_exact, hold_float_path
+    for key in ("ci", "v_ci", "d_ci"):
+        assert_exact(got[key], want[key], f"{what} {key}")
+    for key in want["footprints"]:
+        assert_exact(got["footprints"][key], want["footprints"][key],
+                     f"{what} footprints.{key}")
+    shares = {}
+    for part in ("ohlcv", "directional", "trade_size"):
+        if exact:
+            for key in want[part]:
+                assert_exact(got[part][key], want[part][key], f"{what} {part}.{key}")
+        else:
+            shares.update(hold_float_path(got[part], want[part], price, amount,
+                                          want["ohlcv"]["volume"], f"{what} {part}"))
+    return shares
+
+
+def kernel_d(card, tr, thr_v, thr_d, n_v, n_d, launches):
+    """Kernel D alone on the month (CUDA events, 3 calls a mode) against its
+    plain loop (one call a mode, host clock), both modes' closes equal:
+    its ``kernels`` entry, the dollar walk's numbers first."""
+    from finmlkit_tpu_torch.ops import float_walk
+    from finmlkit_tpu_torch.testing import assert_exact
+    n = tr.amounts.shape[0]
+    calls = {"volume": (lambda: float_walk.volume_walk(tr.amounts, thr_v, n_v + 2),
+                        lambda: float_walk.volume_walk_plain(tr.amounts, thr_v, n_v + 2)),
+             "dollar": (lambda: float_walk.dollar_walk(tr.prices, tr.amounts, thr_d, n_d + 2),
+                        lambda: float_walk.dollar_walk_plain(tr.prices, tr.amounts, thr_d,
+                                                             n_d + 2))}
+    ms, plain_ms, bounds = {}, {}, {}
+    for mode, (kernel, plain) in calls.items():
+        ms[mode] = cuda_ms(kernel, reps=3)
+        t0 = time.perf_counter()
+        want = plain()
+        plain_ms[mode] = (time.perf_counter() - t0) * 1e3
+        assert_exact(kernel(), want, f"kernel D {mode} alone vs plain")
+    # each trade's float32 amount (and float64 price) read once, each close
+    # written once; one float64 add a trade (and a multiply for dollar)
+    bounds["volume"] = bound(4 * n + 8 * n_v, n, PEAK_F64_OPS_PER_S)
+    bounds["dollar"] = bound(12 * n + 8 * n_d, 2 * n, PEAK_F64_OPS_PER_S)
+    say("kernel D alone on the month: " + "; ".join(
+        f"{m} {ms[m]:.3f} ms vs plain {plain_ms[m]:.1f} ms (host loop), bound "
+        f"{bounds[m][0]:.4f} ms ({bounds[m][1]}), {bounds[m][0] / ms[m]:.2%} of it"
+        for m in calls) + f" [{card}]")
+    return kernel_entry("D", launches["D"], 0.0, ms["dollar"], plain_ms["dollar"],
+                        bounds["dollar"], None, volume_ms=ms["volume"],
+                        volume_plain_ms=plain_ms["volume"],
+                        volume_bound_ms=bounds["volume"][0])
+
+
+def kernels_s_c_f64(card, tr, launches, need):
+    """Kernels S and C at phase 12's shapes when no earlier phase timed them:
+    S on the month's float64 amounts, C on the (7, n) float64 directional
+    stack; each against its plain version and ``torch.cumsum``."""
+    import torch
+    from finmlkit_tpu_torch.ops import prefix_scan
+    from finmlkit_tpu_torch.testing import assert_close
+    n = tr.amounts.shape[0]
+    a = tr.amounts.to(torch.float64)
+    entries = {}
+    if "S" in need:
+        ms = cuda_ms(lambda: prefix_scan.fast_cumsum(a))
+        plain = cuda_ms(lambda: prefix_scan.fast_cumsum_plain(a))
+        lib = cuda_ms(lambda: torch.cumsum(a, 0))
+        err = assert_close(prefix_scan.fast_cumsum(a), prefix_scan.fast_cumsum_plain(a),
+                           rtol=1e-12, what="S float64")
+        entries["S"] = kernel_entry("S", launches["S"], err, ms, plain,
+                                    bound(16 * n, n, PEAK_F64_OPS_PER_S), lib)
+        say(f"kernel S (float64, {n:,}) {ms:.3f} ms vs plain {plain:.3f} ms, "
+            f"torch.cumsum {lib:.3f} ms [{card}]")
+    if "C" in need:
+        x = torch.stack([a * (k + 1) for k in range(7)])
+        ms = cuda_ms(lambda: prefix_scan.fast_cumsum_cols(x))
+        plain = cuda_ms(lambda: prefix_scan.fast_cumsum_cols_plain(x))
+        err = assert_close(prefix_scan.fast_cumsum_cols(x),
+                           prefix_scan.fast_cumsum_cols_plain(x), rtol=1e-12,
+                           what="C float64")
+        entries["C"] = kernel_entry("C", launches["C"], err, ms, plain,
+                                    bound(2 * 8 * 7 * n, 7 * n, PEAK_F64_OPS_PER_S), plain)
+        say(f"kernel C (float64 (7, {n:,})) {ms:.3f} ms vs plain and torch.cumsum(x, 1) "
+            f"{plain:.3f} ms [{card}]")
+    return entries
+
+
+def phase_offgrid(card, need):
+    """Phase 12: the month with its prices left off the 0.1 grid, through the
+    kits' float64 path (kernels S, C and D), against the plain path on the
+    card. Returns the path's launches and the ``kernels`` entries of D and of
+    those of ``need`` that no earlier phase timed."""
+    import types
+
+    import torch
+    from finmlkit_tpu_torch import interop
+    from finmlkit_tpu_torch.bar.quantize import quantize_trades
+    from finmlkit_tpu_torch.ops import float_walk, prefix_scan
+    t_phase = time.perf_counter()
+    ts, price, amount, side = synth_trades(N_MONTH, rounded=False)
+    t0 = time.perf_counter()
+    if quantize_trades(price, amount) is not None:
+        fail("the off-grid month quantizes")
+    say(f"off-grid month: {N_MONTH:,} trades synthesized, quantize_trades gives None "
+        f"({time.perf_counter() - t0:.2f} s on the host)")
+    thr_v = float(amount.astype(np.float64).sum()) / VOLUME_BARS
+    thr_d = float((price * amount).sum()) / DOLLAR_BARS
+    tr = interop.from_floats(price, None, side, amount, "cuda", timestamps=ts)
+    args = (tr, int(ts[0]), int(ts[-1]), thr_v, thr_d)
+
+    run_offgrid(*args)                          # warm: allocator, caches
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    prefix_scan.LAUNCHES = prefix_scan.FLOAT_LAUNCHES = prefix_scan.COLS_LAUNCHES = 0
+    float_walk.LAUNCHES = 0
+    t0 = time.perf_counter()
+    kits = run_offgrid_kits(ts, price, amount, side, thr_v, thr_d)   # the main path
+    kits_s = time.perf_counter() - t0
+    launches = {"S": prefix_scan.LAUNCHES, "S float": prefix_scan.FLOAT_LAUNCHES,
+                "C": prefix_scan.COLS_LAUNCHES, "D": float_walk.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    if launches["S"] < 1 or launches["C"] < 2 or launches["D"] != 2:
+        fail(f"a kernel of the off-grid path did not launch as it should: {launches}")
+    k_out, st = run_offgrid(*args)
+    stages = {False: [st], True: []}
+    p_out, st = run_offgrid(*args, plain=True)
+    stages[True].append(st)
+    for plain in (True, False):
+        stages[plain].append(run_offgrid(*args, plain=plain)[1])
+    k_st, p_st = ({k: float(np.median([r[k] for r in stages[p]])) for k in st}
+                  for p in (False, True))
+    k2, _ = run_offgrid(*args)
+
+    # --- the kits == the functions, run to run, kernel path vs plain path ---
+    hold_offgrid(kits, k_out, price, amount, "kits vs path", exact=True)
+    hold_offgrid(k2, k_out, price, amount, "kernel path run to run", exact=True)
+    shares = hold_offgrid(k_out, p_out, price, amount, "kernel vs plain path")
+    del k2, p_out, kits
+
+    # --- the outputs are right ---
+    ci = k_out["ci"]
+    n_bars = ci.shape[0] - 1
+    o, fp = k_out["ohlcv"], k_out["footprints"]
+    for key in ("open", "high", "low", "close", "volume", "vwap", "median_trade_size"):
+        if o[key].shape != (n_bars,) or not bool(torch.isfinite(o[key]).all()):
+            fail(f"off-grid ohlcv[{key}] is not {n_bars} finite values")
+    if not bool(((o["low"] <= o["close"]) & (o["close"] <= o["high"])).all()) \
+            or int(o["trades"].sum()) != int(ci[-1] - ci[0]):
+        fail("off-grid bars: close outside [low, high] or trades not covered once")
+    n_v, n_d = k_out["v_ci"].shape[0] - 1, k_out["d_ci"].shape[0] - 1
+    for what, nb, want in (("volume", n_v, VOLUME_BARS), ("dollar", n_d, DOLLAR_BARS)):
+        if not 0.9 * want < nb <= want + 1:
+            fail(f"{nb} off-grid {what} bars")
+    check_offgrid_bars_numpy(k_out, price, amount, side)
+    levels = types.SimpleNamespace(price_ticks=np.round(price / OFFGRID_TICK).astype(np.int64))
+    cells, off = check_footprints_numpy(k_out, levels, amount, side)
+    L = fp["buy_volumes"].shape[1]
+    say(f"off-grid: {n_bars:,} time bars, footprints L {L} ({n_bars * L:,} cells), "
+        f"{n_v:,} volume and {n_d:,} dollar bars; launches {launches}; the kits == the "
+        f"path's functions and the kernel path run to run, bit for bit; kernel path vs "
+        f"plain path: closes (D on the whole month) and footprints exact, products "
+        f"within their bounds (largest shares: " + ", ".join(
+            f"{k} {v:.2g}" for k, v in sorted(shares.items(), key=lambda kv: -kv[1])[:4])
+        + f"); 200 bars == numpy, 40 bars' footprints == np.add.at ({off} of "
+        f"{cells:,} volume cells differ in the last bit) [{card}]")
+    say(f"off-grid stage ms, median of 2 (kernel | plain): " + ", ".join(
+        f"{k} {k_st[k]:.2f} | {p_st[k]:.2f}" for k in k_st) + f"; the kits' main path "
+        f"{kits_s:.2f} s with their host quantization attempts and copies; peak device "
+        f"memory {(peak - base) / 2**30:.2f} GiB above the {base / 2**30:.2f} GiB held "
+        f"before it [{card}]")
+    entries = {"D": kernel_d(card, tr, thr_v, thr_d, n_v, n_d, launches)}
+    entries.update(kernels_s_c_f64(card, tr, launches, need))
+    say(f"phase 12 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return launches, entries
+
+
 def main():
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--profile", action="store_true",
                     help="after phase 6, time the footprint features alone "
@@ -3010,6 +3307,10 @@ def main():
     if 11 in phases:
         need = {"B", "S", "R"} - set(kernels)
         merge("chain", *phase_chain(card, month, need))
+    del month
+    if 12 in phases:
+        need = {"S", "C"} - set(kernels)
+        merge("offgrid", *phase_offgrid(card, need))
     say(f"smoke run: {time.perf_counter() - t_start:.1f} s, the kernels' build "
         f"included")
     if kernels:

@@ -54,6 +54,7 @@ _SIGNATURES = {
     "fmk_profile_walk_bytes": [],
     "fmk_profile_slots": [_P] * 3 + [_I64] * 4 + [_P] * 2,
     "fmk_profile_walk": [_P, _P, _I64, _I64, _I64, ctypes.c_int, _P, _P, _P],
+    "fmk_float_walk": [ctypes.c_int, _P, _P, _I64, _F64, _I64, _P, _P, _P],
 }
 _SIZES = {"fmk_scan_scratch_bytes", "fmk_event_scratch_bytes",
           "fmk_planes_scratch_bytes", "fmk_products_scratch_bytes",

@@ -24,19 +24,11 @@ semantics of the f64 path (``comp_bar_trade_size_features`` in
 import torch
 
 from ..ops.prefix_scan import fast_cumsum, fast_cumsum_cols
-from ..ops.segment import (bar_ids_from_close_indices, segment_quantile_sorted,
-                           sorted_segments)
+from ..ops.segment import (bar_ids_from_close_indices, prefix_differences,
+                           segment_quantile_sorted, sorted_segments)
 
-__all__ = ["comp_bar_trade_size_features_q", "bar_trade_size_features"]
-
-
-def _range_sums(P, ci):
-    """Per-bar sums over ``(ci[k], ci[k+1]]`` of each row of the inclusive
-    prefix ``P`` (``aggregate_q.py _rsum``)."""
-    n = P.shape[1]
-    hi = P[:, ci[1:].clamp(0, n - 1)]
-    lo = P[:, ci[:-1].clamp(0, n - 1)]
-    return hi - torch.where(ci[:-1] >= 0, lo, torch.zeros_like(lo))
+__all__ = ["comp_bar_trade_size_features_q", "bar_trade_size_features",
+           "per_bar_theta"]
 
 
 def comp_bar_trade_size_features_q(amount_units, amounts_f32, theta, ci,
@@ -63,7 +55,7 @@ def comp_bar_trade_size_features_q(amount_units, amounts_f32, theta, ci,
     block = torch.where(amt > thr[bar_id], amount_units,
                         torch.zeros_like(amount_units))
     del amt
-    total_u, block_u = _range_sums(
+    total_u, block_u = prefix_differences(
         cumsum_cols(torch.stack([amount_units, block])), ci)
     del block
     counts = ci[1:] - ci[:-1]
@@ -97,6 +89,18 @@ def comp_bar_trade_size_features_q(amount_units, amounts_f32, theta, ci,
     }
 
 
+def per_bar_theta(theta, ci) -> torch.Tensor:
+    """``theta`` (one typical trade size, or one per bar) as float64, one per
+    bar of ``ci``, on its device."""
+    nb = ci.shape[0] - 1
+    theta = torch.as_tensor(theta, dtype=torch.float64, device=ci.device)
+    if theta.dim() == 0:
+        theta = theta.expand(nb)
+    if theta.shape != (nb,):
+        raise ValueError("Theta should match the number of bars.")
+    return theta
+
+
 def bar_trade_size_features(amount_units, amounts_f32, ci, theta, *,
                             theta_mult: float = 5.0, amount_scale,
                             cumsum=fast_cumsum, cumsum_cols=fast_cumsum_cols):
@@ -106,12 +110,7 @@ def bar_trade_size_features(amount_units, amounts_f32, ci, theta, *,
     ``theta`` is one typical trade size or one per bar (a tensor or an array
     of ``n_bars`` values, e.g. ``ohlcv["median_trade_size"]``).
     """
-    nb = ci.shape[0] - 1
-    theta = torch.as_tensor(theta, dtype=torch.float64, device=ci.device)
-    if theta.dim() == 0:
-        theta = theta.expand(nb)
-    if theta.shape != (nb,):
-        raise ValueError("Theta should match the number of bars.")
+    theta = per_bar_theta(theta, ci)
     return comp_bar_trade_size_features_q(
         amount_units, amounts_f32, theta, ci, theta_mult, amount_scale,
         cumsum=cumsum, cumsum_cols=cumsum_cols)

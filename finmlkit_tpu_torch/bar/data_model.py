@@ -10,19 +10,25 @@ of id gaps (``missing_pct``, ``data_ok``, ``discontinuities``), the merge of
 split executions (``bar/utils.merge_split_trades``), the timestamp resolution
 ``proc_res``, and the tick-rule sides when no sides are known.
 
-``FootprintData`` and the HDF5 store (``save_h5``, ``load_trades_h5``,
-``finmlkit_tpu/data/store.py``) are not ported yet.
+``FootprintData`` is the dense footprint container of the JAX package without
+pandas: its tensors (or numpy arrays) as they are, slicing by bar or by time,
+the ragged views, ``memory_usage``, and ``get_columns`` in place of ``get_df``.
+
+The HDF5 store (``save_h5``, ``load_trades_h5``, ``finmlkit_tpu/data/store.py``)
+is not ported yet.
 """
 import datetime
 import logging
+from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
 import torch
 
-from .utils import comp_trade_side_vector, merge_split_trades
+from .utils import (comp_trade_side_vector, merge_split_trades,
+                    sorted_footprint_columns)
 
-__all__ = ["TradesData"]
+__all__ = ["TradesData", "FootprintData"]
 
 logger = logging.getLogger(__name__)
 
@@ -240,3 +246,158 @@ class TradesData:
             res = _UNIT_SCALE[proc_res]
             return (ts // res) * res
         return ts
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def _nbytes(x) -> int:
+    return x.element_size() * x.numel() if torch.is_tensor(x) else np.asarray(x).nbytes
+
+
+class _TimeIndexer:
+    """``FootprintData.loc``: ``fp.loc[start:stop]`` slices by time, ints
+    read as int64 ns."""
+
+    def __init__(self, fp):
+        self._fp = fp
+
+    def __getitem__(self, key):
+        if not isinstance(key, slice):
+            raise TypeError("FootprintData.loc takes a slice of times")
+        return self._fp._time_slice(key)
+
+
+@dataclass
+class FootprintData:
+    """Dense per-bar, per-price-level order flow (``data_model.py:218-345``).
+
+    The grids are ``(n_bars, L)``, masked by each bar's ``n_levels``;
+    ``low_level`` is the integer tick of level 0 on the grid of
+    ``price_tick``. The fields are the JAX class's, as tensors (on the kit's
+    device) or numpy arrays; ``bar_timestamps`` are int64 ns.
+    :meth:`from_dict` takes the dict of a kit's ``build_footprints``.
+
+    ``fp[a:b]`` slices the bars by position, or by time when an end is an
+    ISO string, a ``datetime.datetime`` or a ``numpy.datetime64``;
+    ``fp.loc[a:b]`` slices by time and also reads ints as int64 ns. A time
+    slice keeps both ends, as pandas' ``.loc`` does.
+    """
+
+    bar_timestamps: object          # (n_bars,) int64 ns
+    price_tick: float
+    low_level: object               # (n_bars,) int32
+    n_levels: object                # (n_bars,) int32
+    buy_volumes: object             # (n_bars, L) float32
+    sell_volumes: object            # (n_bars, L) float32
+    buy_ticks: object               # (n_bars, L) int32
+    sell_ticks: object              # (n_bars, L) int32
+    buy_imbalances: object          # (n_bars, L) bool
+    sell_imbalances: object         # (n_bars, L) bool
+    buy_imbalances_sum: object      # (n_bars,) uint16
+    sell_imbalances_sum: object     # (n_bars,) uint16
+    cot_price_levels: object        # (n_bars,) int32
+    imb_max_run_signed: object      # (n_bars,) int16
+    vp_skew: object                 # (n_bars,) float64
+    vp_gini: object                 # (n_bars,) float64
+    extras: dict = field(default_factory=dict)
+
+    _ARRAYS = ("bar_timestamps", "low_level", "n_levels", "buy_volumes",
+               "sell_volumes", "buy_ticks", "sell_ticks", "buy_imbalances",
+               "sell_imbalances", "buy_imbalances_sum", "sell_imbalances_sum",
+               "cot_price_levels", "imb_max_run_signed", "vp_skew", "vp_gini")
+
+    @classmethod
+    def from_dict(cls, fp: dict, price_tick: float) -> "FootprintData":
+        """The footprints of a kit's ``build_footprints`` (its close
+        timestamps under ``"timestamp"``) on the grid of ``price_tick``."""
+        return cls(bar_timestamps=fp["timestamp"], price_tick=float(price_tick),
+                   **{k: fp[k] for k in cls._ARRAYS if k != "bar_timestamps"})
+
+    def __len__(self):
+        return len(self.bar_timestamps)
+
+    def _n_levels(self) -> np.ndarray:
+        return _host(self.n_levels).astype(np.int64)
+
+    @property
+    def price_levels(self):
+        """The integer price levels of every bar, a list of int32 arrays."""
+        low, nl = _host(self.low_level), self._n_levels()
+        return [np.arange(low[i], low[i] + nl[i], dtype=np.int32)
+                for i in range(len(self))]
+
+    def _ragged(self, dense):
+        nl = self._n_levels()
+        return [dense[i, :nl[i]] for i in range(len(self))]
+
+    @property
+    def buy_volumes_ragged(self):
+        return self._ragged(self.buy_volumes)
+
+    @property
+    def sell_volumes_ragged(self):
+        return self._ragged(self.sell_volumes)
+
+    def _slice(self, key) -> "FootprintData":
+        return FootprintData(price_tick=self.price_tick, extras=dict(self.extras),
+                             **{k: getattr(self, k)[key] for k in self._ARRAYS})
+
+    def _time_slice(self, key: slice) -> "FootprintData":
+        ts = _host(self.bar_timestamps).astype(np.int64)
+        if len(ts) == 0:
+            return self._slice(slice(0, 0))
+        start = ts[0] if key.start is None else _to_ns(key.start)
+        stop = ts[-1] if key.stop is None else _to_ns(key.stop)
+        idx = np.flatnonzero((ts >= start) & (ts <= stop))
+        return self._slice(slice(0, 0) if len(idx) == 0
+                           else slice(int(idx[0]), int(idx[-1]) + 1))
+
+    @property
+    def loc(self) -> _TimeIndexer:
+        return _TimeIndexer(self)
+
+    def __getitem__(self, key):
+        """Bars by position (an int slice), or by time (see the class)."""
+        if not isinstance(key, slice):
+            raise TypeError("FootprintData takes a slice of bars or of times")
+        timelike = (str, datetime.datetime, np.datetime64)
+        if isinstance(key.start, timelike) or isinstance(key.stop, timelike):
+            return self._time_slice(key)
+        return self._slice(key)
+
+    def get_columns(self) -> dict:
+        """The footprints flattened to one row a (bar, level) as numpy
+        columns: ``price_level`` (in price units), ``sell_ticks``,
+        ``buy_ticks``, ``sell_volume``, ``buy_volume``, ``sell_imbalance``,
+        ``buy_imbalance``, and the index arrays ``bar_idx`` and
+        ``bar_datetime_idx`` (int64 ns), in the row order of the JAX class's
+        ``get_df``: bar time ascending, price descending."""
+        nl = self._n_levels()
+        L = self.buy_volumes.shape[1]
+        bar_idx = np.repeat(np.arange(len(self)), nl)
+        level_in_bar = (np.concatenate([np.arange(k, dtype=np.int64) for k in nl])
+                        if len(self) else np.empty(0, dtype=np.int64))
+        flat = bar_idx * L + level_in_bar
+        price_level = (np.repeat(_host(self.low_level), nl) + level_in_bar) \
+            * self.price_tick
+
+        def col(name):
+            return _host(getattr(self, name)).reshape(-1)[flat]
+
+        columns = {
+            "price_level": price_level,
+            "sell_ticks": col("sell_ticks"),
+            "buy_ticks": col("buy_ticks"),
+            "sell_volume": col("sell_volumes"),
+            "buy_volume": col("buy_volumes"),
+            "sell_imbalance": col("sell_imbalances"),
+            "buy_imbalance": col("buy_imbalances"),
+        }
+        bar_ns = np.repeat(_host(self.bar_timestamps).astype(np.int64), nl)
+        return sorted_footprint_columns(columns, bar_idx, bar_ns)
+
+    def memory_usage(self) -> int:
+        """Bytes of the dense tensors."""
+        return sum(_nbytes(getattr(self, k)) for k in self._ARRAYS)

@@ -13,6 +13,10 @@ semantics of the f64 path (``finmlkit_tpu/bar/footprint.py``):
    cell (ROADMAP fault R1); the port keeps two counters;
 3. the features of ``bar/footprint.py``.
 
+``bar_footprints`` takes this path where the footprint tick refines the trades'
+tick and the refined ticks fit int32, and the float64 grid of
+``bar/footprint.py`` otherwise, as the JAX kit does.
+
 The volume sums are ``index_put_(..., accumulate=True)``: in trade order on a
 CPU tensor, and on a CUDA tensor through PyTorch's sort-based accumulation,
 whose result does not depend on the order in which the card runs its threads,
@@ -20,9 +24,10 @@ so that repeated runs, and the kernel and plain paths, agree bit for bit.
 """
 import torch
 
-from ..ops.prefix_scan import fast_cumsum_cols
+from ..ops.prefix_scan import fast_cumsum, fast_cumsum_cols
 from ..ops.scan import next_bucket
-from .footprint import footprint_features_from_tensors
+from .footprint import (bar_levels, check_grid_fits, comp_bar_footprints,
+                        footprint_features_from_tensors)
 
 __all__ = ["comp_bar_footprints_q", "bar_footprints"]
 
@@ -91,36 +96,59 @@ def comp_bar_footprints_q(price_ticks, amounts_f32, ci, sides, low_t, high_t,
 
 def bar_footprints(ticks, amounts_f32, ci, sides, ohlcv, *, tick_size,
                    price_tick_size=None, imbalance_factor: float = 3.0,
-                   cumsum_cols=fast_cumsum_cols):
+                   prices=None, cumsum=fast_cumsum, cumsum_cols=fast_cumsum_cols):
     """Dense footprints of every bar, as ``build_footprints`` of the kit
-    computes them, as a dict of tensors.
+    computes them (``kit.py:284-337``), as a dict of tensors.
 
     ``ticks`` are the int32 price ticks of ``tick_size`` (``interop``'s
-    ``TradeTensors.ticks``); ``ohlcv`` is the dict of ``bar_products_final``,
-    whose ``low``/``high`` give each bar's levels (empty bars take the
-    close). The footprint grid ``price_tick_size`` (default ``tick_size``)
-    must refine the quantization grid by an integer ratio; the JAX kit falls
-    back to its f64 path otherwise, which the port does not have, so it
-    raises. ``L = next_bucket(max n_levels, 8)`` from one device read.
+    ``TradeTensors.ticks``), or None for trades on no tick grid; ``ohlcv`` is
+    the dict of the bar products, whose ``low``/``high`` give each bar's
+    levels (empty bars take the close). ``prices`` are the trades' float64
+    prices. The footprint grid ``price_tick_size`` defaults to ``tick_size``.
+
+    Where the grid refines the trades' ticks by an integer ratio and every
+    refined tick (of every trade, in a bar or not) fits int32, the grid is
+    built from the integer ticks (:func:`comp_bar_footprints_q`, kernel C for
+    the bar ids and lows); ``L = next_bucket(max n_levels, 8)`` from one
+    device read. Otherwise, as the JAX kit falls back (``kit.py:307-332``),
+    it is the float64 grid of ``bar/footprint.py comp_bar_footprints`` on
+    ``prices``, or on ``ticks * tick_size`` without them (kernel S for the bar
+    ids); a bar whose levels leave int32 raises there. Either way a grid of
+    ``n_bars * L`` cells that would not fit in the device's free memory
+    raises ``ValueError`` before it is allocated.
     """
+    if ticks is None and prices is None:
+        raise ValueError("bar_footprints needs the trades' ticks or prices")
     if price_tick_size is None:
+        if tick_size is None:
+            raise ValueError("trades on no tick grid need a price_tick_size")
         price_tick_size = tick_size
-    r = float(tick_size) / float(price_tick_size)
-    if not (abs(r - round(r)) < 1e-9 and round(r) >= 1):
-        raise ValueError(f"footprint tick {price_tick_size} does not refine the "
-                         f"trade tick {tick_size} by an integer ratio")
-    ratio = int(round(r))
-    low_t = torch.round(ohlcv["low"] / price_tick_size).to(torch.int64)
-    high_t = torch.round(ohlcv["high"] / price_tick_size).to(torch.int64)
-    # every trade's tick is refined, also those outside every bar
-    t_min, t_max, nl_max = (int(v) for v in torch.stack([
-        torch.minimum(ticks.min().to(torch.int64) * ratio, low_t.min()),
-        torch.maximum(ticks.max().to(torch.int64) * ratio, high_t.max()),
-        (high_t - low_t + 1).max()]).cpu())
-    if t_min < -2**31 or t_max >= 2**31:
-        raise ValueError("footprint ticks overflow int32")
-    max_levels = next_bucket(max(nl_max, 1), 8)
-    return comp_bar_footprints_q(
-        ticks * ratio, amounts_f32, ci, sides, low_t.to(torch.int32),
-        high_t.to(torch.int32), imbalance_factor, max_levels=max_levels,
-        cumsum_cols=cumsum_cols)
+    dev, nb = ci.device, ci.shape[0] - 1
+    ratio = None
+    if ticks is not None:
+        r = float(tick_size) / float(price_tick_size)
+        if abs(r - round(r)) < 1e-9 and round(r) >= 1:
+            ratio = int(round(r))
+    if ratio is not None:
+        low_t = torch.round(ohlcv["low"] / price_tick_size).to(torch.int64)
+        high_t = torch.round(ohlcv["high"] / price_tick_size).to(torch.int64)
+        # every trade's tick is refined, also those outside every bar
+        t_min, t_max, nl_max = (int(v) for v in torch.stack([
+            torch.minimum(ticks.min().to(torch.int64) * ratio, low_t.min()),
+            torch.maximum(ticks.max().to(torch.int64) * ratio, high_t.max()),
+            (high_t - low_t + 1).max()]).cpu())
+        if -2**31 <= t_min and t_max < 2**31:
+            max_levels = next_bucket(max(nl_max, 1), 8)
+            check_grid_fits(nb, max_levels, dev)
+            return comp_bar_footprints_q(
+                ticks * ratio, amounts_f32, ci, sides, low_t.to(torch.int32),
+                high_t.to(torch.int32), imbalance_factor, max_levels=max_levels,
+                cumsum_cols=cumsum_cols)
+    if prices is None:
+        prices = ticks.to(torch.float64) * float(tick_size)
+    low, high = bar_levels(ohlcv["low"], ohlcv["high"], price_tick_size)
+    max_levels = next_bucket(max(int((high - low + 1).max()) if nb else 1, 1), 8)
+    check_grid_fits(nb, max_levels, dev)
+    return comp_bar_footprints(prices, amounts_f32, ci, sides, price_tick_size,
+                               ohlcv["low"], ohlcv["high"], imbalance_factor,
+                               max_levels=max_levels, cumsum=cumsum)

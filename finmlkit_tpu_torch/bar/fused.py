@@ -270,8 +270,13 @@ def bar_products_final(ticks, units, ci, sides, *, tick_size, amount_scale,
     ci) -> (med_a, med_b)``, such as ``median_engine(name, plain=True)``, or
     the name of an engine's kernel path (:func:`median_engine`). On CPU
     tensors every kernel entry point runs its plain version; passing the
-    plain versions runs the plain path on any device.
+    plain versions runs the plain path on any device. Trades on no tick grid
+    (the float form of ``interop``, ``ticks`` None) take ``bar/aggregate.py``
+    instead; here they raise.
     """
+    if ticks is None or units is None:
+        raise ValueError("bar_products_final takes integer ticks and units; trades "
+                         "on no tick grid take bar/aggregate.py")
     p64, p32, pf = scan(ticks, units, sides, ci)
     engine = median_engine(medians) if isinstance(medians, str) else medians
     return bar_finals(p64, p32, pf, engine(amounts_f32, ci), ci, tick_size,

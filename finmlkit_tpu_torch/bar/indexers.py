@@ -1,10 +1,12 @@
 """Bar close-index computation (the "indexer" layer).
 
 Counterpart of ``finmlkit_tpu/bar/indexers.py``. Ported: the time, tick,
-integer dollar and integer volume indexers, the CUSUM indexer (float64) and
-the imbalance and run indexers (float64). Not ported: the float64 volume and
-dollar indexers (for prices off a tick grid), the native host indexers
-(kernel E runs the same recurrences on the card) and the TPU's float32 scans.
+integer dollar and integer volume indexers, the float64 volume and dollar
+indexers (for prices off a tick grid, on kernel D), the CUSUM indexer
+(float64) and the imbalance and run indexers (float64). The native host
+indexers do not cross (kernels E and D run the same recurrences on the card),
+nor do the TPU's float32 scans and the JAX device forms of the float64 volume
+and dollar indexers (prefix-sum searches that can move a close by one trade).
 Indexers return ``(close_ts, close_indices)``: element 0 is the open anchor of
 the first bar, and bar *i* spans trades ``(ci[i], ci[i+1]]``.
 """
@@ -14,10 +16,12 @@ import numpy as np
 import torch
 
 from ..ops.event_scan import cusum_scan, info_scan, volume_scan
+from ..ops.float_walk import dollar_walk, volume_walk
 from ..ops.prefix_scan import fast_cumsum, fast_ffill
 
 __all__ = ["time_bar_indexer", "tick_bar_indexer", "dollar_bar_indexer_q",
-           "volume_bar_indexer_q", "cusum_scan_inputs", "cusum_bar_indexer",
+           "volume_bar_indexer_q", "volume_bar_indexer", "dollar_bar_indexer",
+           "cusum_scan_inputs", "cusum_bar_indexer",
            "imbalance_bar_indexer", "run_bar_indexer"]
 
 _DOLLAR_SHIFT = 6  # >>6 keeps a month of tick*unit dollars inside int64
@@ -115,6 +119,62 @@ def volume_bar_indexer_q(timestamps, amount_units, threshold, amount_scale, *,
     out = scan(amount_units, thr, max_bars)
     ci = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), out])
     return timestamps[ci], ci
+
+
+def _walk_ci(timestamps, closes):
+    ci = torch.cat([torch.zeros(1, dtype=torch.int64, device=closes.device), closes])
+    return timestamps[ci], ci
+
+
+def _walk_cap(total: float, threshold: float, n: int) -> int:
+    """``int(total / threshold) + 2`` closes (``indexers.py:440, 453``), at
+    most ``n``; ``n`` for a threshold of at most 0, where the JAX helpers
+    divide by zero or ask for a negative buffer."""
+    if threshold <= 0:
+        return n
+    return min(int(total / threshold) + 2, n)
+
+
+def volume_bar_indexer(timestamps, volumes, threshold, *, walk=volume_walk):
+    """Volume bars of float32 ``volumes`` with the exact float64 loop
+    (``volume_bar_indexer_host``, ``indexers.py:434-444``, and
+    ``native/seg_stats.cpp:183-194``): the sum starts with trade 0's volume,
+    the checks start at trade 1, and it restarts at 0 at each close, the
+    overshoot dropped. ``walk`` defaults to kernel D
+    (``ops.float_walk.volume_walk``). At most ``int(total / threshold) + 2``
+    closes, ``total`` the float64 sum of the volumes (one device read).
+
+    The JAX package's device form (``indexers.py:407``) searches the prefix
+    sum for each close and can close a bar one trade away from the loop's
+    close near the threshold; it is not ported. Returns ``(close_ts, ci)``,
+    ``ci[0] == 0``.
+    """
+    threshold = float(threshold)
+    n = int(volumes.shape[0])
+    total = float(volumes.to(torch.float64).sum())
+    closes = walk(volumes, threshold, _walk_cap(total, threshold, n))
+    return _walk_ci(timestamps, closes)
+
+
+def dollar_bar_indexer(timestamps, prices, volumes, threshold, *, walk=dollar_walk):
+    """Dollar bars of float64 ``prices`` times float32 ``volumes`` with the
+    exact float64 loop (``dollar_bar_indexer_host``, ``indexers.py:447-458``,
+    and ``native/seg_stats.cpp:199-211``): the sum starts with trade 0's
+    dollars, the checks start at trade 1, and each close subtracts the
+    threshold, the remainder carried. Each product and each add rounds once,
+    as the source loop is written (ROADMAP R15). ``walk`` defaults to kernel D
+    (``ops.float_walk.dollar_walk``). At most ``int(total / threshold) + 2``
+    closes (one device read of the total).
+
+    The JAX package's device form (``indexers.py:168``) searches the prefix
+    sum for each multiple of the threshold and can move a close by one trade;
+    it is not ported. Returns ``(close_ts, ci)``, ``ci[0] == 0``.
+    """
+    threshold = float(threshold)
+    n = int(volumes.shape[0])
+    total = float((prices.to(torch.float64) * volumes.to(torch.float64)).sum())
+    closes = walk(prices, volumes, threshold, _walk_cap(total, threshold, n))
+    return _walk_ci(timestamps, closes)
 
 
 def cusum_scan_inputs(timestamps, prices, sigma, sigma_floor: float,

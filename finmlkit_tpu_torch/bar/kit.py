@@ -9,14 +9,19 @@ one value per bar, with the bars' close timestamps under ``"timestamp"``
 (the DataFrames' index).
 
 A kit quantizes the trades on the host (``bar/quantize.py``) and copies them
-to its device once. Prices off a tick grid raise: the JAX kits' float64
-fallback (``bar/aggregate.py`` and the float64 indexers) is not ported. The
-TPU's bucket padding of trades and bars (a compile-cache workaround) and the
-``FMKT_*`` environment switches (TPU dispatch) do not cross: every kit runs
-the kernels of the port, or with ``plain=True`` their plain PyTorch versions
-(the reference the kernels are held against). The median engine and the bar
-scan that ``FMKT_MEDIANS`` and ``FMKT_SCAN`` select in the JAX kits are the
-keyword arguments ``medians`` and ``scan`` here.
+to its device once. Where the prices sit on no tick grid (``quantize_trades``
+returns None), it keeps them as float64 on the device instead
+(``interop.from_floats``) and takes the JAX kits' float64 path: the products
+of ``bar/aggregate.py``, the exact float64 volume and dollar walks of
+``bar/indexers.py`` (kernel D) and the float64 footprint grid of
+``bar/footprint.py``; the time, tick, CUSUM, imbalance and run indexers are
+the same on both paths. The TPU's bucket padding of trades and bars (a
+compile-cache workaround) and the ``FMKT_*`` environment switches (TPU
+dispatch) do not cross: every kit runs the kernels of the port, or with
+``plain=True`` their plain PyTorch versions (the reference the kernels are
+held against). The median engine and the bar scan that ``FMKT_MEDIANS`` and
+``FMKT_SCAN`` select in the JAX kits are the keyword arguments ``medians`` and
+``scan`` here.
 """
 import functools
 from abc import ABC, abstractmethod
@@ -25,13 +30,14 @@ import numpy as np
 import torch
 
 from .. import interop
-from ..ops import event_scan, prefix_scan
-from . import indexers
+from ..ops import event_scan, float_walk, prefix_scan
+from . import aggregate, indexers
 from .data_model import TradesData
-from .aggregate_q import bar_trade_size_features
+from .aggregate_q import bar_trade_size_features, per_bar_theta
 from .footprint_q import bar_footprints
 from .fused import bar_products_final, bar_scan, median_engine
 from .quantize import quantize_trades
+from .utils import comp_price_tick_size
 
 __all__ = ["BarBuilderBase", "TimeBarKit", "TickBarKit", "VolumeBarKit",
            "DollarBarKit", "ImbalanceBarKit", "RunBarKit", "CUSUMBarKit"]
@@ -71,7 +77,10 @@ class BarBuilderBase(ABC):
     scan: "rowtail" (the default) or "rowtail4" (both kernel B, as the JAX
     kits' two rowtail kernels compute one function) or "planes" (the
     running state of every trade, kernel V, gathered at the bars).
-    An unknown name raises, and so does "host" (not ported).
+    An unknown name raises, and so does "host" (not ported). Both name
+    engines of the quantized path: on trades whose prices sit on no tick
+    grid (the float64 path) they do not apply, and a value other than the
+    default raises.
     """
 
     def __init__(self, timestamps, prices, amounts, sides=None, *,
@@ -85,16 +94,23 @@ class BarBuilderBase(ABC):
         if sides is not None and len(sides) != len(ts):
             raise ValueError("sides must have the trades' length")
         q = quantize_trades(px, amt)
-        if q is None:
-            raise ValueError("prices do not sit on a tick grid; the float64 "
-                             "fallback of the JAX kits is not ported yet")
+        self._float = q is None
+        if self._float and (medians != "sort" or scan != "rowtail"):
+            raise ValueError(
+                f"medians={medians!r} and scan={scan!r} name engines of the "
+                "quantized path; these prices sit on no tick grid, and their "
+                "float64 path takes neither")
         self.device = torch.device(device)
         self._has_sides = sides is not None
         side = np.zeros(len(ts), np.int8) if sides is None else sides
-        self.trades = interop.from_numpy(q, None, side, amt, self.device,
-                                         timestamps=ts)
+        if self._float:
+            self.trades = interop.from_floats(px, None, side, amt, self.device,
+                                              timestamps=ts)
+        else:
+            self.trades = interop.from_numpy(q, None, side, amt, self.device,
+                                             timestamps=ts)
         self._prices_host = px
-        self._prices = None
+        self._prices = self.trades.prices
         self._ts_first, self._ts_last = int(ts[0]), int(ts[-1])
         self._plain = bool(plain)
         self._bar_scan = bar_scan(scan, plain=self._plain)
@@ -116,10 +132,15 @@ class BarBuilderBase(ABC):
     def _event_scan(self, name: str):
         return getattr(event_scan, f"{name}_plain" if self._plain else name)
 
+    def _walk(self, name: str):
+        return getattr(float_walk, f"{name}_plain" if self._plain else name)
+
     def _copy_prices(self) -> None:
-        """Copy the float64 prices to the device, for the kits that read them
-        (CUSUM bars, dollar-weighted imbalance and run bars)."""
-        self._prices = torch.from_numpy(self._prices_host).to(self.device)
+        """Copy the float64 prices to the device once, for the kits and builds
+        that read them (CUSUM bars, dollar-weighted imbalance and run bars,
+        footprints); the float form holds them already."""
+        if self._prices is None:
+            self._prices = torch.from_numpy(self._prices_host).to(self.device)
 
     # -- close indices -----------------------------------------------------
     @abstractmethod
@@ -146,19 +167,42 @@ class BarBuilderBase(ABC):
 
     # -- products ----------------------------------------------------------
     def _bar_products(self):
+        """``(ohlcv, directional)``: of the quantized path, both from one bar
+        scan; of the float64 path, each from ``bar/aggregate.py`` when first
+        asked for."""
         if self._products is None:
             self._set_bar_close()
             t = self.trades
-            self._products = bar_products_final(
-                t.ticks, t.units, self._ci, t.sides, tick_size=t.tick_size,
-                amount_scale=t.amount_scale, amounts_f32=t.amounts,
-                scan=self._bar_scan, medians=self._medians)
+            if self._float:
+                self._products = [None, None]
+            else:
+                self._products = bar_products_final(
+                    t.ticks, t.units, self._ci, t.sides, tick_size=t.tick_size,
+                    amount_scale=t.amount_scale, amounts_f32=t.amounts,
+                    scan=self._bar_scan, medians=self._medians)
         return self._products
+
+    def _ohlcv(self) -> dict:
+        products = self._bar_products()
+        if products[0] is None:
+            t = self.trades
+            products[0] = aggregate.comp_bar_ohlcv(t.prices, t.amounts, self._ci,
+                                                   cumsum=self._cumsum)
+        return products[0]
+
+    def _directional(self) -> dict:
+        products = self._bar_products()
+        if products[1] is None:
+            t = self.trades
+            products[1] = aggregate.comp_bar_directional_features(
+                t.prices, t.amounts, self._ci, t.sides, cumsum=self._cumsum,
+                cumsum_cols=self._cumsum_cols)
+        return products[1]
 
     def build_ohlcv(self) -> dict:
         """open, high, low, close, volume, trades, median_trade_size and vwap
         of every bar (``kit.py:197-223``)."""
-        ohlcv, _ = self._bar_products()
+        ohlcv = self._ohlcv()
         return {"timestamp": self.bar_close_timestamps,
                 **{k: ohlcv[k] for k in _OHLCV}}
 
@@ -166,8 +210,7 @@ class BarBuilderBase(ABC):
         """Order-flow splits and the in-bar imbalance extrema
         (``kit.py:225-244``)."""
         self._require_sides()
-        _, directional = self._bar_products()
-        return {"timestamp": self.bar_close_timestamps, **directional}
+        return {"timestamp": self.bar_close_timestamps, **self._directional()}
 
     def build_trade_size_features(self, theta, theta_mult: float = 5.0) -> dict:
         """Relative trade-size features (``kit.py:246-282``); ``theta`` is one
@@ -176,24 +219,35 @@ class BarBuilderBase(ABC):
         t = self.trades
         if not torch.is_tensor(theta):
             theta = torch.tensor(np.asarray(theta, np.float64))
-        feats = bar_trade_size_features(
-            t.units, t.amounts, self._ci, theta.to(self.device),
-            theta_mult=theta_mult, amount_scale=t.amount_scale,
-            cumsum=self._cumsum, cumsum_cols=self._cumsum_cols)
+        if self._float:
+            feats = aggregate.comp_bar_trade_size_features(
+                t.amounts, per_bar_theta(theta.to(self.device), self._ci),
+                self._ci, theta_mult, cumsum=self._cumsum)
+        else:
+            feats = bar_trade_size_features(
+                t.units, t.amounts, self._ci, theta.to(self.device),
+                theta_mult=theta_mult, amount_scale=t.amount_scale,
+                cumsum=self._cumsum, cumsum_cols=self._cumsum_cols)
         return {"timestamp": self.bar_close_timestamps, **feats}
 
     def build_footprints(self, price_tick_size=None,
                          imbalance_factor: float = 3.0) -> dict:
         """Dense footprints and their features (``kit.py:284-337``) on the
-        grid of ``price_tick_size`` (default: the trades' tick, as the JAX kit
-        infers it), which must refine the trades' tick by an integer ratio."""
+        grid of ``price_tick_size`` (default: the trades' tick as
+        ``comp_price_tick_size`` infers it, as the JAX kit does). From the
+        integer ticks where that grid refines the trades' tick and fits
+        int32, else the float64 grid (``bar_footprints``)."""
         self._require_sides()
-        ohlcv, _ = self._bar_products()
+        ohlcv = self._ohlcv()
         t = self.trades
+        if price_tick_size is None and self._float:
+            price_tick_size = comp_price_tick_size(self._prices_host)
+        self._copy_prices()
         fp = bar_footprints(t.ticks, t.amounts, self._ci, t.sides, ohlcv,
                             tick_size=t.tick_size,
                             price_tick_size=price_tick_size,
                             imbalance_factor=imbalance_factor,
+                            prices=self._prices, cumsum=self._cumsum,
                             cumsum_cols=self._cumsum_cols)
         return {"timestamp": self.bar_close_timestamps, **fp}
 
@@ -229,8 +283,9 @@ class TickBarKit(BarBuilderBase):
 
 
 class VolumeBarKit(BarBuilderBase):
-    """Volume-threshold bars, reset-to-zero semantics (``kit.py:367-387``),
-    on the integer amount units."""
+    """Volume-threshold bars, reset-to-zero semantics (``kit.py:367-387``):
+    on the integer amount units, or on trades off every tick grid with the
+    exact float64 walk of kernel D (``indexers.volume_bar_indexer``)."""
 
     @_takes_trades
     def __init__(self, timestamps, prices, amounts, sides, volume_ths: float,
@@ -240,14 +295,19 @@ class VolumeBarKit(BarBuilderBase):
 
     def _comp_bar_close(self):
         t = self.trades
+        if self._float:
+            return indexers.volume_bar_indexer(t.timestamps, t.amounts,
+                                               self.volume_ths,
+                                               walk=self._walk("volume_walk"))
         return indexers.volume_bar_indexer_q(
             t.timestamps, t.units, self.volume_ths, t.amount_scale,
             scan=self._event_scan("volume_scan"))
 
 
 class DollarBarKit(BarBuilderBase):
-    """Dollar-threshold bars, carry-remainder semantics (``kit.py:390-413``),
-    on the integer dollar units."""
+    """Dollar-threshold bars, carry-remainder semantics (``kit.py:390-413``):
+    on the integer dollar units, or on trades off every tick grid with the
+    exact float64 walk of kernel D (``indexers.dollar_bar_indexer``)."""
 
     @_takes_trades
     def __init__(self, timestamps, prices, amounts, sides, dollar_thrs: float,
@@ -257,6 +317,10 @@ class DollarBarKit(BarBuilderBase):
 
     def _comp_bar_close(self):
         t = self.trades
+        if self._float:
+            return indexers.dollar_bar_indexer(t.timestamps, t.prices, t.amounts,
+                                               self.dollar_thrs,
+                                               walk=self._walk("dollar_walk"))
         return indexers.dollar_bar_indexer_q(
             t.timestamps, t.ticks, t.units, self.dollar_thrs, t.tick_size,
             t.amount_scale, cumsum=self._cumsum)
@@ -321,7 +385,7 @@ class CUSUMBarKit(BarBuilderBase):
     def __init__(self, timestamps, prices, amounts, sides, sigma,
                  sigma_floor: float = 5e-4, sigma_mult: float = 2.0, **kw):
         super().__init__(timestamps, prices, amounts, sides, **kw)
-        if len(sigma) != self.trades.ticks.shape[0]:
+        if len(sigma) != self.trades.timestamps.shape[0]:
             raise ValueError("sigma must have one value per trade")
         self.lambda_mult = sigma_mult
         self.sigma_floor = sigma_floor

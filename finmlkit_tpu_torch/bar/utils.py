@@ -5,14 +5,14 @@ split executions, the tick-size estimate, sorting and order checks, the
 helpers of ``TradesData``'s preprocessing (``bar/data_model.py``). Each is the
 port's own copy of the JAX package's numpy code, so that the port never
 imports that package; both give the same arrays bit for bit.
-``footprint_to_dataframe`` (pandas) goes with ``FootprintData`` and is not
-ported yet.
+``footprint_to_dataframe`` needs pandas; its counterpart
+:func:`footprint_to_columns` returns the same columns as numpy arrays.
 """
 import numpy as np
 
 __all__ = ["comp_trade_side_vector", "merge_split_trades", "comp_price_tick_size",
            "comp_trade_side", "median3", "check_timestamps_order",
-           "fast_sort_trades"]
+           "fast_sort_trades", "footprint_to_columns"]
 
 
 def comp_trade_side_vector(prices: np.ndarray) -> np.ndarray:
@@ -147,3 +147,42 @@ def fast_sort_trades(timestamps, prices, amounts, is_buyer_maker=None):
     idx = np.argsort(timestamps, kind="stable")
     return (timestamps[idx], prices[idx], amounts[idx],
             is_buyer_maker[idx] if is_buyer_maker is not None else None)
+
+
+def sorted_footprint_columns(columns: dict, bar_idx, bar_ns) -> dict:
+    """Footprint rows in the order of the JAX package's DataFrames: bar time
+    ascending, price level descending, ties kept in row order (pandas'
+    multi-column ``sort_values`` is a stable lexsort). ``bar_idx`` and
+    ``bar_datetime_idx`` (int64 ns) join the columns as the index arrays."""
+    order = np.lexsort((-columns["price_level"], bar_ns))
+    out = {k: np.asarray(v)[order] for k, v in columns.items()}
+    out["bar_idx"] = np.asarray(bar_idx, np.int64)[order]
+    out["bar_datetime_idx"] = np.asarray(bar_ns, np.int64)[order]
+    return out
+
+
+def footprint_to_columns(bar_timestamps, price_levels, buy_volumes, sell_volumes,
+                         buy_ticks, sell_ticks, buy_imbalance, sell_imbalance,
+                         price_tick) -> dict:
+    """Ragged per-bar footprint lists as a dict of numpy columns: the columns
+    and the row order of ``footprint_to_dataframe`` (``utils.py:152-181``),
+    with its MultiIndex as the arrays ``bar_idx`` and ``bar_datetime_idx``
+    (int64 ns). ``bar_timestamps`` are int64 ns."""
+    bar_ts = np.asarray(bar_timestamps).astype(np.int64)
+    n_levels = np.array([len(p) for p in price_levels], dtype=np.int64)
+    bar_idx = np.repeat(np.arange(len(bar_ts)), n_levels)
+
+    def cat(parts):
+        return np.concatenate([np.asarray(p) for p in parts]) if len(parts) \
+            else np.empty(0)
+
+    columns = {
+        "price_level": cat(price_levels) * price_tick,
+        "sell_ticks": cat(sell_ticks),
+        "buy_ticks": cat(buy_ticks),
+        "sell_volume": cat(sell_volumes),
+        "buy_volume": cat(buy_volumes),
+        "sell_imbalance": cat(sell_imbalance),
+        "buy_imbalance": cat(buy_imbalance),
+    }
+    return sorted_footprint_columns(columns, bar_idx, np.repeat(bar_ts, n_levels))

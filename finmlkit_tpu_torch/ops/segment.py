@@ -5,15 +5,23 @@ Counterpart of ``finmlkit_tpu/ops/segment.py``. Bar *i* covers trades
 ``torch.sort`` of the composite key ``(bar_id << 32) | sortable_bits(value)``:
 each bar's values then sit ascending at offset ``ci[i] - ci[0]``, and a
 statistic is a gather at a closed-form position.
+
+The float64 path of the bars (``bar/aggregate.py``) takes sums as prefix
+differences, ``P[ci[k+1]] - P[ci[k]]`` of the inclusive prefix ``P`` with
+``P[-1] = 0`` (the JAX package's ``p[ci[1:]+1] - p[ci[:-1]+1]`` with
+``p[0] = 0``), and extrema as ``torch.segment_reduce`` over the bars'
+contiguous trades.
 """
 from fractions import Fraction
 
 import torch
 
-from .prefix_scan import fast_cumsum
+from .prefix_scan import fast_cumsum, fast_cumsum_cols
 
-__all__ = ["bar_ids_from_close_indices", "sorted_segments",
-           "segment_median_pair", "segment_quantile_pair",
+__all__ = ["bar_ids_from_close_indices", "range_sum", "range_sums",
+           "prefix_differences", "range_count", "segment_max_ranges",
+           "segment_min_ranges", "sorted_segments", "segment_median_pair",
+           "segment_median_sorted", "segment_quantile_pair",
            "segment_quantile_sorted"]
 
 _LOW32 = 0xFFFFFFFF
@@ -37,6 +45,60 @@ def bar_ids_from_close_indices(ci: torch.Tensor, n_trades: int, *,
     bar_id = cumsum(marks[:n_trades]).clamp(0, nb - 1).to(torch.int64)
     idx = torch.arange(n_trades, device=dev)
     return bar_id, (idx > ci[0]) & (idx <= ci[-1])
+
+
+def prefix_differences(P: torch.Tensor, ci: torch.Tensor) -> torch.Tensor:
+    """Per-bar sums over ``(ci[k], ci[k+1]]`` from the inclusive prefix ``P``
+    along its last axis (1-D or ``(k, n)``), a prefix at index -1 being 0."""
+    n = P.shape[-1]
+    hi = P[..., ci[1:].clamp(0, n - 1)]
+    lo = P[..., ci[:-1].clamp(0, n - 1)]
+    zero = torch.zeros((), dtype=P.dtype, device=P.device)
+    return (torch.where(ci[1:] >= 0, hi, zero)
+            - torch.where(ci[:-1] >= 0, lo, zero))
+
+
+def range_sum(x: torch.Tensor, ci: torch.Tensor, dtype=None, *,
+              cumsum=fast_cumsum) -> torch.Tensor:
+    """Per-bar sum of ``x`` over ``(ci[k], ci[k+1]]`` as a difference of its
+    inclusive prefix (``cumsum``, kernel S by default), optionally after a
+    cast to ``dtype`` (``segment.py:49-59``)."""
+    if dtype is not None:
+        x = x.to(dtype)
+    return prefix_differences(cumsum(x), ci)
+
+
+def range_sums(x: torch.Tensor, ci: torch.Tensor, *,
+               cumsum_cols=fast_cumsum_cols) -> torch.Tensor:
+    """:func:`range_sum` of every row of a ``(k, n)`` stack, from one prefix
+    of all its rows (``cumsum_cols``, kernel C by default); ``(k, n_bars)``."""
+    return prefix_differences(cumsum_cols(x), ci)
+
+
+def range_count(ci: torch.Tensor) -> torch.Tensor:
+    """Number of trades in each bar: ``ci[k+1] - ci[k]``."""
+    return ci[1:] - ci[:-1]
+
+
+def _segment_reduce(x, ci, how):
+    """``how`` ("max" or "min") of ``x`` over every bar: one
+    ``torch.segment_reduce`` over the segments [trades before bar 0, the
+    bars, trades after the last bar]; an empty bar gives -inf or +inf."""
+    n = x.shape[0]
+    lengths = torch.cat([ci[:1] + 1, range_count(ci), n - 1 - ci[-1:]])
+    return torch.segment_reduce(x, how, lengths=lengths)[1:-1]
+
+
+def segment_max_ranges(x: torch.Tensor, ci: torch.Tensor) -> torch.Tensor:
+    """Per-bar max of ``x`` (``segment.py:78-80``); empty bars yield -inf,
+    which the caller masks. The JAX function takes bar ids and a mask; the
+    bars' contiguous ranges ``ci`` carry the same information."""
+    return _segment_reduce(x, ci, "max")
+
+
+def segment_min_ranges(x: torch.Tensor, ci: torch.Tensor) -> torch.Tensor:
+    """Per-bar min of ``x`` (``segment.py:83-85``); empty bars yield +inf."""
+    return _segment_reduce(x, ci, "min")
 
 
 def _sortable_bits(x32: torch.Tensor) -> torch.Tensor:
@@ -67,6 +129,14 @@ def segment_median_pair(sorted_vals, offsets, counts):
     lo = offsets + ((counts - 1).clamp(min=0) >> 1)
     hi = offsets + (counts.clamp(min=1) >> 1)
     return sorted_vals[lo.clamp(0, n - 1)], sorted_vals[hi.clamp(0, n - 1)]
+
+
+def segment_median_sorted(sorted_vals, offsets, counts):
+    """Per-bar median in float64 from within-bar-sorted values, the mean of
+    the two middles for an even count (``np.median``); empty bars read a
+    clamped position, which callers mask (``segment.py:137-144``)."""
+    a, b = segment_median_pair(sorted_vals, offsets, counts)
+    return (a.to(torch.float64) + b.to(torch.float64)) * 0.5
 
 
 def segment_quantile_pair(sorted_vals, offsets, counts, q: float):

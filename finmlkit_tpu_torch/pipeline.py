@@ -76,7 +76,11 @@ def bar_feature_dispatch(ticks, units, ci, sides, *, tick_size, amount_scale, gr
     it ``median_trade_size`` is NaN: the JAX pipeline fills 0.0 there, which
     reads as data (ROADMAP.md, Queue 3, R4). The medians come from the sort
     engine, as the JAX pipeline's from its row sort. ``scan`` names the bar
-    scan as the kits do; ``plain`` runs every stage's plain version."""
+    scan as the kits do; ``plain`` runs every stage's plain version. It
+    takes quantized trades only, as the JAX pipeline does: ``ticks`` None
+    (trades on no tick grid) raises."""
+    if ticks is None or units is None:
+        raise ValueError("bar_feature_dispatch takes integer ticks and units")
     p64, p32, pf = bar_scan(scan, plain=plain)(ticks, units, sides, ci)
     n_bars = ci.shape[0] - 1
     if amounts_f32 is not None:

@@ -7,6 +7,8 @@ import numpy as np
 import torch
 
 __all__ = ["to_numpy", "assert_exact", "assert_close", "assert_window_close",
+           "assert_within", "prefix_bound", "ulp32", "FLOAT_PATH_EXACT",
+           "hold_float_path",
            "adversarial_trades", "tile_closes", "TILE_CLOSES", "zeros_and_twos",
            "cusum_recurrence", "CUSUM_BAD", "cusum_bad_inputs", "PROFILE_CASES",
            "PROFILE_TS", "PROFILE_WINDOW", "profile_case", "PROFILE_EXTRA_CASES",
@@ -63,6 +65,88 @@ def assert_window_close(got, want, scale: float, rtol: float, what: str = "") ->
     rounding error scales with the prefix, so the bound is
     ``rtol * (|want| + scale)``."""
     return assert_close(got, want, rtol=rtol, atol=rtol * float(scale), what=what)
+
+
+def assert_within(got, want, bound, what: str = "") -> float:
+    """|got - want| <= bound, elementwise (``bound`` a scalar or an array of
+    ``want``'s shape), NaN where both are NaN. Returns the largest share of
+    the bound used (0 where the bound is 0 and the values agree)."""
+    g = to_numpy(got).astype(np.float64)
+    w = to_numpy(want).astype(np.float64)
+    if g.shape != w.shape:
+        raise AssertionError(f"{what}: shape {g.shape} vs {w.shape}")
+    nan = np.isnan(w)
+    if not np.array_equal(np.isnan(g), nan):
+        raise AssertionError(f"{what}: NaN at different positions")
+    d = np.abs(g - w)[~nan]
+    b = np.broadcast_to(to_numpy(bound).astype(np.float64), w.shape)[~nan]
+    if np.any(d > b):
+        i = int(np.argmax(d - b))
+        raise AssertionError(f"{what}: |diff| {d[i]!r} above its bound {b[i]!r}")
+    return float((d / np.where(b > 0, b, 1.0)).max()) if d.size else 0.0
+
+
+def prefix_bound(terms) -> float:
+    """``n * eps * sum|x|`` of ``n`` float64 terms ``x``: the largest prefix
+    of their magnitudes times ``n`` roundings, the scale by which two orders
+    of adding them may move a prefix sum, or a difference of two."""
+    t = torch.as_tensor(terms, dtype=torch.float64)
+    return t.numel() * float(np.finfo(np.float64).eps) * float(t.abs().sum())
+
+
+def ulp32(x) -> np.ndarray:
+    """The float32 ulp at each of ``x``, in float64."""
+    return np.spacing(np.abs(to_numpy(x)).astype(np.float32)).astype(np.float64)
+
+
+# columns of the float64 path (bar/aggregate.py) that two runs give exactly:
+# prices, counts, medians, integer sums and extrema of exact values
+FLOAT_PATH_EXACT = ("open", "high", "low", "close", "trades", "median_trade_size",
+                    "ticks_buy", "ticks_sell", "cum_ticks_min", "cum_ticks_max",
+                    "max_spread")
+_TRADE_SIZE = ("mean_size_rel", "size_95_rel", "pct_block", "size_gini")
+
+
+def hold_float_path(got: dict, want: dict, prices, amounts, bar_volume,
+                    what: str = "") -> dict:
+    """Hold the float64 path's bar columns (any of ``bar/aggregate.py``'s
+    keys) of one run to another's, whose sums were added in another order:
+    :data:`FLOAT_PATH_EXACT` exact; every sum within the prefix bound ``B`` of
+    its terms (:func:`prefix_bound`; volumes, dollars, their splits and the
+    in-bar extrema) or one float32 ulp where that is larger, the extrema's
+    ±1e9 start values exact; ``vwap`` within ``(B_dollars + |vwap| B_volume)
+    / volume``; ``mean_spread`` within ``n eps sum|dp| / ticks`` (each spread
+    is at most its trade's price move); the trade-size ratios within one ulp
+    or ``4 (B_volume + B_squares) / volume``. ``bar_volume`` is each bar's
+    volume (the ohlcv's). Returns the largest share of its bound each column
+    used."""
+    p = torch.as_tensor(to_numpy(prices), dtype=torch.float64)
+    a = torch.as_tensor(to_numpy(amounts)).to(torch.float64)
+    n, eps = a.numel(), float(np.finfo(np.float64).eps)
+    b_v, b_d, b_sq = prefix_bound(a), prefix_bound(a * p), prefix_bound(a * a)
+    vol = np.maximum(to_numpy(bar_volume).astype(np.float64), 1e-300)
+    moves = float(torch.diff(p, prepend=p[-1:]).abs().sum()) if n else 0.0
+    shares = {}
+    for k, g in got.items():
+        if k not in want or k == "timestamp":
+            continue
+        w = to_numpy(want[k])
+        if k in FLOAT_PATH_EXACT:
+            assert_exact(g, w, f"{what} {k}")
+            continue
+        if k == "vwap":
+            bound = (b_d + np.abs(w) * b_v) / vol
+        elif k == "mean_spread":
+            ticks = to_numpy(want["ticks_buy"]) + to_numpy(want["ticks_sell"])
+            bound = np.maximum(ulp32(w), n * eps * moves / np.maximum(ticks, 1))
+        elif k in _TRADE_SIZE:
+            bound = np.maximum(ulp32(w), 4 * (b_v + b_sq) / vol)
+        else:
+            b = b_d if "dollars" in k else b_v
+            bound = np.where(np.abs(w.astype(np.float64)) == 1e9, 0.0,
+                             np.maximum(ulp32(w), b))
+        shares[k] = assert_within(g, w, bound, f"{what} {k}")
+    return shares
 
 
 def adversarial_trades(n: int, seed: int, first: int = -1, long_bar: int = 0,

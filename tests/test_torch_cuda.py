@@ -1,6 +1,7 @@
-"""Kernels B, S, C, F, E, H, V, P, R, W and G on the card against their plain
-versions, and the chain of ``chip_smoke.py`` phase 11 (trades to final
-weights) through the kernels against its plain path.
+"""Kernels B, S, C, F, E, H, V, P, R, W, G and D on the card against their
+plain versions, the chain of ``chip_smoke.py`` phase 11 (trades to final
+weights) through the kernels against its plain path, and the float64 path of
+trades on no tick grid (kernels D, S and C) through the kits.
 
 These tests need an NVIDIA GPU and ``nvcc``; elsewhere they skip. The card's
 host has no JAX, so run them there without the suite's conftest:
@@ -16,12 +17,14 @@ from finmlkit_tpu_torch.bar.footprint_q import comp_bar_footprints_q
 from finmlkit_tpu_torch.bar.fused import median_engine, median_pairs, planes_products
 from finmlkit_tpu_torch.bar.indexers import dollar_bar_indexer_q
 from finmlkit_tpu_torch.feature.kernels import structural_break, volume
-from finmlkit_tpu_torch.ops import event_scan, fused_scan, prefix_scan, scan, segment_hist
+from finmlkit_tpu_torch.ops import (event_scan, float_walk, fused_scan, prefix_scan, scan,
+                                   segment_hist)
 from finmlkit_tpu_torch.testing import (CSW_FILTER_CASES, CUSUM_BAD, PROFILE_CASES,
                                        PROFILE_EXTRA_CASES,
                                        PROFILE_ROW_CASES, PROFILE_TS, PROFILE_WINDOW,
                                        TILE_CLOSES, adversarial_trades, assert_close,
-                                       assert_exact, assert_window_close, cusum_bad_inputs,
+                                       assert_exact, assert_window_close, assert_within,
+                                       cusum_bad_inputs, hold_float_path,
                                        csw_filter_case, cusum_recurrence, profile_case,
                                        profile_rows_case, tile_closes, zeros_and_twos)
 
@@ -827,3 +830,166 @@ def test_class_balance_repeats(cuda):
     assert_exact(first[0], cpu[0], "classes")
     for a, b in zip(first[1:], cpu[1:]):
         assert_close(a, b, rtol=1e-12)
+
+
+# --- the float64 path of trades on no tick grid: kernel D, S and C ----------
+
+WALK_N = 1_000_000
+
+
+def _off_grid(n, device, seed=31):
+    """Prices on no tick grid and float32 amounts, on ``device``."""
+    g = np.random.default_rng(seed)
+    px = 107_000.0 * np.exp(np.cumsum(g.normal(0, 2e-5, n)))
+    v = np.maximum(g.lognormal(-4.0, 1.5, n), 1e-5).astype(np.float32)
+    v[::997] *= 500                        # trades above the threshold alone
+    side = np.where(g.random(n) < 0.5, 1, -1).astype(np.int8)
+    side[::13] = 0
+    return (torch.from_numpy(px).to(device), torch.from_numpy(v).to(device),
+            torch.from_numpy(side).to(device))
+
+
+def _walks(mode, px, v, thr, mb):
+    if mode == "volume":
+        return (lambda: float_walk.volume_walk(v, thr, mb),
+                lambda: float_walk.volume_walk_plain(v, thr, mb))
+    return (lambda: float_walk.dollar_walk(px, v, thr, mb),
+            lambda: float_walk.dollar_walk_plain(px, v, thr, mb))
+
+
+@pytest.mark.parametrize("mode", ["volume", "dollar"])
+@pytest.mark.parametrize("share,cap", [(1 / 2000, None), (1 / 20, None),
+                                       (1 / 200_000, None), (1 / 2000, 100),
+                                       (1 / 2000, 1), (1 / 2000, 0)])
+def test_float_walk_matches_plain(cuda, mode, share, cap):
+    """Kernel D's closes against its plain loop, exactly, and run to run; one
+    launch a call."""
+    px, v, _ = _off_grid(WALK_N, cuda)
+    values = v.to(torch.float64) if mode == "volume" else px * v.to(torch.float64)
+    total = float(values.sum())
+    thr = share * total
+    mb = int(total / thr) + 2 if cap is None else cap
+    kernel, plain = _walks(mode, px, v, thr, mb)
+    before = float_walk.LAUNCHES
+    got = kernel()
+    torch.cuda.synchronize()
+    assert float_walk.LAUNCHES == before + (mb > 0)
+    want = plain()
+    assert_exact(got, want, f"{mode} D vs plain")
+    assert_exact(kernel(), got, f"{mode} D run to run")
+    if cap is not None:
+        assert len(got) == cap
+
+
+@pytest.mark.parametrize("special", ["negatives", "nan", "inf", "dyadic"])
+@pytest.mark.parametrize("mode", ["volume", "dollar"])
+def test_float_walk_special_values(cuda, mode, special):
+    """D's blocks of 16 values added at once where all are >= 0 and the sum
+    stays below the threshold: negative values, a NaN, an infinity and sums
+    that hit the threshold exactly walk step by step, as the plain loop."""
+    px, v, _ = _off_grid(WALK_N, cuda, seed=37)
+    if special == "negatives":
+        v[::7] *= -1.0
+    elif special == "nan":
+        v[500_001] = float("nan")
+    elif special == "inf":
+        v[700_003] = float("inf")
+    else:                                   # eighths: every sum exact
+        v = torch.randint(0, 8, (WALK_N,), device=cuda).to(torch.float32) / 8.0
+        px = torch.full_like(px, 2.0)
+    values = v.to(torch.float64) if mode == "volume" else px * v.to(torch.float64)
+    finite = values[torch.isfinite(values)]
+    thr = 2.0 if special == "dyadic" else float(finite.abs().sum()) / 5000
+    for cap in (WALK_N, 17):
+        kernel, plain = _walks(mode, px, v, thr, cap)
+        assert_exact(kernel(), plain(), f"{mode} {special} cap {cap}")
+
+
+@pytest.mark.parametrize("n", [1, 2, 2047, 2048, 2049, 4096, 4097, 10_241])
+def test_float_walk_chunk_edges(cuda, n):
+    """D's chunks of 2048 trades: a close at every trade (the threshold below
+    every amount) and at none, on both modes, against plain."""
+    px, v, _ = _off_grid(n, cuda, seed=n)
+    for mode in ("volume", "dollar"):
+        for thr in (1e-9, 1e30):
+            kernel, plain = _walks(mode, px, v, thr, n)
+            assert_exact(kernel(), plain(), f"{mode} n {n} thr {thr}")
+
+
+def test_float_range_sums_match_cumsum(cuda):
+    """The float64 range sums on kernel S (``range_sum``) and on kernel C
+    (``range_sums``, one launch over a (7, n) stack) against the same sums
+    from ``torch.cumsum``, each prefix within rtol 1e-12 as phase 3 holds the
+    float64 scans (so a sum within 2e-12 of the largest prefix), and equal
+    run to run."""
+    from finmlkit_tpu_torch.ops.segment import prefix_differences, range_sum, range_sums
+    g = torch.Generator(device="cuda").manual_seed(41)
+    n = 5_000_001
+    x = torch.randn((7, n), dtype=torch.float64, device=cuda, generator=g) * 100.0
+    ci = torch.unique(torch.randint(0, n, (20_000,), device=cuda, generator=g))
+    ci = torch.cat([torch.tensor([-1], device=cuda), ci, torch.tensor([n - 1], device=cuda)])
+    want = prefix_differences(torch.cumsum(x, 1), ci)
+    s_before, c_before = prefix_scan.FLOAT_LAUNCHES, prefix_scan.COLS_LAUNCHES
+    got1 = range_sum(x[0], ci)
+    got7 = range_sums(x, ci)
+    assert prefix_scan.FLOAT_LAUNCHES == s_before + 1
+    assert prefix_scan.COLS_LAUNCHES == c_before + 1
+    P = torch.cumsum(x, 1).abs().amax(1)
+    for r in range(7):
+        assert_within(got7[r], want[r], 2e-12 * float(P[r]), f"range_sums row {r}")
+    assert_within(got1, want[0], 2e-12 * float(P[0]), "range_sum")
+    assert_exact(range_sums(x, ci), got7, "range_sums run to run")
+
+
+def test_aggregate_launches_s_and_c_and_matches_plain(cuda):
+    """``bar/aggregate.py`` on the card launches S (the bar ids and the float64
+    sums) and C (the directional stacks), and its outputs hold to its plain
+    path on the card as ``testing.hold_float_path`` sets out."""
+    from finmlkit_tpu_torch.bar import aggregate
+    n = 2_000_000
+    px, v, side = _off_grid(n, cuda, seed=43)
+    ci = torch.arange(-1, n, 700, device=cuda)
+    ci = torch.cat([ci[:5], ci[4:5], ci[5:]])           # an empty bar
+    plain = dict(cumsum=prefix_scan.fast_cumsum_plain)
+    s0, f0, c0 = prefix_scan.LAUNCHES, prefix_scan.FLOAT_LAUNCHES, prefix_scan.COLS_LAUNCHES
+    o = aggregate.comp_bar_ohlcv(px, v, ci)
+    assert (prefix_scan.LAUNCHES - s0, prefix_scan.FLOAT_LAUNCHES - f0) == (3, 2)
+    d = aggregate.comp_bar_directional_features(px, v, ci, side)
+    assert prefix_scan.COLS_LAUNCHES - c0 == 2 and prefix_scan.LAUNCHES - s0 == 4
+    theta = o["median_trade_size"]
+    t = aggregate.comp_bar_trade_size_features(v, theta, ci, 5.0)
+    assert (prefix_scan.LAUNCHES - s0, prefix_scan.FLOAT_LAUNCHES - f0) == (8, 5)
+    po = aggregate.comp_bar_ohlcv(px, v, ci, **plain)
+    pd_ = aggregate.comp_bar_directional_features(
+        px, v, ci, side, cumsum_cols=prefix_scan.fast_cumsum_cols_plain, **plain)
+    pt = aggregate.comp_bar_trade_size_features(v, theta, ci, 5.0, **plain)
+    assert (prefix_scan.LAUNCHES - s0, prefix_scan.COLS_LAUNCHES - c0) == (8, 2)
+    for got, want in ((o, po), (d, pd_), (t, pt)):
+        hold_float_path(got, want, px, v, po["volume"], "card vs plain")
+
+
+def test_off_grid_kits_match_plain(cuda):
+    """The kits on trades off every tick grid, on the card against
+    ``plain=True`` on the card: closes exact (kernel D), products held by
+    ``testing.hold_float_path``, footprints bit for bit."""
+    from finmlkit_tpu_torch.bar import kit
+    n = 400_000
+    px, v, side = _off_grid(n, "cpu", seed=47)
+    ts = 1_751_328_000_000_000_000 + np.cumsum(np.full(n, 70_000_000, np.int64))
+    px, v, side = px.numpy(), v.numpy(), side.numpy()
+    thr = float((px * v.astype(np.float64)).sum()) / 300
+    before = float_walk.LAUNCHES
+    k = kit.DollarBarKit(ts, px, v, side, thr)
+    p = kit.DollarBarKit(ts, px, v, side, thr, plain=True)
+    assert_exact(k.bar_close_indices, p.bar_close_indices, "dollar closes")
+    assert float_walk.LAUNCHES == before + 1
+    vk = kit.VolumeBarKit(ts, px, v, side, float(v.sum()) / 300)
+    vp = kit.VolumeBarKit(ts, px, v, side, float(v.sum()) / 300, plain=True)
+    assert_exact(vk.bar_close_indices, vp.bar_close_indices, "volume closes")
+    ko, po = k.build_ohlcv(), p.build_ohlcv()
+    for got, want in ((ko, po), (k.build_directional_features(),
+                                 p.build_directional_features())):
+        hold_float_path(got, want, px, v, po["volume"], "kit vs plain")
+    kf, pf = k.build_footprints(0.1), p.build_footprints(0.1)
+    for key in kf:
+        assert_exact(kf[key], pf[key], f"footprints {key}")

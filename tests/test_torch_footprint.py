@@ -304,14 +304,36 @@ def test_bar_footprints_rejects_int32_overflow():
             torch.tensor([1, -1, 1, 1], dtype=torch.int8), ohlcv)
     got = bar_footprints(*args, tick_size=1.0, price_tick_size=0.5)
     assert got["low_level"].tolist() == [200] and got["n_levels"].tolist() == [5]
-    with pytest.raises(ValueError, match="overflow"):
-        bar_footprints(*args, tick_size=1.0, price_tick_size=0.25)
+    # at 0.25 the trailing trade's refined tick leaves int32: the grid is the
+    # float64 one, where the trade outside every bar blocks nothing
+    got = bar_footprints(*args, tick_size=1.0, price_tick_size=0.25)
+    want = comp_bar_footprints(
+        jnp.asarray(ticks.numpy().astype(np.float64)), jnp.asarray(args[1].numpy()),
+        jnp.asarray(args[2].numpy()), jnp.asarray(args[3].numpy()), 0.25,
+        jnp.asarray(ohlcv["low"].numpy()), jnp.asarray(ohlcv["high"].numpy()), 3.0,
+        max_levels=16)
+    _compare(got, {k: np.asarray(v) for k, v in want.items()}, "tick 0.25")
+    assert got["low_level"].tolist() == [400] and got["n_levels"].tolist() == [9]
+    # a bar whose own levels leave int32 raises (ROADMAP R16)
+    high = {"low": torch.tensor([2.0**29], dtype=torch.float64),
+            "high": torch.tensor([2.0**29 + 2], dtype=torch.float64)}
+    with pytest.raises(ValueError, match="int32"):
+        bar_footprints(ticks + 2**29 - 100, *args[1:4], high, tick_size=1.0,
+                       price_tick_size=0.25)
 
 
 def test_bar_footprints_rejects_irregular_grid():
+    # a footprint tick of 0.3 does not refine the trades' 0.5: the float64 grid
     ticks, amounts, sides, ci, low, high = _trades("regular", 7)
     ohlcv = {"low": torch.from_numpy(low * TICK), "high": torch.from_numpy(high * TICK)}
-    with pytest.raises(ValueError):
-        bar_footprints(torch.from_numpy(ticks), torch.from_numpy(amounts),
-                       torch.from_numpy(ci), torch.from_numpy(sides), ohlcv,
-                       tick_size=TICK, price_tick_size=0.3)
+    got = bar_footprints(torch.from_numpy(ticks), torch.from_numpy(amounts),
+                         torch.from_numpy(ci), torch.from_numpy(sides), ohlcv,
+                         tick_size=TICK, price_tick_size=0.3)
+    n_levels = np.round(high * TICK / 0.3) - np.round(low * TICK / 0.3) + 1
+    want = comp_bar_footprints(
+        jnp.asarray(ticks.astype(np.float64) * TICK), jnp.asarray(amounts),
+        jnp.asarray(ci), jnp.asarray(sides), 0.3,
+        jnp.asarray(low.astype(np.float64) * TICK),
+        jnp.asarray(high.astype(np.float64) * TICK), 3.0,
+        max_levels=next_bucket(int(n_levels.max()), 8))
+    _compare(got, {k: np.asarray(v) for k, v in want.items()}, "tick 0.3")

@@ -20,6 +20,14 @@ interpret``) they are exact, whatever the median engine and bar scan
 on the port's).
 Trade-size features within rtol 1e-6 of the float64 path, footprints within
 the ``_q`` path's float32 rounding (``tests/test_torch_pipeline.py``).
+
+On trades whose prices sit on no tick grid both kits take their float64 path
+(``bar/aggregate.py``, the exact volume and dollar loops, the float64
+footprint grid; the JAX volume and dollar kits take their native host loops,
+``FMKT_INDEXER=auto``): close indices and timestamps exact, the products as
+``testing.hold_float_path`` holds them (``tests/test_torch_aggregate.py``),
+the trade-size features within rtol 1e-6 (the JAX kit's native host pass),
+the footprints as ``tests/test_torch_footprint_f64.py`` holds them.
 """
 import time
 
@@ -32,8 +40,9 @@ from finmlkit_tpu import native
 from finmlkit_tpu.bar import TradesData
 from finmlkit_tpu.bar import kit as jkit
 from finmlkit_tpu_torch.bar import fused, kit
-from finmlkit_tpu_torch.testing import assert_close, assert_exact
+from finmlkit_tpu_torch.testing import assert_close, assert_exact, hold_float_path
 from tests.conftest import generate_trades
+from tests.test_torch_footprint_f64 import _hold as hold_footprints
 from tests.test_torch_pipeline import assert_footprints_match_q
 
 N = 5000
@@ -175,9 +184,13 @@ def test_kit_products_match_jax_fused_path(trades, monkeypatch):
 
 def test_kit_checks_inputs(trades):
     ts, px, amt, side = trades
-    with pytest.raises(ValueError, match="tick grid"):
-        kit.TickBarKit(ts, px + np.random.default_rng(0).random(N) * 1e-7, amt,
-                       side, 100, device="cpu")
+    # prices on no tick grid take the float64 path: the OHLCV of the JAX kit's
+    # (its float64 fallback), with the sums within their prefix bound
+    off = px + np.random.default_rng(0).random(N) * 1e-7
+    fk = kit.TickBarKit(ts, off, amt, side, 100, device="cpu")
+    assert fk.trades.ticks is None and fk.trades.prices is not None
+    _hold_ohlcv(fk.build_ohlcv(), jkit.TickBarKit(TradesData(ts, off, amt, side=side),
+                                                  100).build_ohlcv(), off, amt)
     pk = kit.TickBarKit(ts, px, amt, None, 100, device="cpu")
     assert pk.build_ohlcv()["close"].shape == (N // 100,)
     with pytest.raises(ValueError, match="sides"):
@@ -238,3 +251,76 @@ def test_kit_engine_and_scan_names_are_checked(trades):
         got = kit.TimeBarKit(ts, px, amt, side, 30.0, device="cpu", **kw).build_ohlcv()
         for c in ref:
             assert_exact(got[c], ref[c], f"{kw} {c}")
+
+
+def _hold_ohlcv(got, want, px, amt):
+    """The float64 path's OHLCV against the JAX kit's DataFrame
+    (``testing.hold_float_path``)."""
+    assert_exact(got["timestamp"], _index_ns(want), "ohlcv index")
+    assert list(got)[1:] == list(want.columns)
+    hold_float_path(got, {c: want[c].values for c in want.columns}, px, amt,
+                    want["volume"].values, "ohlcv")
+
+
+OFF_GRID_CASES = ["time", "tick", "volume", "dollar"]
+
+
+@pytest.fixture(scope="module")
+def off_grid(trades):
+    ts, px, amt, side = trades
+    return ts, px + np.random.default_rng(0).random(N) * 1e-7, amt, side
+
+
+@pytest.mark.parametrize("name", OFF_GRID_CASES)
+def test_off_grid_kit_matches_jax(off_grid, name, monkeypatch, native_library):
+    make_jax, pk, _ = _kits(name, off_grid)
+    monkeypatch.setenv("FMKT_INDEXER", "auto")     # the exact host loops
+    jk = make_jax()
+    assert jk._ticks is None and pk.trades.ticks is None
+    assert_exact(pk.bar_close_indices, np.asarray(jk.bar_close_indices), "ci")
+    assert_exact(pk.bar_close_timestamps, np.asarray(jk.bar_close_timestamps),
+                 "close_ts")
+    assert len(jk.bar_close_indices) > 10
+    ts, px, amt, side = off_grid
+
+    o, po = jk.build_ohlcv(), pk.build_ohlcv()
+    _hold_ohlcv(po, o, px, amt)
+
+    d, pd_ = jk.build_directional_features(), pk.build_directional_features()
+    assert_exact(pd_["timestamp"], _index_ns(d), "directional index")
+    # the JAX kit's float64 frame takes the jitted dict's sorted keys; the
+    # port keeps the order of its quantized path
+    assert set(pd_) - {"timestamp"} == set(d.columns)
+    hold_float_path(pd_, {c: d[c].values for c in d.columns}, px, amt,
+                    o["volume"].values, "directional")
+
+    theta = o["median_trade_size"].values
+    t, pt = jk.build_trade_size_features(theta, 5.0), \
+        pk.build_trade_size_features(theta, 5.0)
+    assert_exact(pt["timestamp"], _index_ns(t), "trade size index")
+    for c in t.columns:
+        assert_close(pt[c], t[c].values, rtol=1e-6, what=f"trade size {c}")
+
+    f, pf = jk.build_footprints(0.01), pk.build_footprints(0.01)
+    assert_exact(pf["timestamp"], np.asarray(f.bar_timestamps), "footprint ts")
+    hold_footprints({k: v for k, v in pf.items() if k != "timestamp"},
+                    {k: getattr(f, k) for k in pf if k != "timestamp"}, name)
+    # the default tick of unrounded prices is about 1e-12: no grid of it fits
+    with pytest.raises(ValueError, match="int32|coarser"):
+        pk.build_footprints()
+
+
+def test_off_grid_kit_plain_and_engine_names(off_grid):
+    ts, px, amt, side = off_grid
+    thr = float((px * amt.astype(np.float64)).sum()) / 150
+    k = kit.DollarBarKit(ts, px, amt, side, thr, device="cpu")
+    p = kit.DollarBarKit(ts, px, amt, side, thr, device="cpu", plain=True)
+    assert_exact(k.bar_close_indices, p.bar_close_indices, "ci, plain")
+    for a, b in ((k.build_ohlcv(), p.build_ohlcv()),
+                 (k.build_directional_features(), p.build_directional_features())):
+        for c in a:
+            assert_exact(a[c], b[c], f"{c}, plain")
+    # the quantized path's engines do not apply to the float64 path
+    for kw in (dict(medians="hist"), dict(scan="planes"), dict(scan="rowtail4")):
+        with pytest.raises(ValueError, match="no tick grid"):
+            kit.TimeBarKit(ts, px, amt, side, 30.0, device="cpu", **kw)
