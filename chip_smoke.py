@@ -141,16 +141,23 @@ Phases:
    ``TimeBarKit`` (1-minute bars: OHLCV, directional features, trade-size
    features with theta the bars' median trade size, footprints on the 0.1
    grid), ``VolumeBarKit`` at total volume / 40000 and ``DollarBarKit`` at
-   total dollars / 40000, with the launches of S, C and D counted on that
-   run; then the same path through the functions the kits call, through the
+   total dollars / 40000, with the launches of S, C, D and E volume counted
+   on that run, the dollar walk by D's warp step and the volume walk in
+   units through E's volume scan; then the same path through the
+   functions the kits call, through the
    kernels and through the plain versions: the kits equal those functions
    and the kernel path equals itself run to run, bit for bit; kernel path
    against plain path: close indices (kernel D against its plain loop on the
    whole month, both modes) and footprints exact, the products within
    ``testing.hold_float_path``'s bounds; sampled bars against numpy, sampled
-   footprint bars against ``np.add.at``; kernel D alone with its bound in
-   both modes, its plain loop timed on the host; stage and end-to-end times,
-   peak device memory. S and C are timed here, on float64 streams, when no
+   footprint bars against ``np.add.at``; kernel D alone with its bound on
+   each route against its plain loop on the whole month: the kits' two
+   walks, the volume walk with one dust trade (the warp step in chunks) and
+   both walks with one amount negated (the block walk), each with its route
+   and counts (rounds of ballots, ties, binade crossings, serial adds, the
+   walker's cycles; the volume walk's chunks, merges and fix-ups), its plain
+   loop timed on the host; stage and end-to-end times, peak device memory.
+   S, C and E volume are timed here, S and C on float64 streams, when no
    earlier phase timed them.
 
 Run from the repository root: ``python3 chip_smoke.py``; ``--phases 1,2,6``
@@ -251,8 +258,10 @@ KERNELS = {
           "its span, then the walks a thread or a warp each (replaces an XLA lax.map, not a "
           "TPU kernel)", "volume_profile.cu",
           "finmlkit_tpu/feature/kernels/volume.py:191 and :347"),
-    "D": ("D float_walk, the exact float64 volume and dollar walks: a block stages "
-          "chunks of trades, one thread walks (replaces host C++, not a TPU kernel)",
+    "D": ("D float_walk, the exact float64 volume and dollar walks: the warp step over "
+          "grid tables that producer warps build ahead, volume in chunks that merge, or "
+          "in integer units through E where no sum rounds (replaces host C++, not a TPU "
+          "kernel)",
           "float_walk.cu", "finmlkit_tpu/native/seg_stats.cpp:183 and :199"),
 }
 
@@ -265,11 +274,15 @@ def kernel_entry(key, launches, err, ms, plain_ms, bound_ms, library_ms, **extra
     """One kernel's entry of the ``kernels`` line; ``bound_ms`` is a
     ``bound()`` pair."""
     name, source, replaces = KERNELS[key]
-    return {"name": name, "route": "cuda",
-            "source": f"finmlkit_tpu_torch/csrc/{source}", "replaces": replaces,
-            "launches": launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms[0], "bound_by": bound_ms[1],
-            "library_ms": library_ms, **extra}
+    entry = {"name": name, "route": "cuda",
+             "source": f"finmlkit_tpu_torch/csrc/{source}", "replaces": replaces,
+             "launches": launches, "max_abs_err": err, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bound_ms[0], "bound_by": bound_ms[1],
+             "library_ms": library_ms}
+    if set(extra) & set(entry):
+        fail(f"kernel {key}'s extra keys {sorted(set(extra) & set(entry))} would replace "
+             f"keys of the kernels line")
+    return dict(entry, **extra)
 
 
 def bound(nbytes, ops, peak=PEAK_OPS_PER_S):
@@ -3085,37 +3098,91 @@ def hold_offgrid(got, want, price, amount, what, exact=False):
     return shares
 
 
-def kernel_d(card, tr, thr_v, thr_d, n_v, n_d, launches):
-    """Kernel D alone on the month (CUDA events, 3 calls a mode) against its
-    plain loop (one call a mode, host clock), both modes' closes equal:
-    its ``kernels`` entry, the dollar walk's numbers first."""
-    from finmlkit_tpu_torch.ops import float_walk
+def kernel_d(card, tr, thr_v, thr_d, n_v, n_d, launches, need_e):
+    """Kernel D alone on the month (CUDA events, 5 calls a walk, 2 on the
+    block walk) against its plain loop (one call a walk, host clock), closes
+    equal, on each route: the kits' walks (volume in units through kernel
+    E's volume scan, dollar by the warp step); the volume walk with one dust
+    trade of 2^-100, which leaves the exact-sum case, by the warp step in
+    chunks; both walks with one amount negated, by the block walk. Returns
+    D's ``kernels`` entry, the dollar walk's numbers first, with each walk's
+    route, time and counts (``float_walk.STATS``; the volume walk's chunks,
+    merges and fixed-up chunks), and E volume's where ``need_e``: E alone on
+    the month's units against its plain version."""
+    import torch
+    from finmlkit_tpu_torch.ops import event_scan
+    from finmlkit_tpu_torch.ops import float_walk as fw
     from finmlkit_tpu_torch.testing import assert_exact
-    n = tr.amounts.shape[0]
-    calls = {"volume": (lambda: float_walk.volume_walk(tr.amounts, thr_v, n_v + 2),
-                        lambda: float_walk.volume_walk_plain(tr.amounts, thr_v, n_v + 2)),
-             "dollar": (lambda: float_walk.dollar_walk(tr.prices, tr.amounts, thr_d, n_d + 2),
-                        lambda: float_walk.dollar_walk_plain(tr.prices, tr.amounts, thr_d,
-                                                             n_d + 2))}
-    ms, plain_ms, bounds = {}, {}, {}
-    for mode, (kernel, plain) in calls.items():
-        ms[mode] = cuda_ms(kernel, reps=3)
+    n, dev = tr.amounts.shape[0], tr.amounts.device
+    dust, neg = tr.amounts.clone(), tr.amounts.clone()
+    dust[n // 2] = 2.0 ** -100
+    neg[n // 2] = -neg[n // 2]
+    walks = {   # (mode, prices, volumes, threshold, max_bars, the route it takes)
+        "volume": (fw._VOLUME, None, tr.amounts, thr_v, n_v + 2, fw.UNITS),
+        "dollar": (fw._DOLLAR, tr.prices, tr.amounts, thr_d, n_d + 2, fw.WARP),
+        "volume with dust": (fw._VOLUME, None, dust, thr_v, n_v + 2, fw.WARP),
+        "volume with a negative": (fw._VOLUME, None, neg, thr_v, n_v + 2, fw.BLOCK),
+        "dollar with a negative": (fw._DOLLAR, tr.prices, neg, thr_d, n_d + 2, fw.BLOCK)}
+    routes = {fw.WARP: "the warp step", fw.BLOCK: "the block walk",
+              fw.UNITS: "units, kernel E's volume scan"}
+    ms, plain_ms, bounds, counts = {}, {}, {}, {}
+    for name, (mode, p, v, thr, mb, route) in walks.items():
+        def walk(stats=None):
+            return fw._launch(mode, p, v, thr, mb, stats=stats)
         t0 = time.perf_counter()
-        want = plain()
-        plain_ms[mode] = (time.perf_counter() - t0) * 1e3
-        assert_exact(kernel(), want, f"kernel D {mode} alone vs plain")
-    # each trade's float32 amount (and float64 price) read once, each close
-    # written once; one float64 add a trade (and a multiply for dollar)
-    bounds["volume"] = bound(4 * n + 8 * n_v, n, PEAK_F64_OPS_PER_S)
-    bounds["dollar"] = bound(12 * n + 8 * n_d, 2 * n, PEAK_F64_OPS_PER_S)
-    say("kernel D alone on the month: " + "; ".join(
-        f"{m} {ms[m]:.3f} ms vs plain {plain_ms[m]:.1f} ms (host loop), bound "
-        f"{bounds[m][0]:.4f} ms ({bounds[m][1]}), {bounds[m][0] / ms[m]:.2%} of it"
-        for m in calls) + f" [{card}]")
-    return kernel_entry("D", launches["D"], 0.0, ms["dollar"], plain_ms["dollar"],
-                        bounds["dollar"], None, volume_ms=ms["volume"],
-                        volume_plain_ms=plain_ms["volume"],
-                        volume_bound_ms=bounds["volume"][0])
+        want = (fw.volume_walk_plain(v, thr, mb) if mode == fw._VOLUME
+                else fw.dollar_walk_plain(p, v, thr, mb))
+        plain_ms[name] = (time.perf_counter() - t0) * 1e3
+        st = torch.zeros(len(fw.STATS), dtype=torch.int64, device=dev)
+        before = list(fw.ROUTE_LAUNCHES)
+        assert_exact(walk(st), want, f"kernel D {name} alone vs plain")
+        if fw.ROUTE_LAUNCHES[route] != before[route] + 1:
+            fail(f"kernel D's walk of the month, {name}, did not take {routes[route]}")
+        ms[name] = cuda_ms(walk, reps=2 if route == fw.BLOCK else 5)
+        counts[name] = dict(zip(fw.STATS, st.tolist()), route=routes[route])
+        # each trade's float32 amount (and float64 price) read once, each close
+        # written once; one float64 add a trade (and a multiply for dollar)
+        bounds[name] = (bound(4 * n + 8 * n_v, n, PEAK_F64_OPS_PER_S) if mode == fw._VOLUME
+                        else bound(12 * n + 8 * n_d, 2 * n, PEAK_F64_OPS_PER_S))
+    c = counts["volume with dust"]
+    c["chunks"] = fw.chunk_bounds(n, fw._default_chunks(dev))[1]
+    c["merged"] = c["chunks"] - 1 - c["unmerged"]
+    for m, c in counts.items():
+        say(f"kernel D alone on the month, {m}: {ms[m]:.3f} ms vs plain {plain_ms[m]:.1f} ms "
+            f"(host loop), bound {bounds[m][0]:.4f} ms ({bounds[m][1]}), "
+            f"{bounds[m][0] / ms[m]:.3%} of it; route: {c['route']}"
+            + (f"; {c['steps']:,} steps and {c['searches']:,} searches (rounds of ballots), "
+               f"{c['ties']:,} ties, {c['crossings']:,} binade crossings and closes from the "
+               f"tables, {c['serial']:,} serial adds, {c['closes']:,} closes walked; walker "
+               f"cycles {c['cycles']:,}, of them waiting for tiles {c['wait']:,}"
+               if c["route"] == routes[fw.WARP] else "")
+            + (f"; {c['chunks']} chunks, {c['merged']} merged in pass 2, {c['fixed']} fixed up"
+               if "chunks" in c else "") + f" [{card}]")
+    entries = {"D": kernel_entry(
+        "D", launches["D"], 0.0, ms["dollar"], plain_ms["dollar"], bounds["dollar"], None,
+        volume_ms=ms["volume"], volume_plain_ms=plain_ms["volume"],
+        volume_bound_ms=bounds["volume"][0], warp_step_volume_ms=ms["volume with dust"],
+        block_walk_ms={m: ms[f"{m} with a negative"] for m in ("volume", "dollar")},
+        walk_routes={m: c["route"] for m, c in counts.items()}, counts=counts)}
+    if need_e:
+        u = fw.exact_unit(tr.amounts.cpu().numpy(), thr_v)
+        units = (tr.amounts.to(torch.float64) * 2.0 ** -u).to(torch.int64)
+        thr_u, mb = fw.units_threshold(thr_v, u), n_v + 2
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        want = event_scan.volume_scan_plain(units, thr_u, mb)
+        b.record()
+        b.synchronize()
+        assert_exact(event_scan.volume_scan(units, thr_u, mb), want, "E volume on units")
+        e_ms = cuda_ms(lambda: event_scan.volume_scan(units, thr_u, mb))
+        e_bound = bound(8 * n + 8 * n_v, 10 * n)
+        entries["E volume"] = kernel_entry("E volume", launches["E volume"], 0.0, e_ms,
+                                           a.elapsed_time(b), e_bound, None,
+                                           chunks=event_scan._default_chunks(
+                                               event_scan._VOLUME, dev), units=f"2^{u}")
+        say(f"kernel E volume alone on the month's amounts in units of 2^{u}: {e_ms:.3f} ms, "
+            f"plain {a.elapsed_time(b):.1f} ms, bound {e_bound[0]:.3f} ms [{card}]")
+    return entries
 
 
 def kernels_s_c_f64(card, tr, launches, need):
@@ -3162,7 +3229,7 @@ def phase_offgrid(card, need):
     import torch
     from finmlkit_tpu_torch import interop
     from finmlkit_tpu_torch.bar.quantize import quantize_trades
-    from finmlkit_tpu_torch.ops import float_walk, prefix_scan
+    from finmlkit_tpu_torch.ops import event_scan, float_walk, prefix_scan
     t_phase = time.perf_counter()
     ts, price, amount, side = synth_trades(N_MONTH, rounded=False)
     t0 = time.perf_counter()
@@ -3181,13 +3248,21 @@ def phase_offgrid(card, need):
     torch.cuda.reset_peak_memory_stats()
     prefix_scan.LAUNCHES = prefix_scan.FLOAT_LAUNCHES = prefix_scan.COLS_LAUNCHES = 0
     float_walk.LAUNCHES = 0
+    float_walk.ROUTE_LAUNCHES[:] = [0, 0, 0]
+    event_scan.MODE_LAUNCHES[:] = [0] * len(event_scan.MODE_LAUNCHES)
     t0 = time.perf_counter()
     kits = run_offgrid_kits(ts, price, amount, side, thr_v, thr_d)   # the main path
     kits_s = time.perf_counter() - t0
+    if float_walk.ROUTE_LAUNCHES != [1, 0, 1]:
+        fail(f"the kits' walks took kernel D's routes {float_walk.ROUTE_LAUNCHES} (warp step, "
+             f"block walk, units), not the dollar walk by the warp step and the volume walk "
+             f"in units")
     launches = {"S": prefix_scan.LAUNCHES, "S float": prefix_scan.FLOAT_LAUNCHES,
-                "C": prefix_scan.COLS_LAUNCHES, "D": float_walk.LAUNCHES}
+                "C": prefix_scan.COLS_LAUNCHES, "D": float_walk.LAUNCHES,
+                "E volume": event_scan.MODE_LAUNCHES[event_scan._VOLUME]}
     peak = torch.cuda.max_memory_allocated()
-    if launches["S"] < 1 or launches["C"] < 2 or launches["D"] != 2:
+    if launches["S"] < 1 or launches["C"] < 2 or launches["D"] != 2 \
+            or launches["E volume"] != 1:
         fail(f"a kernel of the off-grid path did not launch as it should: {launches}")
     k_out, st = run_offgrid(*args)
     stages = {False: [st], True: []}
@@ -3236,7 +3311,7 @@ def phase_offgrid(card, need):
         f"{kits_s:.2f} s with their host quantization attempts and copies; peak device "
         f"memory {(peak - base) / 2**30:.2f} GiB above the {base / 2**30:.2f} GiB held "
         f"before it [{card}]")
-    entries = {"D": kernel_d(card, tr, thr_v, thr_d, n_v, n_d, launches)}
+    entries = kernel_d(card, tr, thr_v, thr_d, n_v, n_d, launches, "E volume" in need)
     entries.update(kernels_s_c_f64(card, tr, launches, need))
     say(f"phase 12 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
     return launches, entries
@@ -3309,7 +3384,7 @@ def main():
         merge("chain", *phase_chain(card, month, need))
     del month
     if 12 in phases:
-        need = {"S", "C"} - set(kernels)
+        need = {"S", "C", "E volume"} - set(kernels)
         merge("offgrid", *phase_offgrid(card, need))
     say(f"smoke run: {time.perf_counter() - t_start:.1f} s, the kernels' build "
         f"included")

@@ -54,12 +54,16 @@ _SIGNATURES = {
     "fmk_profile_walk_bytes": [],
     "fmk_profile_slots": [_P] * 3 + [_I64] * 4 + [_P] * 2,
     "fmk_profile_walk": [_P, _P, _I64, _I64, _I64, ctypes.c_int, _P, _P, _P],
-    "fmk_float_walk": [ctypes.c_int, _P, _P, _I64, _F64, _I64, _P, _P, _P],
+    "fmk_float_walk_scratch_bytes": [_I64, _I64],
+    "fmk_float_walk_route": [ctypes.c_int, _P, _P, _I64, _P, _P],
+    "fmk_float_walk_units": [_P, _I64, ctypes.c_int, _P, _P],
+    "fmk_float_walk": [ctypes.c_int] * 2 + [_P, _P, _I64, _F64, _I64, _I64] + [_P] * 5,
 }
 _SIZES = {"fmk_scan_scratch_bytes", "fmk_event_scratch_bytes",
           "fmk_planes_scratch_bytes", "fmk_products_scratch_bytes",
           "fmk_ffill_scratch_bytes", "fmk_recurrence_scratch_bytes",
-          "fmk_profile_shared_levels", "fmk_profile_walk_bytes"}
+          "fmk_profile_shared_levels", "fmk_profile_walk_bytes",
+          "fmk_float_walk_scratch_bytes"}
 
 _lib = None
 build_seconds = None  # wall time of the nvcc run in this process, if any

@@ -14,23 +14,63 @@ rounded product and the add another. A host build of the loops with
 move a close when the running sum lies within an ulp of the threshold; the
 port follows the unfused source on the card and in the plain versions.
 
+Kernel D has three routes. A pass over the stream on the card finds what
+picks one, and the host reads it once:
+
+- the warp step, for values that are all finite and >= 0 and a threshold in
+  ``[2^-960, 2^1000)``: while the sum stays in one binade below the
+  threshold, a float64 add is an integer add on that binade's grid, so the
+  walk finds its next binade crossing, close or tie with two ballots over
+  tables of grid values that other warps build ahead (:func:`walk_warp` is
+  its scheme on the CPU, on exact integers). Volume bars restart at 0 at each
+  close, so their stream is cut into chunks that walk at once and merge
+  (:func:`walk_chunked`); dollar bars carry a remainder and walk once.
+- units, for a volume walk of the warp step's domain whose values are all
+  multiples of one unit small enough that no sum of a bar rounds
+  (:func:`exact_unit`): the walk is then an integer walk, kernel E's volume
+  scan (``event_scan.volume_scan``) of the values in units.
+- the block walk, for any other stream (a negative or non-finite value, a
+  threshold outside that range): one thread adds 16 values before one
+  compare (:func:`walk_blocks` on the CPU).
+
+``LAUNCHES`` counts walks, one a call; ``ROUTE_LAUNCHES`` counts them by
+route. On the device a walk is the route pass (one launch, two memsets) and
+then: the warp step 4 launches and a memset (6 launches where a volume walk
+has chunks), the block walk 1 launch, units 1 launch and kernel E's call
+(counted as E's).
+
 The plain versions are Python loops over ``.tolist()``: a serial float
 recurrence has no vectorized form. They run in the tests and in
 ``chip_smoke.py``, not on the kits' path.
 """
-from itertools import islice
+import math
+import struct
+from fractions import Fraction
+from itertools import accumulate, islice
 
 import numpy as np
 import torch
 
 from .. import _build
+from . import event_scan
 
 __all__ = ["volume_walk", "volume_walk_plain", "dollar_walk", "dollar_walk_plain",
-           "walk_blocks"]
+           "walk_blocks", "walk_warp", "walk_chunked", "grid_step", "in_warp_domain",
+           "exact_unit", "units_threshold"]
 
-LAUNCHES = 0   # kernel D launches in this process (volume and dollar)
+LAUNCHES = 0                 # kernel D walks in this process (volume and dollar)
+ROUTE_LAUNCHES = [0, 0, 0]   # of them by route: the warp step, the block walk, units
+WARP, BLOCK, UNITS = 0, 1, 2
+STATS = ("searches", "steps", "ties", "crossings", "serial", "closes", "unmerged",
+         "fixed", "cycles", "wait", "producer_wait")   # the warp step's counters (Stat)
 _VOLUME, _DOLLAR = 0, 1
-_CHUNK, _BLOCK = 2048, 16   # csrc/float_walk.cu
+_CHUNK, _BLOCK = 2048, 16   # the block walk (csrc/float_walk.cu)
+TILE = 768                # the warp step's buffer of trades (kTile)
+BINADES = 7               # binades below the threshold with grid tables (kBinades)
+SERIAL_RUN = 4            # values a serial step adds before one compare (kRun)
+_TWO52, _TWO53 = 1 << 52, 1 << 53
+_TIE = _TWO52 + 1         # added to a tie's floor in the tables (kTie)
+_THR_LO, _THR_HI = 2.0 ** -960, 2.0 ** 1000
 
 
 def _walk_plain(values: torch.Tensor, thr: float, max_bars: int, reset: bool):
@@ -67,13 +107,13 @@ def dollar_walk_plain(prices: torch.Tensor, volumes: torch.Tensor, thr: float,
 
 def walk_blocks(values, thr: float, max_bars: int, reset: bool, *, chunk: int = _CHUNK,
                 block: int = _BLOCK):
-    """Kernel D's walk on the CPU, for the tests: float64 ``values`` (numpy)
-    cut into chunks of ``chunk`` and each chunk's values after the first
-    trade into blocks of ``block``. A block whose values are all >= 0 and
-    whose in-order sum stays below ``thr`` after its last value is added in
-    one go; any other block, and a chunk's tail, is walked again a step at a
-    time from the sum before it. Returns the closes and the number of blocks
-    walked twice."""
+    """Kernel D's block walk on the CPU, for the tests: float64 ``values``
+    (numpy) cut into chunks of ``chunk`` and each chunk's values after the
+    first trade into blocks of ``block``. A block whose values are all >= 0
+    and whose in-order sum stays below ``thr`` after its last value is added
+    in one go; any other block, and a chunk's tail, is walked again a step at
+    a time from the sum before it. Returns the closes and the number of
+    blocks walked twice."""
     out, again = [], 0
     n = len(values)
     if n == 0 or max_bars <= 0:
@@ -110,6 +150,331 @@ def walk_blocks(values, thr: float, max_bars: int, reset: bool, *, chunk: int = 
     return np.asarray(out, np.int64), again
 
 
+# --- the warp step on the CPU, on exact integers --------------------------
+
+
+def in_warp_domain(values, thr: float) -> bool:
+    """Whether the warp step takes a stream: every value finite and >= 0
+    (-0.0 included), the threshold in ``[2^-960, 2^1000)``."""
+    x = np.asarray(values, np.float64)
+    return bool(_THR_LO <= thr < _THR_HI and np.all(np.isfinite(x)) and np.all(x >= 0.0))
+
+
+def _binade(g: float) -> int:
+    """e with ``2^e <= g < 2^(e+1)``, for a normal g > 0."""
+    return math.frexp(g)[1] - 1
+
+
+def grid_step(x: float, e: int):
+    """``x >= 0`` on the grid of binade e (ulp ``2^(e-52)``): ``(k, tie)``
+    with k the nearest integer to ``x / 2^(e-52)`` (its floor at a tie,
+    ``tie`` True), capped at 2^52. A state ``g = S 2^(e-52)`` of that binade
+    (``2^52 <= S < 2^53``) then steps to ``fl(g + x) = (S + k + r) 2^(e-52)``,
+    r the parity of ``S + k`` at a tie and 0 elsewhere, wherever
+    ``S + k + r < 2^53``."""
+    num, den = x.as_integer_ratio()
+    s = 52 - e
+    if s >= 0:
+        num <<= s
+    else:
+        den <<= -s
+    k, rem = divmod(num, den)
+    if k >= _TWO52:
+        return _TWO52, False
+    twice = 2 * rem
+    if twice == den:
+        return k, True
+    return k + (twice > den), False
+
+
+def grid_step_magic(x: np.ndarray, e: int):
+    """:func:`grid_step` as kernel D's producer warps compute it, in float64:
+    ``q = x 2^(52-e)`` (exact), ``t = min(q + 2^52, 2^53)`` rounds q to the
+    nearest integer (to even at a tie), ``(t - 2^52) - q`` is -0.5 or +0.5
+    exactly at a tie. Returns ``(k, tie)`` arrays."""
+    q = np.asarray(x, np.float64) * 2.0 ** (52 - e)
+    t = np.minimum(q + 2.0 ** 52, 2.0 ** 53)
+    diff = (t - 2.0 ** 52) - q
+    k = t.view(np.int64) - np.int64(0x4330000000000000)
+    tie = np.abs(diff) == 0.5
+    return k - (tie & (diff > 0)), tie
+
+
+def _window(thr: float, binades: int):
+    """(e_lo, 2^e_lo, L): the lowest binade with a table and each
+    table's limit ``L_d = min(2^53, ceil(thr / 2^(e_lo + d - 52)))``; a state
+    ``S`` of binade ``e_lo + d`` is below the threshold and in its binade
+    exactly while ``S < L_d``."""
+    e_lo = _binade(thr) - binades + 1
+    t = Fraction(thr)
+    lims = [min(_TWO53, math.ceil(t / Fraction(2) ** (e_lo + d - 52)))
+            for d in range(binades)]
+    return e_lo, math.ldexp(1.0, e_lo), lims
+
+
+def _units_exponent(low_bit, top: float, thr: float):
+    """u = ``low_bit`` where the values' lowest set bit and largest value
+    ``top`` put a volume walk in the exact-sum case at ``thr``, else None."""
+    if low_bit is None or not -1000 <= low_bit <= 1000:
+        return None
+    unit = Fraction(2) ** low_bit
+    if units_threshold(thr, low_bit) < _TWO52 and Fraction(top) / unit < _TWO52:
+        return low_bit
+    return None
+
+
+def units_threshold(thr: float, u: int) -> int:
+    """``ceil(thr / 2^u)``: a sum of multiples of 2^u reaches ``thr`` exactly
+    where its count of units reaches this."""
+    return math.ceil(Fraction(thr) / Fraction(2) ** u)
+
+
+def exact_unit(values, thr: float):
+    """The exponent u of the unit ``2^u`` in which a volume walk of
+    ``values`` adds without rounding, or None: every value a multiple of
+    ``2^u`` (u the lowest set bit over the values > 0, in [-1000, 1000]),
+    ``ceil(thr / 2^u)`` and the largest value below ``2^52`` units. Each add
+    of the loop starts from a state below thr, 0 or trade 0's value, so its
+    sum is below ``2^53`` units and every add and compare is exact: the walk
+    is kernel E's volume scan of the values in units at
+    :func:`units_threshold` (kernel D's units route)."""
+    pos = np.asarray(values, np.float64)
+    pos = pos[pos > 0.0]
+    if not pos.size:
+        return None
+    # as the route pass finds it: the exponent and the significand's lowest bit
+    b = pos.view(np.int64)
+    e = b >> 52
+    m = (b & (_TWO52 - 1)) | np.where(e > 0, _TWO52, 0)
+    low = np.frexp((m & -m).astype(np.float64))[1] - 1 + np.maximum(e, 1) - 1075
+    return _units_exponent(int(low.min()), float(pos.max()), thr)
+
+
+def _tables(x, e_lo: int, binades: int):
+    """Each binade's grid values of every trade, a tie's floor plus
+    ``_TIE`` (so that a tie stops the search as a crossing does)."""
+    cols = []
+    for d in range(binades):
+        col = []
+        for xi in x:
+            k, tie = grid_step(xi, e_lo + d)
+            col.append(k + _TIE if tie else k)
+        cols.append(col)
+    return cols
+
+
+def _bits(g: float) -> int:
+    return struct.unpack("<q", struct.pack("<d", g))[0]
+
+
+def _from_bits(b: int) -> float:
+    return struct.unpack("<d", struct.pack("<q", b))[0]
+
+
+def _segment(x, kap, win, thr, reset, lo, hi, start, g, old, cap, tile, st, closes):
+    """Kernel D's walker over trades ``start .. hi-1`` (buffers of ``tile``
+    trades from ``lo``) from the state ``g`` entering trade ``start``.
+    Appends the closes to ``closes``; stops at the first close that ``old``
+    (a predicate on the trade index, or None) also holds, or at ``cap``
+    closes. Returns ``(end state, merge trade or None)``."""
+    e_lo, lo_bound, lims = win
+    inwin, d, lim = False, 0, 0
+
+    def enter(prefix, q):
+        # the state g after buffer position q: its binade's table, if any
+        nonlocal inwin, d, lim
+        inwin = lo_bound <= g < thr
+        if inwin:
+            e = _binade(g)
+            d = e - e_lo
+            s = int(math.ldexp(g, 52 - e))
+            lim = lims[d] - s + (prefix[d][q] if q >= 0 else 0)
+            assert 0 <= lim < 1 << 64
+
+    def close(i):
+        nonlocal g
+        closes.append(i)
+        st["closes"] += 1
+        g = 0.0 if reset else g - thr
+        if old is not None and old(i):
+            return "merge"
+        return "cap" if len(closes) >= cap else None
+
+    for cb in range(lo, hi, tile):
+        ln = min(tile, hi - cb)
+        nsteps = -(-ln // 32)
+        prefix = [list(accumulate(col[cb:cb + ln])) for col in kap]
+        assert all(p[-1] < 1 << 64 for p in prefix)
+        pos = 0
+        if cb == lo:
+            pos = start - lo
+            enter(prefix, pos - 1)
+        while pos < ln:
+            if not inwin:
+                # below the lowest table (or at or above the threshold): real
+                # adds, SERIAL_RUN at once where their sum stays below it
+                if pos + SERIAL_RUN <= ln:
+                    s = g
+                    for u in range(SERIAL_RUN):
+                        s += x[cb + pos + u]
+                    if s < lo_bound:
+                        g = s
+                        pos += SERIAL_RUN
+                        st["serial"] += SERIAL_RUN
+                        continue
+                g += x[cb + pos]
+                st["serial"] += 1
+                if g >= thr:
+                    why = close(cb + pos)
+                    if why:
+                        return g, (cb + pos if why == "merge" else None)
+                enter(prefix, pos)
+                pos += 1
+                continue
+            p = prefix[d]
+            # a step: one round of ballots over the 32 trades from pos and
+            # over the ends of the buffer's later steps of 32
+            st["steps"] += 1
+            m = next((pos + u for u in range(32) if pos + u < ln and p[pos + u] >= lim), None)
+            if m is None:
+                s0 = (pos + 32) >> 5
+                f = next((s for s in range(s0, nsteps) if p[min(32 * s + 31, ln - 1)] >= lim),
+                         None)
+                if f is None:
+                    break
+                # a search: a second round, in the step whose end stops the walk
+                st["searches"] += 1
+                m = next(32 * f + u for u in range(32) if 32 * f + u < ln and p[32 * f + u] >= lim)
+            pm, pp = p[m], (p[m - 1] if m else 0)
+            s1 = lims[d] - lim + pp                   # the state before trade m, exact
+            assert _TWO52 <= s1 < lims[d]
+            kap_m = pm - pp
+            if kap_m > _TWO52:                        # a tie: to the even neighbour
+                st["ties"] += 1
+                kf = kap_m - _TIE
+                r = (s1 + kf) & 1
+                if s1 + kf + r < lims[d]:
+                    lim += _TIE - r
+                    pos = m + 1
+                    continue
+            st["crossings"] += 1                      # the real add from the exact state
+            g = math.ldexp(s1, e_lo + d - 52) + x[cb + m]
+            if g >= thr:
+                why = close(cb + m)
+                if why:
+                    return g, (cb + m if why == "merge" else None)
+            enter(prefix, m)
+            pos = m + 1
+        if inwin:
+            lim -= prefix[d][ln - 1]
+    if inwin:
+        g = math.ldexp(lims[d] - lim, e_lo + d - 52)
+    return g, None
+
+
+def _new_stats():
+    return dict.fromkeys(STATS, 0)
+
+
+def walk_warp(values, thr: float, max_bars: int, reset: bool, *, binades: int = BINADES,
+              tile: int = TILE):
+    """Kernel D's warp step on the CPU, for the tests: the walk of float64
+    ``values`` (numpy, in :func:`in_warp_domain`) from trade 0, as one walker
+    over tables of ``binades`` binades in buffers of ``tile`` trades.
+
+    Returns the closes (the first ``max_bars``) and the walker's counts:
+    ``steps`` (rounds of ballots over the next 32 trades and the ends of the
+    buffer's later steps of 32), ``searches`` (second rounds, in the step
+    found), ``ties``, ``crossings`` (real adds from a table's
+    exact state: binade crossings and closes), ``serial`` (real adds below the
+    lowest table or above the threshold) and ``closes``."""
+    assert tile % 32 == 0 and tile <= 1024 and in_warp_domain(values, thr)
+    st = _new_stats()
+    x = np.asarray(values, np.float64).tolist()
+    closes = []
+    if x and max_bars > 0:
+        win = _window(thr, binades)
+        kap = _tables(x, win[0], binades)
+        _segment(x, kap, win, thr, reset, 0, len(x), 1, x[0], None, max_bars, tile, st,
+                 closes)
+    return np.asarray(closes, np.int64), st
+
+
+def chunk_bounds(n: int, chunks: int, tile: int = TILE):
+    """Kernel D's chunks of whole tiles: ``(per, count)``."""
+    tiles = -(-n // tile)
+    per = -(-tiles // max(chunks, 1)) * tile
+    return per, -(-n // per)
+
+
+def walk_chunked(values, thr: float, max_bars: int, chunks: int, *,
+                 binades: int = BINADES, tile: int = TILE):
+    """Kernel D's volume walk in chunks on the CPU, for the tests (the sum
+    restarts at 0 at each close, so two walks that close at one trade agree
+    from there on).
+
+    Pass 1 walks every chunk from a bar that opens at its first trade (chunk 0
+    from trade 0's value, at trade 1). Pass 2 walks each chunk c > 0 from
+    chunk c-1's pass-1 end state until it closes at a trade where pass 1 also
+    closed. The fix-up walks, in chunk order, each chunk whose last walk began
+    elsewhere than at its predecessor's final end state, until it closes where
+    that last walk closed. A chunk's closes are the fix-up's before its merge,
+    pass 2's before its merge, pass 1's after. Returns the first ``max_bars``
+    closes and :func:`walk_warp`'s counts with ``chunks``, ``unmerged`` (pass-2
+    walks that never merged) and ``fixed`` (chunks the fix-up walked)."""
+    assert tile % 32 == 0 and tile <= 1024 and in_warp_domain(values, thr)
+    st = _new_stats()
+    x = np.asarray(values, np.float64).tolist()
+    n = len(x)
+    if n == 0 or max_bars <= 0:
+        return np.zeros(0, np.int64), dict(st, chunks=0)
+    win = _window(thr, binades)
+    kap = _tables(x, win[0], binades)
+    per, nch = chunk_bounds(n, chunks, tile)
+    bounds = [(c * per, min(c * per + per, n)) for c in range(nch)]
+
+    def walk(c, g, old, closes):
+        lo, hi = bounds[c]
+        return _segment(x, kap, win, thr, True, lo, hi, lo + (c == 0), g, old, math.inf,
+                        tile, st, closes)
+
+    a, end1 = set(), []
+    for c in range(nch):
+        got = []
+        end1.append(walk(c, x[0] if c == 0 else 0.0, None, got)[0])
+        a.update(got)
+    b, m2, end2 = set(), [lo for lo, _ in bounds], list(end1)
+    for c in range(1, nch):
+        if _bits(end1[c - 1]) == _bits(0.0):
+            continue                                  # pass 1's own entry
+        got = []
+        end2[c], merged = walk(c, end1[c - 1], a.__contains__, got)
+        b.update(got)
+        m2[c] = bounds[c][1] if merged is None else merged
+        st["unmerged"] += merged is None
+    f, m3 = set(), [lo for lo, _ in bounds]
+    final_end = end1[0]
+    for c in range(1, nch):
+        last_end = end1[c] if m2[c] < bounds[c][1] else end2[c]
+        if _bits(final_end) != _bits(end1[c - 1]):   # its last walk's entry
+            got = []
+            end, merged = walk(c, final_end,
+                               lambda i, c=c: i in b if i < m2[c] else i in a, got)
+            f.update(got)
+            m3[c] = bounds[c][1] if merged is None else merged
+            if merged is None:
+                last_end = end
+            st["fixed"] += 1
+        final_end = last_end
+    closes = sorted(i for c, (lo, hi) in enumerate(bounds)
+                    for i in range(lo, hi)
+                    if (i in f if i < m3[c] else i in b if i < m2[c] else i in a))
+    return np.asarray(closes[:max_bars], np.int64), dict(st, chunks=nch)
+
+
+# --- the wrappers ----------------------------------------------------------
+
+
 def _check(what, volumes, prices=None):
     if volumes.dim() != 1 or volumes.dtype != torch.float32:
         raise TypeError(f"{what} takes 1-D float32 volumes, got {volumes.dtype} "
@@ -122,26 +487,83 @@ def _check(what, volumes, prices=None):
         raise ValueError(f"{what} runs on cpu or cuda, not {volumes.device}")
 
 
-def _launch(mode: int, prices, volumes, thr: float, max_bars: int) -> torch.Tensor:
-    """Kernel D over CUDA tensors; one device read for the number of closes."""
+def _default_chunks(device) -> int:
+    """Chunks of a volume walk of the warp step: 12, from the chunk sweep in
+    ``PERF.md`` (1 to 132 chunks, the month and unrounded draws whose walks
+    merge at every 997th trade), where the slower stream was fastest; at
+    most one a streaming multiprocessor. More chunks walk less each, but on
+    the month more of them end before they merge, and the fix-up walks those
+    one after another."""
+    return min(12, torch.cuda.get_device_properties(device).multi_processor_count)
+
+
+def _aligned(t):
+    """``t`` contiguous at a 16-byte address (the producers' vector loads)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch(mode: int, prices, volumes, thr: float, max_bars: int, *, chunks=None,
+            stats=None) -> torch.Tensor:
+    """Kernel D over CUDA tensors: the route pass, one device read of what it
+    found, then the route's launches and one device read of the number of
+    closes. ``chunks`` cuts a volume walk of the warp step (default
+    :func:`_default_chunks`; a dollar walk is one chunk); the closes do not
+    depend on it. ``stats``, a zeroed int64 tensor of ``len(STATS)`` on the
+    device, receives the warp step's counts (``STATS``; the last three in SM
+    clock cycles: the walkers', their waits for a tile, the producers' waits
+    for room); other routes leave it at 0."""
     global LAUNCHES
     dev = volumes.device
     n, max_bars = volumes.shape[0], int(max_bars)
     if n == 0 or max_bars <= 0:
         return torch.empty(0, dtype=torch.int64, device=dev)
-    volumes = volumes.contiguous()
-    prices = None if prices is None else prices.contiguous()
-    out = torch.empty(max_bars, dtype=torch.int64, device=dev)
-    count = torch.empty(1, dtype=torch.int64, device=dev)
+    if chunks is None:
+        chunks = 1 if mode == _DOLLAR else _default_chunks(dev)
+    if chunks < 1:
+        raise ValueError(f"kernel D takes at least one chunk, got {chunks}")
+    if mode == _DOLLAR:
+        chunks = 1
+    if stats is not None and (stats.shape != (len(STATS),) or stats.dtype != torch.int64
+                              or stats.device != dev):
+        raise ValueError(f"stats must be an int64 tensor of {len(STATS)} on the stream's "
+                         "device")
+    volumes = _aligned(volumes)
+    prices = None if prices is None else _aligned(prices)
+    p = None if prices is None else prices.data_ptr()
     lib = _build.library()
+    info = torch.empty(3, dtype=torch.int64, device=dev)   # flag, lowest bit, largest value
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fmk_float_walk(mode, None if prices is None else prices.data_ptr(),
-                                volumes.data_ptr(), n, float(thr), max_bars,
-                                out.data_ptr(), count.data_ptr(), stream)
-    _build.check(rc, "float_walk")
+        _build.check(lib.fmk_float_walk_route(mode, p, volumes.data_ptr(), n, info.data_ptr(),
+                                              stream), "float_walk route")
+        flag, low_bit, top = info.tolist()
+        route, u = BLOCK, None
+        if not flag and _THR_LO <= thr < _THR_HI:
+            if mode == _VOLUME and low_bit < 1 << 62:   # a value > 0
+                u = _units_exponent(low_bit, _from_bits(top), thr)
+            route = WARP if u is None else UNITS
+        if route == UNITS:
+            units = torch.empty(n, dtype=torch.int64, device=dev)
+            _build.check(lib.fmk_float_walk_units(volumes.data_ptr(), n, u, units.data_ptr(),
+                                                  stream), "float_walk units")
+        else:
+            out = torch.empty(max_bars, dtype=torch.int64, device=dev)
+            count = torch.empty(1, dtype=torch.int64, device=dev)
+            scratch = torch.empty(lib.fmk_float_walk_scratch_bytes(n, chunks) if route == WARP
+                                  else 0, dtype=torch.uint8, device=dev)
+            _build.check(lib.fmk_float_walk(mode, route, p, volumes.data_ptr(), n, float(thr),
+                                            max_bars, chunks, scratch.data_ptr(),
+                                            out.data_ptr(), count.data_ptr(),
+                                            None if stats is None else stats.data_ptr(),
+                                            stream), "float_walk")
+    if route == UNITS:
+        out = event_scan.volume_scan(units, units_threshold(thr, u), max_bars)
+    else:
+        out = out[:int(count)]
     LAUNCHES += 1
-    return out[:int(count)]
+    ROUTE_LAUNCHES[route] += 1
+    return out
 
 
 def volume_walk(volumes: torch.Tensor, thr: float, max_bars: int) -> torch.Tensor:

@@ -12,7 +12,8 @@ __all__ = ["to_numpy", "assert_exact", "assert_close", "assert_window_close",
            "adversarial_trades", "tile_closes", "TILE_CLOSES", "zeros_and_twos",
            "cusum_recurrence", "CUSUM_BAD", "cusum_bad_inputs", "PROFILE_CASES",
            "PROFILE_TS", "PROFILE_WINDOW", "profile_case", "PROFILE_EXTRA_CASES",
-           "PROFILE_ROW_CASES", "profile_rows_case", "CSW_FILTER_CASES", "csw_filter_case"]
+           "PROFILE_ROW_CASES", "profile_rows_case", "CSW_FILTER_CASES", "csw_filter_case",
+           "offgrid_trades", "FLOAT_WALK_CASES", "float_walk_case"]
 
 
 def to_numpy(x) -> np.ndarray:
@@ -522,3 +523,59 @@ def csw_filter_case(name: str):
         y = np.log(100.0) + np.cumsum(r.normal(0.0, 1e-3, 100))
         return y, _walk_sigma(y, 3), 3
     raise KeyError(name)
+
+
+def offgrid_trades(n: int, seed: int = 0):
+    """The prices (float64, on no tick grid) and amounts (float32) of
+    ``chip_smoke.synth_trades(n, seed, rounded=False)``: bench.py's draws."""
+    r = np.random.default_rng(seed)
+    r.exponential(70.0, n)                                  # the timestamps' draws
+    price = 107_000.0 * np.exp(np.cumsum(r.normal(0, 2e-5, n)))
+    amount = np.maximum(np.round(r.lognormal(-4.0, 1.5, n), 5), 1e-5).astype(np.float32)
+    return price, amount
+
+
+FLOAT_WALK_CASES = ("synth0", "synth1", "synth2", "ties", "exact", "whale", "first_above",
+                    "n1", "n2", "cap")
+
+
+def float_walk_case(name: str, n: int = 20_000):
+    """Kernel D's streams: ``(prices, volumes, volume threshold, dollar
+    threshold, max_bars)``, every value finite and >= 0 (the warp step's
+    domain). ``synth*``: the off-grid draws at seed 0-2, thresholds total / K
+    (K bars of about 980 trades), so the last crossing sits at the stream's
+    end; ``ties``: dyadic prices and volumes, large amounts that close bars
+    among small ones whose last bit is half an ulp of the sum in one of the
+    binades below the threshold, a tie on many steps; ``exact``: eighths that
+    reach the threshold 2.0 exactly; ``whale``: trades above the threshold
+    among the draws; ``first_above``: the first trade at three thresholds;
+    ``n1``, ``n2``: one and two trades; ``cap``: ``max_bars`` reached."""
+    seed = {"synth1": 1, "synth2": 2}.get(name, 0)
+    if name in ("n1", "n2"):
+        px, v = offgrid_trades(2, seed)
+        px, v = px[:int(name[1])], v[:int(name[1])]
+        return px, v, float(v[0]) / 2, float(px[0] * v[0]) / 2, 5
+    if name == "exact":
+        g = np.random.default_rng(5)
+        v = (g.integers(0, 8, n) / 8.0).astype(np.float32)
+        return np.full(n, 2.0), v, 2.0, 2.0, n
+    if name == "ties":
+        g = np.random.default_rng(6)
+        odd = 2 * g.integers(0, 512, n) + 1
+        v = (odd * 2.0 ** -g.integers(22, 33, n)).astype(np.float32)
+        big = g.random(n) < 0.08
+        v[big] = (2.0 ** 26 * g.integers(1, 8, big.sum())).astype(np.float32)
+        px = 2.0 ** g.integers(-1, 3, n).astype(np.float64)
+        return px, v, 1.5 * 2.0 ** 29, 1.5 * 2.0 ** 29, n
+    px, v = offgrid_trades(n, seed)
+    k = max(n // 980, 1)
+    thr = (float(v.astype(np.float64).sum()) / k, float((px * v).sum()) / k)
+    if name == "whale":
+        v = v.copy()
+        v[::97] *= np.float32(3000.0)
+    elif name == "first_above":
+        v = v.copy()
+        v[0] = np.float32(3.0 * thr[1] / px[0])
+        thr = (thr[1] / px[0], thr[1])
+        v[0] = max(v[0], np.float32(3.0 * thr[0]))
+    return px, v, thr[0], thr[1], (7 if name == "cap" else n)

@@ -91,6 +91,22 @@ on the first 2,048 bars and to the first build on every bar, timed in four
 turns (rolling at 27 bins and without, rows mode at both) and traced once under
 ``torch.profiler`` (registers, blocks an SM, estimated occupancy). The last
 line is one JSON object of the times.
+
+``python3 scripts/probe_torch_variants.py D [names]`` probes kernel D
+(``csrc/float_walk.cu``) on ``chip_smoke.py`` phase 12's month (its prices
+left off the 0.1 grid; volume and dollar bars at total / 40000): "as built"
+and each ``name=dir`` whose directory holds another checkout's
+``finmlkit_tpu_torch`` (the parent's block walk: a ``git archive`` of the
+parent commit unpacked under ``build/``), each built by its own ``nvcc`` and
+called through its C entry point with its route forced (the warp step, and
+the block walk), and the package's own walks as the kits call them (the
+route pass, then the volume walk in units through kernel E, the dollar walk
+by the warp step). Each is held to the plain loops on the whole month, then
+each mode is timed in four turns (CUDA events); then the warp step's counts
+of each mode, and its volume walk at 1 to 132 chunks on the month and on
+the unrounded draws of the card tests at the month's size, with a trade
+above the threshold every 997 (the closes equal, the time, the merges and
+fix-ups). The last line is one JSON object.
 """
 import ctypes
 import json
@@ -1235,7 +1251,197 @@ def probe_g(specs):
     cs.say(json.dumps(dict(report, checks=checks, ms=times, traced=traced)))
 
 
+D_KERNELS = (r"walk_kernel\w*|pass[12]_kernel\w*|fixup_kernel|count_kernel|write_kernel"
+             r"|route_kernel\w*")
+D_CHUNKS = (1, 2, 4, 8, 12, 16, 24, 33, 44, 66, 132)
+D_VARIANTS = {   # edits of the package's float_walk.cu, built alone
+    "5 binades": [_sub(r"constexpr int kBinades = 7;", "constexpr int kBinades = 5;")],
+    "8 binades": [_sub(r"constexpr int kBinades = 7;", "constexpr int kBinades = 8;")],
+    "ring of 4": [_sub(r"constexpr int kRing = 3;", "constexpr int kRing = 4;")],
+    # ablations, for their times: the walker takes the tiles and walks none
+    "producers alone": [_sub(r"    while \(pos < len\) \{\n      if \(!win\)",
+                             "    while (pos < len && thr < 0.0) {\n      if (!win)")],
+    # the producers build the first kRing tiles only; the walker walks them again
+    "walker alone": [_sub(r"    double x\[kPer\];\n", "    if (j < kRing) {\n    double x[kPer];\n"),
+                     _sub(r"    if \(pt == 0\) flags\[0\] = j \+ 1;\n  \}\n",
+                          "    }\n    if (pt == 0) flags[0] = j + 1;\n  }\n")],
+    "no close atomics": [
+        _sub(r"      if \(lane == 0\) atomicOr\(bits \+ \(i >> 5\), 1u << \(i & 31\)\);\n", "")],
+    "no tile fence": [
+        _sub(r"    __syncwarp\(\);\n    __threadfence_block\(\);\n    if \(lane == 0\) flags\[1\]",
+             "    __syncwarp();\n    if (lane == 0) flags[1]")],
+}
+D_ABLATIONS = {"producers alone", "walker alone", "no close atomics", "no tile fence"}
+
+
+def d_library(src_dir, out_dir, edits=()):
+    """Kernel D from ``src_dir``'s ``float_walk.cu`` built alone; returns
+    ``(call, routes, ptxas rows)``: ``call(mode, p, v, thr, max_bars,
+    chunks=None, stats=None, route=0)`` enqueues a walk by the route given
+    (0 the warp step, 1 the block walk) and returns ``(out, count)``; whether
+    the build has routes, and ptxas's rows. The parent's block walk (no
+    routes, no scratch, no chunks) is called with its own arguments."""
+    from finmlkit_tpu_torch.ops import float_walk as fw
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src = (Path(src_dir) / "float_walk.cu").read_text()
+    for edit in edits:
+        src = edit(src)
+    (out_dir / "float_walk.cu").write_text(src)
+    log = nvcc(out_dir, out_dir / "lib.so")
+    lib = ctypes.CDLL(str(out_dir / "lib.so"))
+    P, I64, F64, I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_double, ctypes.c_int
+    routed = "fmk_float_walk_route" in src
+    if routed:
+        lib.fmk_float_walk_scratch_bytes.argtypes = [I64, I64]
+        lib.fmk_float_walk_scratch_bytes.restype = I64
+        lib.fmk_float_walk.argtypes = [I32, I32, P, P, I64, F64, I64, I64, P, P, P, P, P]
+    else:
+        lib.fmk_float_walk.argtypes = [I32, P, P, I64, F64, I64, P, P, P]
+
+    def call(mode, p, v, thr, max_bars, chunks=None, stats=None, route=0):
+        n = v.shape[0]
+        out = torch.empty(max_bars, dtype=torch.int64, device="cuda")
+        count = torch.empty(2, dtype=torch.int64, device="cuda")
+        stream = torch.cuda.current_stream().cuda_stream
+        pp = None if p is None else p.data_ptr()
+        if routed:
+            ch = 1 if mode == 1 else (chunks or fw._default_chunks(v.device))
+            scratch = torch.empty(lib.fmk_float_walk_scratch_bytes(n, ch) if route == 0 else 0,
+                                  dtype=torch.uint8, device="cuda")
+            rc = lib.fmk_float_walk(mode, route, pp, v.data_ptr(), n, thr, max_bars, ch,
+                                    scratch.data_ptr(), out.data_ptr(), count.data_ptr(),
+                                    None if stats is None else stats.data_ptr(), stream)
+        else:
+            rc = lib.fmk_float_walk(mode, pp, v.data_ptr(), n, thr, max_bars, out.data_ptr(),
+                                    count.data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError(f"kernel D from {src_dir}: CUDA error {rc}")
+        return out, count
+    return call, routed, ptxas_summary(log, D_KERNELS)
+
+
+def probe_d(specs):
+    """Kernel D of the builds ``specs`` (name -> source dir) and of the
+    package on phase 12's month: held to the plain loops, timed in four
+    turns, the warp step's counts and its volume chunk sweep."""
+    from finmlkit_tpu_torch.ops import float_walk as fw
+    card = cs.phase_env()
+    builds = {}
+    for i, (name, (src, edits)) in enumerate(specs.items()):
+        call, routed, rows = d_library(src, OUT / f"d{i}", edits)
+        builds[name] = (call, routed)
+        for fn, what in rows:
+            cs.say(f"D {name}: {fn} {what}")
+    _, price, amount, _ = cs.synth_trades(cs.N_MONTH, rounded=False)
+    n = cs.N_MONTH
+    thr = {"volume": float(amount.astype(np.float64).sum()) / cs.VOLUME_BARS,
+           "dollar": float((price * amount).sum()) / cs.DOLLAR_BARS}
+    p, v = torch.from_numpy(price).cuda(), torch.from_numpy(amount).cuda()
+    del price, amount
+    # the card tests' unrounded draws (tests/test_torch_cuda.py _off_grid)
+    g = np.random.default_rng(31)
+    raw = np.maximum(g.lognormal(-4.0, 1.5, n), 1e-5).astype(np.float32)
+    raw[::997] *= 500
+    raw = torch.from_numpy(raw).cuda()
+    thr_raw = float(raw.double().sum()) / cs.VOLUME_BARS
+    t0 = time.perf_counter()
+    want = {"volume": fw.volume_walk_plain(v.cpu(), thr["volume"], cs.VOLUME_BARS + 2),
+            "dollar": fw.dollar_walk_plain(p.cpu(), v.cpu(), thr["dollar"], cs.DOLLAR_BARS + 2)}
+    want_raw = fw.volume_walk_plain(raw.cpu(), thr_raw, cs.VOLUME_BARS + 2)
+    cs.say(f"plain loops on the host: {time.perf_counter() - t0:.1f} s; "
+           f"{len(want['volume'])} volume and {len(want['dollar'])} dollar closes, "
+           f"{len(want_raw)} on the unrounded draws")
+    args = {"volume": (0, None, v, thr["volume"], cs.VOLUME_BARS + 2),
+            "dollar": (1, p, v, thr["dollar"], cs.DOLLAR_BARS + 2)}
+    nb = {m: len(want[m]) for m in want}
+    bounds = {"volume": cs.bound(4 * n + 8 * nb["volume"], n, cs.PEAK_F64_OPS_PER_S),
+              "dollar": cs.bound(12 * n + 8 * nb["dollar"], 2 * n, cs.PEAK_F64_OPS_PER_S)}
+    # what is timed: each build by its route (the warp step; the parent's
+    # block walk) and the package's walks as the kits call them
+    runs = {}
+    for name, (call, routed) in builds.items():
+        runs[name if not routed else f"{name}, warp step"] = (call, {})
+        if routed and name not in D_ABLATIONS:
+            runs[f"{name}, block walk"] = (call, {"route": 1})
+    package = {"volume": lambda: fw._launch(fw._VOLUME, None, v, thr["volume"],
+                                            cs.VOLUME_BARS + 2),
+               "dollar": lambda: fw._launch(fw._DOLLAR, p, v, thr["dollar"],
+                                            cs.DOLLAR_BARS + 2)}
+    before = list(fw.ROUTE_LAUNCHES)
+    exact, counts = {}, {}
+    for mode in args:
+        exact[f"{mode} | package"] = bool(torch.equal(package[mode]().cpu(), want[mode]))
+        if not exact[f"{mode} | package"]:
+            cs.fail(f"D package {mode}: closes differ from the plain loop")
+    routes = [a - b for a, b in zip(fw.ROUTE_LAUNCHES, before)]
+    cs.say(f"D package: the routes [warp step, block walk, units] of the two walks {routes}")
+
+    def closes(out_count):
+        out, count = out_count
+        return out[:int(count[0])].cpu()
+    for key, (call, kw) in runs.items():
+        for mode, a in args.items():
+            st = (torch.zeros(len(fw.STATS), dtype=torch.int64, device="cuda")
+                  if key.endswith("warp step") else None)
+            got = closes(call(*a, stats=st, **kw))
+            exact[f"{mode} | {key}"] = bool(torch.equal(got, want[mode]))
+            if not exact[f"{mode} | {key}"] and key.split(",")[0] not in D_ABLATIONS:
+                cs.fail(f"D {key} {mode}: closes differ from the plain loop")
+            if st is not None:
+                counts[f"{mode} | {key}"] = dict(zip(fw.STATS, st.tolist()))
+    cs.say("D == plain on the month: " + json.dumps(exact) + "; the warp step's counts: "
+           + json.dumps(counts))
+    times = {}
+    for turn in range(4):
+        keys = list(runs) + ["package"]
+        for key in (keys if turn % 2 == 0 else list(reversed(keys))):
+            for mode, a in args.items():
+                if key == "package":
+                    fn = package[mode]
+                else:
+                    call, kw = runs[key]
+                    fn = lambda: call(*a, **kw)   # noqa: E731
+                slow = key != "package" and not key.endswith("warp step")   # block walks
+                times.setdefault(f"{mode} | {key}", []).append(
+                    cs.cuda_ms(fn, reps=3 if slow else 10))
+    for key, t in times.items():
+        mode = key.split(" | ")[0]
+        cs.say(f"D {key}: {min(t):.3f}-{max(t):.3f} ms in 4 turns, bound "
+               f"{bounds[mode][0]:.4f} ms ({bounds[mode][1]}), "
+               f"{bounds[mode][0] / min(t):.3%} of it [{card}]")
+    sweep = {}
+    streams = {"month": (v, thr["volume"], want["volume"]),
+               "unrounded": (raw, thr_raw, want_raw)}
+    for name, (call, routed) in builds.items():
+        if not routed or name in D_ABLATIONS:
+            continue
+        for sname, (vs, t, w) in streams.items():
+            a = (0, None, vs, t, cs.VOLUME_BARS + 2)
+            for ch in D_CHUNKS:
+                st = torch.zeros(len(fw.STATS), dtype=torch.int64, device="cuda")
+                if not torch.equal(closes(call(*a, chunks=ch, stats=st)), w):
+                    cs.fail(f"D {name} volume on the {sname} draws at {ch} chunks: closes "
+                            f"differ from the plain loop")
+                ms = cs.cuda_ms(lambda: call(*a, chunks=ch), reps=10)
+                sweep[f"{sname} | {ch} | {name}"] = dict(ms=ms, **dict(zip(fw.STATS,
+                                                                         st.tolist())))
+                cs.say(f"D {name} volume by the warp step on the {sname} draws at {ch} "
+                       f"chunks: {ms:.3f} ms, closes == plain, counts "
+                       + json.dumps(sweep[f"{sname} | {ch} | {name}"]) + f" [{card}]")
+    cs.say(json.dumps({"card": card, "ms": times, "bounds_ms": {k: b[0] for k, b in bounds.items()},
+                       "exact": exact, "counts": counts, "volume_chunks": sweep}))
+
+
 def main():
+    if len(sys.argv) > 1 and sys.argv[1] == "D":
+        if not torch.cuda.is_available():
+            cs.fail("no CUDA device")
+        specs = {}
+        for spec in (sys.argv[2].split(",") if len(sys.argv) > 2 else ["as built"]):
+            name, _, src = spec.partition("=")
+            specs[name] = ((ROOT / src / "finmlkit_tpu_torch" / "csrc" if src else CSRC),
+                           D_VARIANTS.get(name, []))
+        return probe_d(specs)
     if len(sys.argv) > 1 and sys.argv[1] == "G":
         if not torch.cuda.is_available():
             cs.fail("no CUDA device")

@@ -19,13 +19,15 @@ from finmlkit_tpu_torch.bar.indexers import dollar_bar_indexer_q
 from finmlkit_tpu_torch.feature.kernels import structural_break, volume
 from finmlkit_tpu_torch.ops import (event_scan, float_walk, fused_scan, prefix_scan, scan,
                                    segment_hist)
-from finmlkit_tpu_torch.testing import (CSW_FILTER_CASES, CUSUM_BAD, PROFILE_CASES,
+from finmlkit_tpu_torch.testing import (CSW_FILTER_CASES, CUSUM_BAD, FLOAT_WALK_CASES,
+                                       PROFILE_CASES,
                                        PROFILE_EXTRA_CASES,
                                        PROFILE_ROW_CASES, PROFILE_TS, PROFILE_WINDOW,
                                        TILE_CLOSES, adversarial_trades, assert_close,
                                        assert_exact, assert_window_close, assert_within,
-                                       cusum_bad_inputs, hold_float_path,
-                                       csw_filter_case, cusum_recurrence, profile_case,
+                                       cusum_bad_inputs, float_walk_case, hold_float_path,
+                                       csw_filter_case, cusum_recurrence, offgrid_trades,
+                                       profile_case,
                                        profile_rows_case, tile_closes, zeros_and_twos)
 
 pytestmark = pytest.mark.cuda
@@ -857,23 +859,57 @@ def _walks(mode, px, v, thr, mb):
             lambda: float_walk.dollar_walk_plain(px, v, thr, mb))
 
 
+def _route_delta(before):
+    return [a - b for a, b in zip(float_walk.ROUTE_LAUNCHES, before)]
+
+
+def _one_walk(mode, px, v, thr):
+    """The route counters' change of one walk of the stream: the block walk
+    outside the warp step's domain, units for a volume walk of the exact-sum
+    case, else the warp step."""
+    values = (v.double() if mode == "volume" else px * v.double()).cpu().numpy()
+    if not float_walk.in_warp_domain(values, thr):
+        route = float_walk.BLOCK
+    elif mode == "volume" and float_walk.exact_unit(values, thr) is not None:
+        route = float_walk.UNITS
+    else:
+        route = float_walk.WARP
+    return [int(r == route) for r in range(3)]
+
+
+def _dusted(v):
+    """``v`` with one dust trade of 2^-100: its volume walks leave the
+    exact-sum case for the warp step."""
+    v = v.clone()
+    v[v.shape[0] // 2] = 2.0 ** -100
+    return v
+
+
+@pytest.mark.parametrize("dust", [False, True])
 @pytest.mark.parametrize("mode", ["volume", "dollar"])
 @pytest.mark.parametrize("share,cap", [(1 / 2000, None), (1 / 20, None),
                                        (1 / 200_000, None), (1 / 2000, 100),
                                        (1 / 2000, 1), (1 / 2000, 0)])
-def test_float_walk_matches_plain(cuda, mode, share, cap):
+def test_float_walk_matches_plain(cuda, mode, share, cap, dust):
     """Kernel D's closes against its plain loop, exactly, and run to run; one
-    launch a call."""
+    walk a call, by the route the stream calls for (the volume draws in units,
+    with a dust trade by the warp step)."""
     px, v, _ = _off_grid(WALK_N, cuda)
+    if dust:
+        v = _dusted(v)
     values = v.to(torch.float64) if mode == "volume" else px * v.to(torch.float64)
     total = float(values.sum())
     thr = share * total
     mb = int(total / thr) + 2 if cap is None else cap
     kernel, plain = _walks(mode, px, v, thr, mb)
-    before = float_walk.LAUNCHES
+    before, routes = float_walk.LAUNCHES, list(float_walk.ROUTE_LAUNCHES)
     got = kernel()
     torch.cuda.synchronize()
     assert float_walk.LAUNCHES == before + (mb > 0)
+    want_route = _one_walk(mode, px, v, thr) if mb > 0 else [0, 0, 0]
+    assert _route_delta(routes) == want_route
+    if mode == "volume" and mb > 0:
+        assert want_route[float_walk.WARP if dust else float_walk.UNITS] == 1
     want = plain()
     assert_exact(got, want, f"{mode} D vs plain")
     assert_exact(kernel(), got, f"{mode} D run to run")
@@ -884,9 +920,10 @@ def test_float_walk_matches_plain(cuda, mode, share, cap):
 @pytest.mark.parametrize("special", ["negatives", "nan", "inf", "dyadic"])
 @pytest.mark.parametrize("mode", ["volume", "dollar"])
 def test_float_walk_special_values(cuda, mode, special):
-    """D's blocks of 16 values added at once where all are >= 0 and the sum
-    stays below the threshold: negative values, a NaN, an infinity and sums
-    that hit the threshold exactly walk step by step, as the plain loop."""
+    """A negative value, a NaN or an infinity sends the stream to the block
+    walk (the general route); sums that hit the threshold exactly take the
+    warp step (dollar) or units (volume); each route's closes equal the plain
+    loop's."""
     px, v, _ = _off_grid(WALK_N, cuda, seed=37)
     if special == "negatives":
         v[::7] *= -1.0
@@ -900,20 +937,96 @@ def test_float_walk_special_values(cuda, mode, special):
     values = v.to(torch.float64) if mode == "volume" else px * v.to(torch.float64)
     finite = values[torch.isfinite(values)]
     thr = 2.0 if special == "dyadic" else float(finite.abs().sum()) / 5000
+    want_route = ([0, 0, 1] if mode == "volume" else [1, 0, 0]) if special == "dyadic" \
+        else [0, 1, 0]
+    assert _one_walk(mode, px, v, thr) == want_route
     for cap in (WALK_N, 17):
         kernel, plain = _walks(mode, px, v, thr, cap)
+        routes = list(float_walk.ROUTE_LAUNCHES)
         assert_exact(kernel(), plain(), f"{mode} {special} cap {cap}")
+        assert _route_delta(routes) == want_route
 
 
-@pytest.mark.parametrize("n", [1, 2, 2047, 2048, 2049, 4096, 4097, 10_241])
+@pytest.mark.parametrize("thr", [0.0, -1.0, float("inf"), float("nan"), 2.0 ** -961])
+@pytest.mark.parametrize("mode", ["volume", "dollar"])
+def test_float_walk_thresholds_outside_the_warp_step(cuda, mode, thr):
+    """A threshold at most 0, not finite or below 2^-960 takes the block walk."""
+    px, v, _ = _off_grid(20_000, cuda, seed=41)
+    kernel, plain = _walks(mode, px, v, thr, 20_000)
+    routes = list(float_walk.ROUTE_LAUNCHES)
+    assert_exact(kernel(), plain(), f"{mode} thr {thr}")
+    assert _route_delta(routes) == [0, 1, 0]
+
+
+@pytest.mark.parametrize("n", [1, 2, 767, 768, 769, 1535, 1536, 1537, 2047, 2048, 2049,
+                               4096, 4097, 10_241])
 def test_float_walk_chunk_edges(cuda, n):
-    """D's chunks of 2048 trades: a close at every trade (the threshold below
-    every amount) and at none, on both modes, against plain."""
+    """D's tiles of 768 trades and the block walk's chunks of 2048: a close
+    at every trade (the threshold below every amount) and at none, on both
+    modes and on each route (the stream as drawn, with a dust trade, with one
+    amount negated), against plain, with the route counters."""
     px, v, _ = _off_grid(n, cuda, seed=n)
-    for mode in ("volume", "dollar"):
-        for thr in (1e-9, 1e30):
-            kernel, plain = _walks(mode, px, v, thr, n)
-            assert_exact(kernel(), plain(), f"{mode} n {n} thr {thr}")
+    neg = v.clone()
+    neg[n // 2] = -neg[n // 2]
+    for stream, vs in (("drawn", v), ("dust", _dusted(v)), ("negative", neg)):
+        for mode in ("volume", "dollar"):
+            for thr in (1e-9, 1e30):
+                kernel, plain = _walks(mode, px, vs, thr, n)
+                routes = list(float_walk.ROUTE_LAUNCHES)
+                assert_exact(kernel(), plain(), f"{mode} n {n} {stream} thr {thr}")
+                want_route = _one_walk(mode, px, vs, thr)
+                assert _route_delta(routes) == want_route
+                if stream == "negative":
+                    assert want_route == [0, 1, 0]
+
+
+def _warp_case(name, device):
+    px, v, thr_v, thr_d, cap = float_walk_case(name)
+    return (torch.from_numpy(px).to(device), torch.from_numpy(v).to(device), thr_v, thr_d,
+            cap)
+
+
+@pytest.mark.parametrize("chunks", [1, 2, 7, 64])
+@pytest.mark.parametrize("name", FLOAT_WALK_CASES)
+def test_float_walk_warp_streams_match_plain(cuda, name, chunks):
+    """The streams of the CPU model's tests: the volume walk as drawn (units
+    where it is in the exact-sum case), the volume walk with a dust trade by
+    the warp step at each chunk count, and the dollar walk by the warp step,
+    close for close, with the warp step's counts."""
+    px, v, thr_v, thr_d, cap = _warp_case(name, cuda)
+    dv = _dusted(v)
+    st = torch.zeros(len(float_walk.STATS), dtype=torch.int64, device=cuda)
+    routes = list(float_walk.ROUTE_LAUNCHES)
+    got = float_walk._launch(float_walk._VOLUME, None, dv, thr_v, cap, chunks=chunks, stats=st)
+    assert_exact(got, float_walk.volume_walk_plain(dv, thr_v, cap),
+                 f"{name} volume with dust, {chunks}")
+    assert _route_delta(routes) == [1, 0, 0]
+    routes = list(float_walk.ROUTE_LAUNCHES)
+    assert_exact(float_walk._launch(float_walk._VOLUME, None, v, thr_v, cap, chunks=chunks),
+                 float_walk.volume_walk_plain(v, thr_v, cap), f"{name} volume, {chunks}")
+    want_d = float_walk.dollar_walk_plain(px, v, thr_d, cap)
+    assert_exact(float_walk._launch(float_walk._DOLLAR, px, v, thr_d, cap, chunks=chunks),
+                 want_d, f"{name} dollar")
+    assert _route_delta(routes) == [a + b for a, b in zip(_one_walk("volume", px, v, thr_v),
+                                                          [1, 0, 0])]
+    counts = dict(zip(float_walk.STATS, st.tolist()))
+    assert counts["closes"] >= len(got)
+    if chunks == 1:
+        assert counts["unmerged"] == counts["fixed"] == 0
+
+
+@pytest.mark.parametrize("chunks", [1, 33, 132, 528])
+def test_float_walk_volume_chunks_on_a_large_stream(cuda, chunks):
+    """The volume walk of 5M off-grid trades with a dust trade at total / 5000
+    (the warp step) is one set of closes at every chunk count."""
+    px, v = offgrid_trades(5_000_000, 3)
+    v = _dusted(torch.from_numpy(v).to(cuda))
+    thr = float(v.double().sum()) / 5000
+    want = float_walk.volume_walk_plain(v, thr, 6000)
+    routes = list(float_walk.ROUTE_LAUNCHES)
+    assert_exact(float_walk._launch(float_walk._VOLUME, None, v, thr, 6000, chunks=chunks),
+                 want, f"volume at {chunks} chunks")
+    assert _route_delta(routes) == [1, 0, 0]
 
 
 def test_float_range_sums_match_cumsum(cuda):
