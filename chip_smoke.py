@@ -10,8 +10,9 @@ order-flow path of ``bench.py`` config 2 (dollar bars at total dollars /
 40000 -> bar products and medians -> dense footprints -> trade-size
 features), the information-driven bars of config 6 through the kits, the
 time bars' products through every median engine and bar scan, the time
-bars' features, the chain from raw trades to final sample weights, and the
-same month with its prices off every tick grid through the kits' float64 path.
+bars' features, the chain from raw trades to final sample weights, the
+same month with its prices off every tick grid through the kits' float64 path,
+and the month's 1-second klines with their resample and the host medians.
 Phases:
 
 1. environment: torch, CUDA, nvcc, triton, the card's name and power limit;
@@ -158,13 +159,33 @@ Phases:
    walker's cycles; the volume walk's chunks, merges and fix-ups), its plain
    loop timed on the host; stage and end-to-end times, peak device memory.
    S, C and E volume are timed here, S and C on float64 streams, when no
-   earlier phase timed them.
+   earlier phase timed them;
+13. the host-only layers on the month: its 1-second klines as
+   ``data/klines.py AddTimeBarH5`` builds them (``build_klines``, the kit:
+   kernels B and S), through the kernels and through the plain versions, exact,
+   200 bars against numpy, stage times; their resample to 1min, 1h and 1D
+   (``resample``, kernel S twice a call) against its plain version (exact) and
+   a numpy oracle of the JAX resample (OHLC, trades and median exact, volume
+   and vwap within 2^-22), CUDA-event medians of 3 and row counts;
+   ``medians="host"`` (``native/``, g++) against ``"sort"`` on the 1-minute
+   bars, pairs, finals and the kit bit for bit, both timed with the host's
+   thread count; the CLI's parse (``cli/binance2h5.py load_csv_from_zip``
+   and its preprocessing) of a local spot-layout ZIP of the month's first
+   ``--cli-trades`` trades (default 1M; 39171929 is the whole month) in a
+   process of its own, its columns against the text written, exact, with its
+   host seconds and its peak resident memory; where h5py imports, the month
+   saved as its two store months and loaded back equal,
+   ``H5Inspector.inspect_gaps``, ``AddTimeBarH5`` over both months, a
+   ``TimeBarReader.read`` across the month boundary and the CLI offline on
+   that ZIP, each step's host seconds (else one line says h5py does not
+   import). B and S are timed here when no earlier phase timed them.
 
 Run from the repository root: ``python3 chip_smoke.py``; ``--phases 1,2,6``
 runs only the order-flow path, ``--phases 1,2,7`` only the information-driven
 bars, ``--phases 1,2,8`` only the engines, ``--phases 1,2,9`` only the
 features, ``--phases 1,2,10`` only the framework and the profile,
-``--phases 1,2,11`` only the chain, ``--phases 12`` only the off-grid month, and
+``--phases 1,2,11`` only the chain, ``--phases 12`` only the off-grid month,
+``--phases 13`` only the klines, the host medians and the store, and
 ``--profile`` adds, after phase 6, the
 footprint features' own time, a ``torch.profiler`` table of one run of the
 order-flow path and its device idle share. Any failure exits non-zero
@@ -3317,11 +3338,505 @@ def phase_offgrid(card, need):
     return launches, entries
 
 
+# phase 13: the host-only layers: the 1-second klines, their resample, the host
+# medians, and where h5py imports, the store, the klines' reader and the CLI
+KLINE_TIMEFRAMES = ("1min", "1h", "1D")
+KLINE_RTOL = 2.0 ** -22      # volume and vwap against the oracle (tests/test_torch_klines.py)
+CLI_TRADES = 1_000_000       # the CLI's local spot-layout ZIP, by default
+CLI_ROWS = 1 << 21           # rows of the ZIP's CSV made at a time
+# the CLI's parse in a process of its own: its seconds, its peak resident
+# memory above the process's before it (/proc/self/status: VmHWM, or where the
+# kernel keeps none, the largest VmRSS a thread reads every 5 ms), a digest of
+# each column, then the preprocessing of _process_task on those columns
+CLI_PARSE = """
+import hashlib, json, sys, threading, time
+import numpy as np
+from finmlkit_tpu_torch.cli import binance2h5
+
+def kib(key):
+    with open("/proc/self/status") as f:
+        return next((int(ln.split()[1]) for ln in f if ln.startswith(key + ":")), None)
+
+before, high, done = kib("VmRSS"), [0], threading.Event()
+
+def sample():
+    while not done.wait(0.005):
+        high[0] = max(high[0], kib("VmRSS") or 0)
+
+sampler = threading.Thread(target=sample)
+sampler.start()
+t0 = time.perf_counter()
+cols = binance2h5.load_csv_from_zip(sys.argv[1])
+parse_s = time.perf_counter() - t0
+done.set()
+sampler.join()
+hwm = kib("VmHWM")
+how = "VmHWM" if hwm is not None else "VmRSS sampled every 5 ms"
+top = hwm if hwm is not None else max(high[0], kib("VmRSS") or 0)
+peak = None if before is None else (top - before) * 1024
+digest = {k: [str(c.dtype), len(c), hashlib.sha256(c.tobytes()).hexdigest()]
+          for k, c in cols.items()}
+t0 = time.perf_counter()
+month, out, ok, missing, disc = binance2h5._preprocess(cols, sys.argv[2])
+ts = out["timestamp"]
+print(json.dumps({"parse_s": parse_s, "peak": peak, "how": how,
+                  "bytes": sum(c.nbytes for c in cols.values()), "digest": digest,
+                  "preprocess_s": time.perf_counter() - t0, "rows": len(ts),
+                  "sorted": bool(np.all(ts[1:] >= ts[:-1]))}))
+"""
+KLINE_EXACT = ("open", "high", "low", "close", "trades", "median_trade_size")
+
+
+def resample_numpy(ts, cols, f):
+    """The numpy oracle of the JAX package's resample (``finmlkit_tpu/data/
+    klines.py:181-207``) on host columns: groups of ``floor(ts / f) * f`` that
+    start where it changes; first and last non-NaN open and close, high and
+    low without NaNs, volume and trades summed, vwap ``sum(vwap * volume) /
+    sum(volume)`` in float64, and each group's trade-count-weighted median of
+    the seconds' medians by the JAX module's ``w_median`` (an argsort, the
+    running weights, a ``searchsorted`` of half); groups with no open dropped."""
+    key = (ts // f) * f
+    starts = np.flatnonzero(np.r_[True, key[1:] != key[:-1]])
+    ends = np.r_[starts[1:], len(ts)]
+    idx = np.arange(len(ts))
+
+    def pick(x, pos, how):
+        p = how.reduceat(pos, starts)
+        ok = (p >= 0) & (p < len(x))
+        return np.where(ok, x[np.clip(p, 0, len(x) - 1)], np.nan)
+
+    vol = np.nan_to_num(cols["volume"].astype(np.float64))
+    vol_sum = np.add.reduceat(vol, starts)
+    pv = np.nan_to_num(cols["vwap"].astype(np.float64) * cols["volume"].astype(np.float64))
+    sizes, counts = cols["median_trade_size"], cols["trades"]
+    med = np.empty(len(starts), np.float64)
+    for g, (s, e) in enumerate(zip(starts, ends)):
+        order = np.argsort(sizes[s:e])
+        cum = np.cumsum(counts[s:e][order].astype(np.float64))
+        med[g] = np.nan if cum[-1] <= 0 else \
+            sizes[s:e][order][np.searchsorted(cum, cum[-1] * 0.5, side="left")]
+    out = {"timestamp": key[starts],
+           "open": pick(cols["open"], np.where(np.isnan(cols["open"]), len(ts), idx),
+                        np.minimum),
+           "high": np.fmax.reduceat(cols["high"], starts),
+           "low": np.fmin.reduceat(cols["low"], starts),
+           "close": pick(cols["close"], np.where(np.isnan(cols["close"]), -1, idx),
+                         np.maximum),
+           "volume": vol_sum.astype(np.float32),
+           "trades": np.add.reduceat(counts, starts),
+           "vwap": np.divide(np.add.reduceat(pv, starts), vol_sum,
+                             where=vol_sum != 0, out=np.full(len(starts), np.nan)
+                             ).astype(np.float32),
+           "median_trade_size": med.astype(np.float32)}
+    keep = ~np.isnan(out["open"])
+    return {k: v[keep] for k, v in out.items()}
+
+
+def hold_resample(got, want, what):
+    """A resampled frame against another (tensors or numpy): timestamps, OHLC,
+    trades and the median exact, volume and vwap within ``KLINE_RTOL``.
+    Returns the largest relative deviation of volume and vwap."""
+    from finmlkit_tpu_torch.testing import assert_close, assert_exact
+    if list(got) != list(want):
+        fail(f"{what}: columns {list(got)} vs {list(want)}")
+    worst = 0.0
+    for k in want:
+        if k == "timestamp" or k in KLINE_EXACT:
+            assert_exact(got[k], want[k], f"{what} {k}")
+        else:
+            w = np.asarray(want[k].cpu() if hasattr(want[k], "cpu") else want[k], np.float64)
+            err = assert_close(got[k], want[k], rtol=KLINE_RTOL, what=f"{what} {k}")
+            worst = max(worst, err / max(float(np.abs(w).max()), 1e-300))
+    return worst
+
+
+def event_ms(fn, reps=3, device="cuda"):
+    """Median of ``reps`` calls' CUDA-event milliseconds, after one warm call."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def run_klines(tr, ts_first, ts_last, plain=False):
+    """The 1-second bars as ``TimeBarKit(trades, 1.0).build_ohlcv`` builds
+    them, through the functions it calls, on the card's trades ``tr``: the
+    index, then the products and the sort medians (kernels B and S, or their
+    plain versions). Returns the outputs and the stage times (ms, CUDA
+    events)."""
+    import torch
+    from finmlkit_tpu_torch.bar.fused import bar_products_final, bar_scan, median_engine
+    from finmlkit_tpu_torch.bar.indexers import time_bar_indexer
+    marks = []
+
+    def mark():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        marks.append(e)
+
+    mark()
+    clock, ci = time_bar_indexer(tr.timestamps, 1.0, ts_first=ts_first, ts_last_i=ts_last)
+    mark()
+    ohlcv, direc = bar_products_final(
+        tr.ticks, tr.units, ci, tr.sides, tick_size=tr.tick_size,
+        amount_scale=tr.amount_scale, amounts_f32=tr.amounts,
+        scan=bar_scan("rowtail", plain=plain), medians=median_engine("sort", plain=plain))
+    mark()
+    marks[-1].synchronize()
+    stages = {"index": marks[0].elapsed_time(marks[1]),
+              "products+medians": marks[1].elapsed_time(marks[2]),
+              "total": marks[0].elapsed_time(marks[2])}
+    return dict(clock=clock, ci=ci, ohlcv=ohlcv, directional=direc), stages
+
+
+def _digits(a, pad=False):
+    """Nonnegative int64 ``a`` as rows of ASCII digits, a byte each, the
+    leading zeros NUL (or, where ``pad``, the digit 0)."""
+    p = 10 ** np.arange(len(str(int(a.max(initial=0)))) - 1, -1, -1, dtype=np.int64)
+    d = (a[:, None] // p % 10 + ord("0")).astype(np.uint8)
+    if not pad:
+        d[(a[:, None] < p) & (p > 1)] = 0
+    return d
+
+
+def _decimals(units, places):
+    """Nonnegative int64 ``units`` of ``10**-places`` as the ASCII of their
+    decimals, NUL-padded byte rows (``places`` 0: integers)."""
+    if not places:
+        return [_digits(units)]
+    return [_digits(units // 10**places), np.full((len(units), 1), ord("."), np.uint8),
+            _digits(units % 10**places + 10**places, pad=True)[:, 1:]]
+
+
+def spot_zip(path, member, ts, price, amount, side):
+    """The trades as Binance's spot files hold them (no header; id, price,
+    qty, quote_qty, time in ms, is_buyer_maker, is_best_match), the CSV made
+    ``CLI_ROWS`` rows at a time (each field in a fixed-width slot of one byte
+    table, its NUL padding dropped) and deflated into ``member`` of the ZIP at
+    ``path``. The prices lie on the 0.1 grid and the amounts on 1e-5, so the
+    text is exact. Returns the columns a parse of it must give, and the CSV's
+    bytes."""
+    import zipfile
+    ticks = np.rint(price * 10).astype(np.int64)
+    units = np.rint(amount.astype(np.float64) * 1e5).astype(np.int64)
+    want = {"id": np.arange(1, len(ts) + 1, dtype=np.int64), "price": ticks / 10,
+            "qty": units / 1e5, "quote_qty": ticks * units / 1e6,
+            "time": ts // 10**6, "is_buyer_maker": side < 0,
+            "is_best_match": np.ones(len(ts), bool)}
+    comma, size = np.full((1, 1), ord(","), np.uint8), 0
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED, compresslevel=1) as z, \
+            z.open(member, "w", force_zip64=True) as f:
+        for a in range(0, len(ts), CLI_ROWS):
+            b = min(a + CLI_ROWS, len(ts))
+            fields = [_decimals(want["id"][a:b], 0), _decimals(ticks[a:b], 1),
+                      _decimals(units[a:b], 5), _decimals(ticks[a:b] * units[a:b], 6),
+                      _decimals(want["time"][a:b], 0),
+                      [np.where(side[a:b] < 0, b"True", b"False").view(np.uint8)
+                       .reshape(b - a, 5)], [np.full((b - a, 4), np.frombuffer(b"True", np.uint8))]]
+            parts = []
+            for i, field in enumerate(fields):
+                parts += field + [np.repeat(comma if i < len(fields) - 1 else
+                                            np.full((1, 1), ord("\n"), np.uint8), b - a, 0)]
+            text = np.concatenate(parts, axis=1).tobytes().replace(b"\0", b"")
+            size += len(text)
+            f.write(text)
+    return want, size
+
+
+def cli_parse_step(card, zpath, want, month, csv_bytes):
+    """The CLI's parse of the ZIP at ``zpath`` and its preprocessing, in a
+    process of its own (``CLI_PARSE``): every column equal to ``want``, bit
+    for bit, the trades preprocessed sorted. Returns its host seconds."""
+    import hashlib
+    import os
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-c", CLI_PARSE, zpath, month], capture_output=True,
+                         text=True, cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    if run.returncode:
+        fail(f"the CLI's parse exited {run.returncode}: {run.stderr[-2000:]}")
+    got = json.loads(run.stdout.strip().splitlines()[-1])
+    for k, v in want.items():
+        if got["digest"].get(k) != [str(v.dtype), len(v), hashlib.sha256(v.tobytes()).hexdigest()]:
+            fail(f"the CLI's parse: column {k} differs from the text written")
+    if list(got["digest"]) != list(want):
+        fail(f"the CLI's parse: columns {list(got['digest'])}")
+    n = len(want["id"])
+    if not got["sorted"] or not 0.9 * n <= got["rows"] <= n:
+        fail(f"the CLI's preprocessing kept {got['rows']:,} of {n:,} trades")
+    say(f"CLI parse: {n:,} trades in a spot-layout ZIP ({os.path.getsize(zpath) / 1e6:.1f} MB, "
+        f"CSV {csv_bytes / 1e6:.1f} MB), every column == the text written, bit for bit; "
+        f"load_csv_from_zip {got['parse_s']:.2f} s, peak resident "
+        + ("not measured" if got["peak"] is None else f"{got['peak'] / 1e6:.1f} MB")
+        + f" above the process's before it ({got['how']}; columns "
+        f"{got['bytes'] / 1e6:.1f} MB); preprocessing {got['preprocess_s']:.2f} s, "
+        f"{got['rows']:,} trades after the split-trade merge; process wall {wall:.2f} s "
+        f"(host clock) [{card}]")
+    return {"cli parse": got["parse_s"], "cli preprocess": got["preprocess_s"]}
+
+
+def store_steps(card, trades, klines_1s, workdir, zpath, n, device="cuda"):
+    """Phase 13's store steps (where h5py imports), in ``workdir``: the month
+    saved as its store months and loaded back equal, ``H5Inspector.
+    inspect_gaps``, ``AddTimeBarH5`` over every month (its bars equal to the
+    month's own build but at the months' edges), a ``TimeBarReader.read``
+    across the month boundary against ``resample`` of the 1-second read, and
+    the CLI offline on the local spot-layout ZIP at ``zpath`` (in a folder
+    of its own, of the month's first ``n`` trades). Returns the host seconds
+    of each step."""
+    import os
+
+    from finmlkit_tpu_torch.bar.data_model import TradesData
+    from finmlkit_tpu_torch.cli import binance2h5
+    from finmlkit_tpu_torch.data import klines, store
+    from finmlkit_tpu_torch.testing import assert_exact
+    secs = {}
+    cols = trades.data
+    ts = cols["timestamp"]
+    path = os.path.join(workdir, "month.h5")
+    t0 = time.perf_counter()
+    first, last = (np.datetime64(store.month_key_of(t), "M") for t in (ts[0], ts[-1]))
+    bounds = [store.month_bounds(str(m)) for m in np.arange(first, last + 1)]
+    for lo, hi in bounds:
+        a, b = np.searchsorted(ts, [lo, hi])
+        TradesData(ts[a:b], cols["price"][a:b], cols["amount"][a:b], side=cols["side"][a:b],
+                   timestamp_unit="ns").save_h5(path)
+    secs["save"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = store.load_trades_h5(path, enable_multiprocessing=True)
+    secs["load"] = time.perf_counter() - t0
+    for k in cols:
+        assert_exact(back.data[k], cols[k], f"store round trip {k}")
+    t0 = time.perf_counter()
+    gaps = store.H5Inspector(path).inspect_gaps()
+    secs["inspect_gaps"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    done = klines.AddTimeBarH5(path, device=device).process_all()
+    secs["klines"] = time.perf_counter() - t0
+    if not all(done.values()) or len(done) != len(bounds):
+        fail(f"AddTimeBarH5 over the months: {done}")
+    reader = klines.TimeBarReader(path, device=device)
+    stored = {k: v.cpu().numpy() for k, v in reader.read().items()}
+    whole = {k: v.cpu().numpy() for k, v in klines_1s.items()}
+    # a month's bars are the month's own build: equal to the whole month's at
+    # each second both have, but the first of each month, whose trades before
+    # it lie in the month before
+    _, i, j = np.intersect1d(stored["timestamp"], whole["timestamp"], return_indices=True)
+    firsts = np.searchsorted(stored["timestamp"], [lo for lo, _ in bounds])
+    keep = ~np.isin(i, firsts)
+    if keep.sum() < 0.99 * len(whole["timestamp"]):
+        fail(f"{keep.sum():,} stored 1-second bars of {len(whole['timestamp']):,} to compare")
+    for k in klines.KLINE_COLS:
+        assert_exact(stored[k][i[keep]], whole[k][j[keep]], f"stored klines {k}")
+    edge = bounds[0][1]
+    t0 = time.perf_counter()
+    window = (edge - 3600 * 10**9, edge + 3600 * 10**9 - 1)     # the two hours around it
+    got = reader.read(*window, "1min")
+    secs["read"] = time.perf_counter() - t0
+    sec = reader.read(*window)
+    hold_resample(got, klines.resample(sec, "1min"), "the read across the month boundary")
+    minutes = np.unique(sec["timestamp"].cpu().numpy() // (60 * 10**9))
+    if got["timestamp"].shape[0] != len(minutes) or not 100 < len(minutes) <= 120:
+        fail(f"the read across the month boundary gave {got['timestamp'].shape[0]} minutes")
+    # the CLI, offline, on the local spot-layout ZIP at zpath
+    out_dir, month = os.path.dirname(zpath), store.month_key_of(ts[0])
+    t0 = time.perf_counter()
+    binance2h5.orchestrate_symbol("SYNTH", [month], "spot", out_dir, 2, False, device=device)
+    secs["cli"] = time.perf_counter() - t0
+    got = store.load_trades_h5(os.path.join(out_dir, "SYNTH.h5"))
+    if len(got.data["timestamp"]) > n or len(got.data["timestamp"]) < 0.9 * n:
+        fail(f"the CLI stored {len(got.data['timestamp']):,} of {n:,} trades")
+    cli_bars = klines.TimeBarReader(os.path.join(out_dir, "SYNTH.h5"), device=device).read(
+        timeframe="1h")
+    say(f"store: {len(bounds)} months saved and loaded back equal, {len(gaps['month'])} gaps "
+        f"over a minute, {sum(done.values())} months of klines ({len(stored['timestamp']):,} "
+        f"bars, {keep.sum():,} equal to the month's build), the read across the month "
+        f"boundary == resample of its seconds ({len(minutes)} minutes); the CLI offline: "
+        f"{len(got.data['timestamp']):,} of {n:,} trades stored after the split-trade merge, "
+        f"{cli_bars['timestamp'].shape[0]} hours of klines; host s: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()) + f" [{card}]")
+    return secs
+
+
+def phase_klines(card, need, cli_trades=CLI_TRADES):
+    """Phase 13: the month's 1-second klines through the kernels (B, S) and the
+    plain versions, their resample to ``KLINE_TIMEFRAMES`` against its plain
+    version and the numpy oracle, ``medians="host"`` against ``"sort"`` on
+    the 1-minute bars, the CLI's parse of a spot-layout ZIP of the month's
+    first ``cli_trades`` trades, and the store's steps where h5py imports. Returns the
+    path's launches and the ``kernels`` entries of those of ``need`` that no
+    earlier phase timed."""
+    import os
+    import shutil
+    import types
+
+    import torch
+    from finmlkit_tpu_torch import native
+    from finmlkit_tpu_torch.bar import TimeBarKit, TradesData
+    from finmlkit_tpu_torch.bar.fused import bar_products_final, median_engine
+    from finmlkit_tpu_torch.bar.indexers import time_bar_indexer
+    from finmlkit_tpu_torch.data import klines
+    from finmlkit_tpu_torch.ops import fused_scan, prefix_scan
+    from finmlkit_tpu_torch.testing import assert_exact
+    t_phase = time.perf_counter()
+    ts, price, amount, side = synth_trades(N_MONTH)
+    trades = TradesData(ts, price, amount, side=side, timestamp_unit="ns")
+
+    # --- the main path: the 1-second klines (a kit) and their resamples ---
+    klines.resample(klines.build_klines(trades), "1min")     # warm: allocator, caches
+    torch.cuda.synchronize()
+    fused_scan.LAUNCHES = 0
+    prefix_scan.LAUNCHES = prefix_scan.FLOAT_LAUNCHES = 0
+    t0 = time.perf_counter()
+    bars = klines.build_klines(trades)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    frames = {tf: klines.resample(bars, tf) for tf in KLINE_TIMEFRAMES}
+    torch.cuda.synchronize()
+    launches = {"B": fused_scan.LAUNCHES, "S": prefix_scan.LAUNCHES,
+                "S float": prefix_scan.FLOAT_LAUNCHES}
+    if launches["B"] != 1 or launches["S"] != 1 + 2 * len(KLINE_TIMEFRAMES):
+        fail(f"the klines path did not launch B once and S {1 + 2 * len(KLINE_TIMEFRAMES)} "
+             f"times: {launches}")
+
+    # --- step 1: the klines through the kernels and the plain versions ---
+    kit = TimeBarKit(trades, 1.0)
+    tr, args = kit.trades, (kit.trades, int(ts[0]), int(ts[-1]))
+    k_out, st = run_klines(*args)
+    stages = {False: [st], True: []}
+    p_out, st = run_klines(*args, plain=True)
+    stages[True].append(st)
+    for plain in (True, False):
+        stages[plain].append(run_klines(*args, plain=plain)[1])
+    k_st, p_st = ({k: float(np.median([r[k] for r in stages[p]])) for k in st}
+                  for p in (False, True))
+    for key in ("clock", "ci"):
+        assert_exact(k_out[key], p_out[key], f"klines {key}")
+    for part in ("ohlcv", "directional"):
+        for key in k_out[part]:
+            assert_exact(k_out[part][key], p_out[part][key], f"klines {part}.{key}")
+    assert_exact(bars["timestamp"], k_out["clock"][1:], "the kit's klines timestamps")
+    for key in klines.KLINE_COLS:
+        assert_exact(bars[key], k_out["ohlcv"][key], f"the kit's klines {key}")
+    ci, n_bars = k_out["ci"], k_out["ci"].shape[0] - 1
+    if int(ci[0]) != -1 or int(ci[-1]) != N_MONTH - 1 \
+            or int(bars["trades"].sum()) != N_MONTH:
+        fail("the klines do not cover every trade once")
+    q = types.SimpleNamespace(price_ticks=tr.ticks.cpu().numpy(), tick_size=tr.tick_size,
+                              amount_units=tr.units.cpu().numpy(),
+                              amount_scale=tr.amount_scale)
+    check_bars_numpy(k_out, ts, q, amount, side)
+    n_empty = int((bars["trades"] == 0).sum())
+    p_build_s = time.perf_counter()
+    klines.build_klines(trades, plain=True)
+    torch.cuda.synchronize()
+    p_build_s = time.perf_counter() - p_build_s
+    say(f"klines: {n_bars:,} 1-second bars of the month ({n_empty:,} empty), launches "
+        f"{launches}; the kit == its functions, kernel path == plain path, exact; 200 bars "
+        f"== numpy. build_klines {build_s:.2f} s (plain {p_build_s:.2f} s) of host wall, "
+        f"with the kit's host quantization and copy; stage ms, median of 2 (kernel | "
+        f"plain): " + ", ".join(f"{k} {k_st[k]:.2f} | {p_st[k]:.2f}" for k in k_st)
+        + f" [{card}]")
+
+    # --- step 2: the resample, kernel path | plain path | numpy oracle ---
+    host = {k: v.cpu().numpy() for k, v in bars.items()}
+    for tf in KLINE_TIMEFRAMES:
+        f = klines.parse_timeframe(tf)
+        plain = klines.resample(bars, tf, plain=True)
+        for k, v in plain.items():
+            assert_exact(frames[tf][k], v, f"resample {tf} {k} kernel vs plain")
+        t0 = time.perf_counter()
+        oracle = resample_numpy(host["timestamp"], host, f)
+        oracle_s = time.perf_counter() - t0
+        worst = hold_resample(frames[tf], oracle, f"resample {tf} vs numpy")
+        ms = event_ms(lambda: klines.resample(bars, tf))
+        p_ms = event_ms(lambda: klines.resample(bars, tf, plain=True))
+        say(f"resample {tf}: {frames[tf]['timestamp'].shape[0]:,} rows; kernel path == "
+            f"plain path exact, == numpy oracle (OHLC, trades, median exact; volume and "
+            f"vwap within {worst:.3g} of their largest value); {ms:.3f} ms vs plain "
+            f"{p_ms:.3f} ms (CUDA events, median of 3), numpy {oracle_s:.2f} s [{card}]")
+
+    # --- step 3: medians="host" against "sort" on the 1-minute bars ---
+    _, ci60 = time_bar_indexer(tr.timestamps, 60.0, ts_first=int(ts[0]),
+                               ts_last_i=int(ts[-1]))
+    full = (ci60[1:] - ci60[:-1]) > 0
+    pairs = {m: median_engine(m)(tr.amounts, ci60) for m in ("host", "sort")}
+    for i in (0, 1):
+        assert_exact(pairs["host"][i][full], pairs["sort"][i][full], f"host median pair {i}")
+    prod = {m: bar_products_final(tr.ticks, tr.units, ci60, tr.sides,
+                                  tick_size=tr.tick_size, amount_scale=tr.amount_scale,
+                                  amounts_f32=tr.amounts, medians=m) for m in ("host", "sort")}
+    for part in (0, 1):
+        for k, v in prod["sort"][part].items():
+            assert_exact(prod["host"][part][k], v, f"medians host vs sort {k}")
+    host_kit = TimeBarKit(trades, 60.0, medians="host").build_ohlcv()
+    for k, v in prod["sort"][0].items():
+        if k in host_kit:
+            assert_exact(host_kit[k], v, f"the kit with medians='host' {k}")
+    times = {m: event_ms(lambda m=m: median_engine(m)(tr.amounts, ci60))
+             for m in ("host", "sort")}
+    amounts_h, ci_h = tr.amounts.cpu().numpy(), ci60.cpu().numpy()
+    copy_ms = event_ms(lambda: (tr.amounts.cpu(), ci60.cpu()))
+    select = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        native.seg_median_pair(amounts_h, ci_h)
+        select.append((time.perf_counter() - t0) * 1e3)
+    say(f"medians: host == sort on {int(full.sum()):,} non-empty 1-minute bars, bit for bit "
+        f"(pairs, finals, the kit); host {times['host']:.2f} ms ({native.THREADS} threads of "
+        f"{os.cpu_count()} cores; of it the copies to the host {copy_ms:.2f} ms and "
+        f"nth_element {float(np.median(select)):.2f} ms, host clock) vs sort "
+        f"{times['sort']:.2f} ms (CUDA events, median of 3) [{card}]")
+
+    # --- step 4: the CLI's parse of a spot-layout ZIP of the month's first trades ---
+    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                           "chip_smoke_store")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(os.path.join(workdir, "cli"))
+    try:
+        n = min(cli_trades, N_MONTH)
+        month = str(np.datetime64(int(ts[0]), "ns").astype("datetime64[M]"))
+        zpath = os.path.join(workdir, "cli", f"SYNTH-trades-{month}.zip")
+        t0 = time.perf_counter()
+        want, csv_bytes = spot_zip(zpath, f"SYNTH-trades-{month}.csv", ts[:n], price[:n],
+                                   amount[:n], side[:n])
+        say(f"CLI ZIP: {n:,} trades written in {time.perf_counter() - t0:.2f} s (host clock)")
+        cli_parse_step(card, zpath, want, month, csv_bytes)
+        del want
+
+        # --- step 5: the store, the klines' reader and the CLI, where h5py imports ---
+        try:
+            import h5py  # noqa: F401
+        except ImportError as e:
+            say(f"h5py does not import here ({e}): the store, AddTimeBarH5, TimeBarReader "
+                f"and the CLI's writer are not driven on this host")
+        else:
+            store_steps(card, trades, bars, workdir, zpath, n)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    entries = {}
+    if need & {"B", "S"}:      # no earlier phase timed them: at the klines' shapes
+        entries.update(kernels_b_s(card, tr, ci, launches))
+    say(f"phase 13 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return launches, entries
+
+
 def main():
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13",
                     help="comma-separated phases to run (default: all)")
+    ap.add_argument("--cli-trades", type=int, default=CLI_TRADES,
+                    help="trades in phase 13's spot-layout ZIP for the CLI (default "
+                         f"{CLI_TRADES:,}; {N_MONTH} is the whole month)")
     ap.add_argument("--profile", action="store_true",
                     help="after phase 6, time the footprint features alone "
                          "and profile one run of the order-flow path")
@@ -3386,6 +3901,9 @@ def main():
     if 12 in phases:
         need = {"S", "C", "E volume"} - set(kernels)
         merge("offgrid", *phase_offgrid(card, need))
+    if 13 in phases:
+        need = {"B", "S"} - set(kernels)
+        merge("klines", *phase_klines(card, need, args.cli_trades))
     say(f"smoke run: {time.perf_counter() - t_start:.1f} s, the kernels' build "
         f"included")
     if kernels:

@@ -47,6 +47,12 @@ feature framework (``feature.FeatureKit``), ``pipeline`` (bars -> features
 on the device, one readback), ``sampling`` (``cusum_filter``,
 ``z_score_peak_filter``) and ``label`` (``TBMLabel``, ``SampleWeights``).
 
+The host-only layers: ``data`` (the monthly HDF5 trade store in the JAX
+package's layout, and the 1-second klines built and resampled on the card),
+``cli.binance2h5`` (Binance's monthly trades into the store), ``utils.log``
+(the ``FMKT_*`` logger) and ``native`` (the host C++ of ``medians="host"``).
+``h5py`` is imported only where a file is opened.
+
 This package never imports JAX, pandas or ``finmlkit_tpu``.
 """
 from ._version import __version__

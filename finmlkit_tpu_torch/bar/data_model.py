@@ -14,23 +14,23 @@ split executions (``bar/utils.merge_split_trades``), the timestamp resolution
 pandas: its tensors (or numpy arrays) as they are, slicing by bar or by time,
 the ragged views, ``memory_usage``, and ``get_columns`` in place of ``get_df``.
 
-The HDF5 store (``save_h5``, ``load_trades_h5``, ``finmlkit_tpu/data/store.py``)
-is not ported yet.
+``save_h5`` and ``load_trades_h5`` write and read the monthly HDF5 store
+(``data/store.py``), in the JAX package's layout.
 """
 import datetime
-import logging
 from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
 import torch
 
+from ..utils.log import get_logger
 from .utils import (comp_trade_side_vector, merge_split_trades,
                     sorted_footprint_columns)
 
 __all__ = ["TradesData", "FootprintData"]
 
-logger = logging.getLogger(__name__)
+logger = get_logger(__name__)
 
 _UNIT_SCALE = {"s": 1_000_000_000, "ms": 1_000_000, "us": 1_000, "ns": 1}
 _GAP_NS = 60 * 10**9       # id gaps longer than one minute are discontinuities
@@ -166,6 +166,18 @@ class TradesData:
             self._tensors = {key: {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
                                    for k, v in self.data.items() if k != "id"}}
         return self._tensors[key]
+
+    # -- the HDF5 store (data/store.py) ------------------------------------
+    def save_h5(self, filepath: str, **kwargs) -> str:
+        """Write the trades as a month of the store (``store.save_trades_h5``)."""
+        from ..data.store import save_trades_h5
+        return save_trades_h5(self, filepath, **kwargs)
+
+    @classmethod
+    def load_trades_h5(cls, filepath: str, **kwargs) -> "TradesData":
+        """Read trades from the store (``store.load_trades_h5``)."""
+        from ..data.store import load_trades_h5
+        return load_trades_h5(filepath, **kwargs)
 
     # ------------------------------------------------------------------
     @staticmethod

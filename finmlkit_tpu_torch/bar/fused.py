@@ -14,8 +14,9 @@ of the trades. Its stages:
    bar: ``"sort"`` (:func:`median_pairs`: bar ids from kernel S over the
    bar-open marks, one ``torch.sort`` of the composite key ``(bar_id << 32)
    | sortable_bits(amount)``, two closed-form gathers; ``ops/segment.py``),
-   ``"hist"`` (``ops/segment_hist.py``, kernel H) or ``"select"``
-   (``ops/segment_select.py``, kernel F's int32 fill);
+   ``"hist"`` (``ops/segment_hist.py``, kernel H), ``"select"``
+   (``ops/segment_select.py``, kernel F's int32 fill) or ``"host"`` (the
+   threaded ``nth_element`` of ``native/``, on the host);
 3. :func:`bar_finals` converts to float64 and float32 units over the n_bars
    values, in the expression order of ``_fused_packed_final_jit`` and
    ``_assemble_final`` (``finmlkit_tpu/bar/fused.py:526-637``), so the finals
@@ -37,7 +38,7 @@ from ..ops.segment_select import segment_median_pair_select
 
 __all__ = ["bar_products_final", "median_pairs", "bar_finals", "median_engine",
            "median_sort_device", "median_rowsort_device", "median_select_device",
-           "median_hist_device", "gather_planes", "planes_products",
+           "median_hist_device", "median_host", "gather_planes", "planes_products",
            "planes_products_plain", "MEDIAN_ENGINES", "bar_scan", "SCANS"]
 
 def median_pairs(amounts_f32: torch.Tensor, ci: torch.Tensor, *,
@@ -174,8 +175,21 @@ def median_select_device(amounts_f32, ci, *, plain=False):
     return segment_median_pair_select(amounts_f32, ci)
 
 
+def median_host(amounts_f32, ci, *, plain=False):
+    """The host engine (``native.seg_median_pair``, C++ built by ``g++``): the
+    amounts and ``ci`` copied to the host, one ``nth_element`` a bar on its
+    threads, the pair copied back to the amounts' device. It gives the sort
+    engine's brackets on non-empty bars of non-NaN amounts, and 0 on empty
+    bars. It has no plain version: ``plain`` changes nothing."""
+    from .. import native
+    med_a, med_b = native.seg_median_pair(amounts_f32.cpu().numpy(), ci.cpu().numpy())
+    dev = amounts_f32.device
+    return torch.from_numpy(med_a).to(dev), torch.from_numpy(med_b).to(dev)
+
+
 _ENGINES = {"sort": median_sort_device, "rowsort": median_rowsort_device,
-            "hist": median_hist_device, "select": median_select_device}
+            "hist": median_hist_device, "select": median_select_device,
+            "host": median_host}
 MEDIAN_ENGINES = tuple(_ENGINES)
 
 
@@ -183,13 +197,9 @@ def median_engine(name: str, *, plain: bool = False):
     """The median engine called ``name``, as a function ``(amounts_f32, ci)
     -> (med_a, med_b)``: ``"sort"`` (the default; exact for any float),
     ``"rowsort"`` (the same sort), ``"hist"`` or ``"select"`` (exact for
-    nonnegative amounts). ``plain=True`` runs the engine's plain versions.
-    ``"host"`` (the JAX package's threaded native ``nth_element``) is not
-    ported and raises, as does any other name."""
-    if name == "host":
-        raise NotImplementedError(
-            'medians="host" (native nth_element on the host) is not ported: '
-            "ROADMAP.md queue 1, item 10 (host-only layers)")
+    nonnegative amounts), or ``"host"`` (:func:`median_host`, exact for
+    non-NaN amounts). ``plain=True`` runs the engine's plain versions. Any
+    other name raises."""
     if name not in _ENGINES:
         raise ValueError(f"unknown median engine {name!r}; choose one of "
                          f"{MEDIAN_ENGINES}")

@@ -72,12 +72,13 @@ class BarBuilderBase(ABC):
 
     ``medians`` names the bar products' median engine (``bar/fused.py
     median_engine``): "sort" (the default; exact for any amount), "rowsort"
-    (the same sort), "hist" (kernel H) or "select" (kernel F's int32 fill);
-    the last two are exact for nonnegative amounts. ``scan`` names the bar
+    (the same sort), "hist" (kernel H) or "select" (kernel F's int32 fill),
+    exact for nonnegative amounts, or "host" (a threaded ``nth_element`` in
+    C++ on the host, ``native/``). ``scan`` names the bar
     scan: "rowtail" (the default) or "rowtail4" (both kernel B, as the JAX
     kits' two rowtail kernels compute one function) or "planes" (the
     running state of every trade, kernel V, gathered at the bars).
-    An unknown name raises, and so does "host" (not ported). Both name
+    An unknown name raises. Both name
     engines of the quantized path: on trades whose prices sit on no tick
     grid (the float64 path) they do not apply, and a value other than the
     default raises.

@@ -17,18 +17,18 @@ from __future__ import annotations
 import datetime
 import importlib
 import inspect
-import logging
 from typing import Any, Dict, List, Set
 
 import numpy as np
 import torch
 
+from ..utils.log import get_logger
 from ..ops.scan import linear_recurrence
 from .base import (BaseTransform, BinaryOpTransform, ConstantOpTransform,
                    MinMaxOpTransform, UnaryOpTransform)
 from .kernels._rolling import roll_sum, sliding_windows, warmup_nan
 
-logger = logging.getLogger(__name__)
+logger = get_logger(__name__)
 
 _JAX_PREFIX, _PORT_PREFIX = "finmlkit_tpu.", "finmlkit_tpu_torch."
 

@@ -1,7 +1,9 @@
 """Kernels B, S, C, F, E, H, V, P, R, W, G and D on the card against their
 plain versions, the chain of ``chip_smoke.py`` phase 11 (trades to final
-weights) through the kernels against its plain path, and the float64 path of
-trades on no tick grid (kernels D, S and C) through the kits.
+weights) through the kernels against its plain path, the float64 path of
+trades on no tick grid (kernels D, S and C) through the kits, and the host-only
+layers of phase 13: the 1-second klines (B, S) and their resample (S), the
+host medians on card tensors, and the store where h5py imports.
 
 These tests need an NVIDIA GPU and ``nvcc``; elsewhere they skip. The card's
 host has no JAX, so run them there without the suite's conftest:
@@ -1106,3 +1108,98 @@ def test_off_grid_kits_match_plain(cuda):
     kf, pf = k.build_footprints(0.1), p.build_footprints(0.1)
     for key in kf:
         assert_exact(kf[key], pf[key], f"footprints {key}")
+
+
+def _klines_trades(n=400_000, seed=21):
+    """``chip_smoke.synth_trades`` at ``n`` trades, spread over three days so
+    that the seconds have some empty ones, as a ``TradesData``."""
+    import chip_smoke
+    from finmlkit_tpu_torch.bar import TradesData
+    ts, price, amount, side = chip_smoke.synth_trades(n, seed=seed)
+    ts = ts[0] + (ts - ts[0]) * 4       # about 280 ms apart: empty seconds
+    return TradesData(ts, price, amount, side=side, timestamp_unit="ns")
+
+
+@pytest.mark.parametrize("timeframe", ["1s", "7s", "1min", "1h", "1D"])
+def test_resample_matches_plain(cuda, timeframe):
+    """The klines' resample on the card, kernel S for the group ids and the
+    median's running counts, against its plain version on the card (exact)
+    and the numpy oracle of ``chip_smoke.py`` (OHLC, trades and median exact,
+    volume and vwap within 2^-22)."""
+    import chip_smoke
+    from finmlkit_tpu_torch.data import klines
+    bars = klines.build_klines(_klines_trades())
+    assert int((bars["trades"] == 0).sum()) > 100
+    before = prefix_scan.LAUNCHES
+    got = klines.resample(bars, timeframe)
+    assert prefix_scan.LAUNCHES == before + 2
+    plain = klines.resample(bars, timeframe, plain=True)
+    for k, v in plain.items():
+        assert v.device.type == "cuda"
+        assert_exact(got[k], v, f"{timeframe} {k}")
+    host = {k: v.cpu().numpy() for k, v in bars.items()}
+    oracle = chip_smoke.resample_numpy(host["timestamp"], host,
+                                       klines.parse_timeframe(timeframe))
+    chip_smoke.hold_resample(got, oracle, f"resample {timeframe}")
+
+
+def test_build_klines_matches_plain(cuda):
+    """The 1-second klines through kernels B and S against the plain versions
+    on the card, bit for bit."""
+    from finmlkit_tpu_torch.data import klines
+    trades = _klines_trades(seed=22)
+    counts = (fused_scan.LAUNCHES, prefix_scan.LAUNCHES)
+    got = klines.build_klines(trades)
+    assert (fused_scan.LAUNCHES, prefix_scan.LAUNCHES) == (counts[0] + 1, counts[1] + 1)
+    want = klines.build_klines(trades, plain=True)
+    for k, v in want.items():
+        assert_exact(got[k], v, k)
+
+
+@pytest.mark.parametrize("case", [dict(n=200_000, seed=0), dict(n=50_000, seed=3, mean_bar=2),
+                                  dict(n=300_000, seed=5, long_bar=123_456, first=20)])
+def test_host_medians_on_card_tensors(cuda, case):
+    """``medians="host"`` takes card tensors and gives its pair back on the
+    card, equal to the sort engine's on the non-empty bars; the finals of
+    ``bar_products_final`` equal, bit for bit."""
+    from finmlkit_tpu_torch.bar.fused import bar_products_final
+    ticks, units, sides, amounts, ci = (torch.from_numpy(a).to(cuda) for a in
+                                        adversarial_trades(**case))
+    ha, hb = median_engine("host")(amounts, ci)
+    sa, sb = median_engine("sort")(amounts, ci)
+    assert ha.device.type == "cuda"
+    full = (ci[1:] - ci[:-1]) > 0
+    assert_exact(ha[full], sa[full], "med_a")
+    assert_exact(hb[full], sb[full], "med_b")
+    kw = dict(tick_size=0.1, amount_scale=1e-8, amounts_f32=amounts)
+    host = bar_products_final(ticks, units, ci, sides, medians="host", **kw)
+    sort = bar_products_final(ticks, units, ci, sides, **kw)
+    for part in (0, 1):
+        for k, v in sort[part].items():
+            assert_exact(host[part][k], v, k)
+
+
+def test_store_round_trip_on_card(cuda, tmp_path):
+    """Where h5py imports: a store saved and loaded back, its klines built on
+    the card equal to the CPU's, and a resampled read on the card held to the
+    CPU's (the float sums may add in another order)."""
+    pytest.importorskip("h5py")
+    from finmlkit_tpu_torch.data import klines, store
+    trades = _klines_trades(n=200_000, seed=23)
+    path = str(tmp_path / "s.h5")
+    trades.save_h5(path)
+    back = store.load_trades_h5(path)
+    for k, v in trades.data.items():
+        assert_exact(back.data[k], v, k)
+    cpu_path = str(tmp_path / "cpu.h5")
+    trades.save_h5(cpu_path)
+    assert all(klines.AddTimeBarH5(path).process_all().values())
+    assert all(klines.AddTimeBarH5(cpu_path, device="cpu").process_all().values())
+    import chip_smoke
+    card, cpu = klines.TimeBarReader(path), klines.TimeBarReader(cpu_path, device="cpu")
+    got, want = card.read(), cpu.read()
+    assert got["timestamp"].device.type == "cuda"
+    for k, v in want.items():
+        assert_exact(got[k], v, k)
+    chip_smoke.hold_resample(card.read(timeframe="1min"), cpu.read(timeframe="1min"),
+                             "the card's 1min read vs the CPU's")

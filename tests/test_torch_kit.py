@@ -231,8 +231,6 @@ def test_kit_engines_match_jax_fused_path(trades, monkeypatch, medians, scan):
 
 def test_kit_engine_and_scan_names_are_checked(trades):
     ts, px, amt, side = trades
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kit.TimeBarKit(ts, px, amt, side, 30.0, device="cpu", medians="host")
     with pytest.raises(ValueError, match="median engine"):
         kit.TimeBarKit(ts, px, amt, side, 30.0, device="cpu", medians="nth_element")
     with pytest.raises(ValueError, match="bar scan"):
@@ -240,14 +238,14 @@ def test_kit_engine_and_scan_names_are_checked(trades):
     pk = kit.TimeBarKit(ts, px, amt, side, 30.0, device="cpu")
     ref = pk.build_ohlcv()
     t = pk.trades
-    for bad, err in (("host", NotImplementedError), ("radix", ValueError)):
-        with pytest.raises(err):
-            fused.bar_products_final(t.ticks, t.units, pk._ci, t.sides,
-                                     tick_size=t.tick_size, amount_scale=t.amount_scale,
-                                     amounts_f32=t.amounts, medians=bad)
-    # rowtail4 is kernel B as rowtail is; plain=True runs the plain engines
+    with pytest.raises(ValueError, match="median engine"):
+        fused.bar_products_final(t.ticks, t.units, pk._ci, t.sides,
+                                 tick_size=t.tick_size, amount_scale=t.amount_scale,
+                                 amounts_f32=t.amounts, medians="radix")
+    # rowtail4 is kernel B as rowtail is; plain=True runs the plain engines;
+    # "host" is the threaded nth_element of finmlkit_tpu_torch/native
     for kw in (dict(scan="rowtail4"), dict(medians="select", plain=True),
-               dict(medians="hist", scan="planes", plain=True)):
+               dict(medians="hist", scan="planes", plain=True), dict(medians="host")):
         got = kit.TimeBarKit(ts, px, amt, side, 30.0, device="cpu", **kw).build_ohlcv()
         for c in ref:
             assert_exact(got[c], ref[c], f"{kw} {c}")

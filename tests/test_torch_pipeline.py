@@ -162,8 +162,12 @@ def test_import_leaves_out_jax_and_pandas():
         "import finmlkit_tpu_torch.bar.data_model, finmlkit_tpu_torch.bar.utils\n"
         "import finmlkit_tpu_torch.label, finmlkit_tpu_torch.label.kit\n"
         "import finmlkit_tpu_torch.sampling, finmlkit_tpu_torch.pipeline\n"
+        "import finmlkit_tpu_torch.data, finmlkit_tpu_torch.data.store\n"
+        "import finmlkit_tpu_torch.data.klines, finmlkit_tpu_torch.cli.binance2h5\n"
+        "import finmlkit_tpu_torch.utils, finmlkit_tpu_torch.utils.log\n"
+        "import finmlkit_tpu_torch.native\n"
         "new = {m.split('.')[0] for m in set(sys.modules) - before}\n"
-        "bad = new & {'jax', 'jaxlib', 'pandas', 'finmlkit_tpu'}\n"
+        "bad = new & {'jax', 'jaxlib', 'pandas', 'finmlkit_tpu', 'h5py'}\n"
         "assert 'torch' in sys.modules and not bad, bad\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
