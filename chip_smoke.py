@@ -178,14 +178,37 @@ Phases:
    ``H5Inspector.inspect_gaps``, ``AddTimeBarH5`` over both months, a
    ``TimeBarReader.read`` across the month boundary and the CLI offline on
    that ZIP, each step's host seconds (else one line says h5py does not
-   import). B and S are timed here when no earlier phase timed them.
+   import). B and S are timed here when no earlier phase timed them;
+14. the parallel layer (``finmlkit_tpu_torch/parallel``): kernel E from the
+   adversarial entry states of ``testing.E_ENTRY_CASES`` at 1, the default and
+   132 chunks and kernel D from entry sums on each route (the exit sum of a
+   stream's first third, one ulp below the threshold), against their plain
+   versions, closes and exit states bit for bit; E's four scans and D's two
+   walks on the month cut at the ranks' span edges, each span from the state
+   the kernel left, against plain from the same states (CUSUM's states
+   within 1e-12 of lam) and against one scan; then the month through the
+   sharded layer on ``--ranks`` (default 4) gloo ranks sharing the card
+   (``parallel/dryrun.py month_path``): the seven indexers (time, tick,
+   volume in units and in float64, dollar in units and in float64, CUSUM,
+   imbalance, run), the time bars' products, trade-size features and
+   medians, an EWMA, the triple barrier sharded over CUSUM events with its
+   weights, and the footprints and rolling profile of the first 7 days'
+   dollar bars, each stage timed on every rank, the ring's wall beside one
+   device's scan, the collectives' bytes; rank 0 holds every output to one
+   device (closes, integers, prices, medians, footprints, labels, weights
+   bit for bit, the float sums within ``testing.hold_float_path``'s bounds,
+   the profile's pct within 1e-12), every rank's outputs equal, the time
+   indexer and the volume ring again with every collective staged through
+   pinned host memory; one nccl rank's closes equal the gloo ranks'. Four
+   ranks sharing one card measure no scaling.
 
 Run from the repository root: ``python3 chip_smoke.py``; ``--phases 1,2,6``
 runs only the order-flow path, ``--phases 1,2,7`` only the information-driven
 bars, ``--phases 1,2,8`` only the engines, ``--phases 1,2,9`` only the
 features, ``--phases 1,2,10`` only the framework and the profile,
 ``--phases 1,2,11`` only the chain, ``--phases 12`` only the off-grid month,
-``--phases 13`` only the klines, the host medians and the store, and
+``--phases 13`` only the klines, the host medians and the store,
+``--phases 14`` only the parallel layer (``--ranks`` its gloo ranks), and
 ``--profile`` adds, after phase 6, the
 footprint features' own time, a ``torch.profiler`` table of one run of the
 order-flow path and its device idle share. Any failure exits non-zero
@@ -319,18 +342,9 @@ def fail(msg):
 
 
 def synth_trades(n, seed=0, rounded=True):
-    """The synthetic month of bench.py:78-86 (about 32 days at 70 ms mean
-    spacing for 39.17M trades); ``rounded=False`` leaves the prices off the
-    0.1 grid (the same draws, the round left out)."""
-    r = np.random.default_rng(seed)
-    dt = (r.exponential(70.0, n) * 1e6).astype(np.int64)
-    ts = 1_751_328_000_000_000_000 + np.cumsum(dt)  # 2025-07-01 epoch ns
-    price = 107_000.0 * np.exp(np.cumsum(r.normal(0, 2e-5, n)))
-    if rounded:
-        price = np.round(price, 1)
-    amount = np.maximum(np.round(r.lognormal(-4.0, 1.5, n), 5), 1e-5).astype(np.float32)
-    side = np.where(r.random(n) < 0.5, 1, -1).astype(np.int8)
-    return ts, price, amount, side
+    """The synthetic month of bench.py:78-86 (``testing.bench_trades``)."""
+    from finmlkit_tpu_torch.testing import bench_trades
+    return bench_trades(n, seed, rounded)
 
 
 def cuda_ms(fn, reps=5):
@@ -1131,13 +1145,9 @@ def trace_device_ms(fn):
 
 
 def info_sigma(n, seed=0):
-    """The CUSUM bars' sigma: 2e-5 a trade (bench.py:861), NaN at the first
-    1,000 trades and at 1% of the trades drawn from the seed, so that kernel
-    F has gaps to fill."""
-    sigma = np.full(n, CUSUM_SIGMA)
-    sigma[:1000] = np.nan
-    sigma[np.random.default_rng(seed).random(n) < 0.01] = np.nan
-    return sigma
+    """The CUSUM bars' sigma (``testing.cusum_sigma`` at 2e-5, bench.py:861)."""
+    from finmlkit_tpu_torch.testing import cusum_sigma
+    return cusum_sigma(n, CUSUM_SIGMA, seed)
 
 
 def info_kits(month, device="cuda", plain=False):
@@ -3829,11 +3839,364 @@ def phase_klines(card, need, cli_trades=CLI_TRADES):
     return launches, entries
 
 
+
+# phase 14: the time-sharded layer (finmlkit_tpu_torch/parallel)
+MESH_RANKS = 4               # gloo ranks sharing the card
+MESH_FP_DAYS = 7             # the footprints' leading days (the month's grid: see PERF.md)
+MESH_SPEC = dict(n=N_MONTH, seed=0, sigma=CUSUM_SIGMA, volume_bars=VOLUME_BARS,
+                 dollar_bars=DOLLAR_BARS, interval=60.0, ticks=INFO_TICKS,
+                 floor=CUSUM_FLOOR, mult=CUSUM_MULT, theta=IMB_THETA, run=RUN_EMA,
+                 barrier_s=1800.0, fp_days=MESH_FP_DAYS, profile_window=PROFILE_WINDOW,
+                 stage=True)
+ENTRY_N = 2048 * 200 + 17    # kernel E's adversarial entry states: 132 chunks of tiles
+WALK_ENTRY_N = 1_000_000     # kernel D's streams for entry sums
+
+
+def check_e_entry(card, dev="cuda"):
+    """Kernel E from the adversarial entry states of ``testing.E_ENTRY_CASES``
+    at 1, the default and 132 chunks against its plain version: closes and
+    exit states bit for bit. Returns the number of cases held."""
+    import torch
+    from finmlkit_tpu_torch.ops import event_scan as es
+    from finmlkit_tpu_torch.testing import E_ENTRY_CASES, assert_exact, e_entry_case, same_state
+    held = 0
+    for name in E_ENTRY_CASES:
+        mode, start, kw, plain = e_entry_case(name, ENTRY_N, dev)
+        want, want_end = plain(ENTRY_N)
+        for chunks in (1, None, 132):
+            if dev == "cpu" and mode == es._IMBALANCE_MAP:   # a rehearsal: E's models
+                got, _, end = es._map_scan_model(ENTRY_N, start, ENTRY_N, 2048, x=kw["x"],
+                                                 e_t=kw["e_t"], e_r=kw["e_r"],
+                                                 entry=kw["entry"], exit_state=True)
+            elif dev == "cpu":
+                got, _, end = es._chunked_scan_model(mode, ENTRY_N, start, ENTRY_N,
+                                                     chunks or 7, exit_state=True, **kw)
+            else:
+                got, end = es._launch(mode, ENTRY_N, start, ENTRY_N, torch.device(dev),
+                                      chunks=chunks, exit_state=True, **kw)
+            assert_exact(got, want, f"E {name} at {chunks} chunks")
+            if not same_state(end, want_end):
+                fail(f"E {name} at {chunks} chunks: exit state {end} != plain {want_end}")
+            held += 1
+    say(f"kernel E from adversarial entry states ({', '.join(E_ENTRY_CASES)}) at 1, the "
+        f"default and 132 chunks == plain: closes and exit states bit for bit, {held} "
+        f"cases [{card}]")
+    return held
+
+
+def check_d_entry(card, dev="cuda"):
+    """Kernel D from entry sums on each route (``testing.D_ENTRY_CASES``): the
+    exit sum of the stream's first third, and one ulp below the threshold,
+    against the plain loop, closes and exit sums bit for bit, the split walk
+    equal to the whole walk. Returns the number of cases held."""
+    import torch
+    from finmlkit_tpu_torch.ops import float_walk as fw
+    from finmlkit_tpu_torch.testing import D_ENTRY_CASES, assert_exact, d_entry_case, same_state
+    held, n = 0, WALK_ENTRY_N
+    for name in D_ENTRY_CASES:
+        mode, px, v, thr = d_entry_case(name, n, dev)
+        walk = fw.volume_walk if mode == "volume" else fw.dollar_walk
+        plain = fw.volume_walk_plain if mode == "volume" else fw.dollar_walk_plain
+        args = (lambda a, b: (v[a:b],)) if mode == "volume" else (lambda a, b: (px[a:b], v[a:b]))
+        k = n // 3
+        whole, whole_end = walk(*args(0, n), thr, n, exit_state=True)
+        head, mid = walk(*args(0, k), thr, n, exit_state=True)
+        for entry, state in (("split", mid), ("below", float(np.nextafter(thr, 0.0)))):
+            before = list(fw.ROUTE_LAUNCHES)
+            got, end = walk(*args(k, n), thr, n, state=state, exit_state=True)
+            routes = [a - b for a, b in zip(fw.ROUTE_LAUNCHES, before)] or [0]
+            want, want_end = plain(*args(k, n), thr, n, state=state, exit_state=True)
+            assert_exact(got, want, f"D {name} from {entry}")
+            if not same_state(end, want_end):
+                fail(f"D {name} from {entry}: exit sum {end} != plain {want_end}")
+            if entry == "split":
+                assert_exact(torch.cat([head, got + k]), whole, f"D {name} split vs whole")
+                if not same_state(end, whole_end):
+                    fail(f"D {name}: the split walk's exit sum {end} != the whole's")
+            held += 1
+            say(f"kernel D {name} from the {entry} entry sum: route "
+                f"{dict(zip(('warp step', 'block walk', 'units'), routes))}, == plain")
+    say(f"kernel D from entry sums on every route == plain, the split walks == the whole "
+        f"walks: {held} cases [{card}]")
+    return held
+
+
+def month_shard_edges(card, ranks, dev="cuda"):
+    """Kernels E and D on the month cut at the ranks' span edges: each span
+    scanned from the state the kernel left at the end of the span before,
+    against the plain version from the same state (closes and exit states bit
+    for bit; CUSUM's float64 sums round otherwise in the plain version, so its
+    states are held within 1e-12 of lam), timed on the card (each span's
+    entered scan after a warm call, CUDA events; the plain versions on the
+    host clock). Returns
+    ``{scan: (span ms, whole-month ms, the spans equal one scan, the plain
+    versions' ms over the spans)}``."""
+    import torch
+    from finmlkit_tpu_torch.bar.indexers import cusum_scan_inputs
+    from finmlkit_tpu_torch.bar.quantize import quantize_trades
+    from finmlkit_tpu_torch.ops import event_scan as es
+    from finmlkit_tpu_torch.ops import float_walk as fw
+    from finmlkit_tpu_torch.testing import assert_exact, same_state
+    ts, price, amount, side = synth_trades(N_MONTH)
+    q = quantize_trades(price, amount)
+    T = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa: E731
+    tt, pt, at, st = T(ts), T(price), T(amount), T(side)
+    rets, lam, cc, fv, _ = cusum_scan_inputs(tt, pt, T(info_sigma(N_MONTH)), CUSUM_FLOOR,
+                                             CUSUM_MULT)
+    w = st.to(torch.float64)
+    units = T(q.amount_units)
+    thr_u = math.ceil(float(amount.astype(np.float64).sum()) / VOLUME_BARS / q.amount_scale)
+    vol_thr = float(amount.astype(np.float64).sum()) / VOLUME_BARS
+    dol_thr = float((price * amount.astype(np.float64)).sum()) / DOLLAR_BARS
+    run = tuple(RUN_EMA[k] for k in ("expected_ticks_init", "expected_rate_init",
+                                     "alpha_ticks", "alpha_rate"))
+    cuts = [N_MONTH * r // ranks for r in range(ranks + 1)]
+    n = N_MONTH
+
+    def cusum(a, b, state, plain):
+        f = es.cusum_scan_plain if plain else es.cusum_scan
+        start = max(fv - a, -1)
+        if start + 1 >= b - a:
+            return torch.zeros(0, dtype=torch.int64, device=dev), state
+        return f(rets[a:b], lam[a:b], cc[a:b], start, n, state=state, exit_state=True)
+
+    def info(run_mode):
+        def go(a, b, state, plain):
+            f = es.info_scan_plain if plain else es.info_scan
+            args = (w[a:b], *(run if run_mode else (1.0, IMB_THETA, 0.0, 0.0)), n, run_mode)
+            kw = {} if plain else {"integral": True}
+            st0 = None if state is None else state[:4] + (state[4] - a,)
+            got, end = f(*args, state=st0, first_closes=a > 0, exit_state=True, **kw)
+            return got, end[:4] + (end[4] + a,)
+        return go
+
+    def volume(a, b, state, plain):
+        f = es.volume_scan_plain if plain else es.volume_scan
+        return f(units[a:b], thr_u, n, state=state, first_closes=a > 0, exit_state=True)
+
+    def walk(mode):
+        def go(a, b, state, plain):
+            if mode == "volume":
+                f = fw.volume_walk_plain if plain else fw.volume_walk
+                return f(at[a:b], vol_thr, n, state=state, exit_state=True)
+            f = fw.dollar_walk_plain if plain else fw.dollar_walk
+            return f(pt[a:b], at[a:b], dol_thr, n, state=state, exit_state=True)
+        return go
+
+    scans = {"E cusum": cusum, "E imbalance": info(False), "E run": info(True),
+             "E volume": volume, "D volume": walk("volume"), "D dollar": walk("dollar")}
+    out = {}
+    for name, go in scans.items():
+        state, span_ms, whole_ms, plain_ms = None, [], 0.0, 0.0
+        parts = []
+        for r in range(ranks):
+            a, b = cuts[r], cuts[r + 1]
+            go(a, b, state, False)          # warm: the allocator's blocks of this size
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            got, end = go(a, b, state, False)
+            e1.record()
+            e1.synchronize()
+            span_ms.append(e0.elapsed_time(e1))
+            t0 = time.perf_counter()
+            want, want_end = go(a, b, state, True)
+            plain_ms += (time.perf_counter() - t0) * 1e3
+            if name == "E cusum":
+                g, wv = got.cpu().numpy(), want.cpu().numpy()
+                lam_at = lam[a:b].cpu().numpy()
+                if not np.array_equal(g, wv):
+                    fail(f"{name}, span {r}: {len(g)} closes != plain's {len(wv)}")
+                if max(abs(x - y) for x, y in zip(end, want_end)) > 1e-12 * float(lam_at.min()):
+                    fail(f"{name}, span {r}: exit state {end} far from plain's {want_end}")
+            else:
+                assert_exact(got, want, f"{name} span {r}")
+                if not same_state(end, want_end):
+                    fail(f"{name}, span {r}: exit state {end} != plain {want_end}")
+            parts.append(got + a)
+            state = end
+        go(0, n, None, False)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        whole, whole_end = go(0, n, None, False)
+        e1.record()
+        e1.synchronize()
+        whole_ms = e0.elapsed_time(e1)
+        split_same = torch.equal(torch.cat(parts), whole) and same_state(state, whole_end)
+        if not split_same and not name.startswith("E cusum"):
+            fail(f"{name}: the month scanned in {ranks} spans differs from one scan")
+        out[name] = (span_ms, whole_ms, split_same, plain_ms)
+        say(f"{name} on the month in {ranks} spans, each from the kernel's state at the "
+            f"span before: == plain from the same states; span ms "
+            f"{[round(x, 3) for x in span_ms]} (sum {sum(span_ms):.3f}) vs one scan "
+            f"{whole_ms:.3f} ms; the spans' closes and exit state "
+            f"{'==' if split_same else '!='} one scan's [{card}]")
+    return out
+
+
+def timed_entry(key, launches, run, plain, nbytes, ops, peak=PEAK_OPS_PER_S, lib=None,
+                rtol=None):
+    """A ``kernels`` entry for a kernel no earlier phase timed: ``run`` against
+    ``plain`` (exact, or within ``rtol``), both timed by CUDA events, and
+    ``lib`` (one PyTorch call) where given."""
+    from finmlkit_tpu_torch.testing import assert_close, assert_exact
+    got, want = run(), plain()
+    got, want = (got if isinstance(got, tuple) else (got,)), (
+        want if isinstance(want, tuple) else (want,))
+    err = 0.0
+    for g, w in zip(got, want):
+        if rtol is None:
+            assert_exact(g, w, key)
+        else:
+            err = max(err, assert_close(g, w, rtol=rtol, what=key))
+    return kernel_entry(key, launches, err, cuda_ms(run, reps=3), cuda_ms(plain, reps=1),
+                        bound(nbytes, ops, peak), None if lib is None else cuda_ms(lib))
+
+
+def mesh_entries(card, need, launches, edges):
+    """``kernels`` entries for the sharded path's kernels no earlier phase
+    timed (phase 14 alone): E's scans and D from the month's entered scans
+    (the whole month, against the plain versions over the spans); S, C and F
+    on the month's streams; R on a recurrence over every 1000th price; G on
+    the first 2,000 dollar bars' rolling profile of the first days."""
+    import torch
+    from finmlkit_tpu_torch.bar import aggregate, footprint, indexers
+    from finmlkit_tpu_torch.bar.quantize import quantize_trades
+    from finmlkit_tpu_torch.feature.kernels import volume
+    from finmlkit_tpu_torch.ops import prefix_scan, scan
+    n = N_MONTH
+    ts, price, amount, side = synth_trades(n)
+    entries = {}
+    for key in ("E cusum", "E imbalance", "E run", "E volume", "D"):
+        if key in need:
+            spans, whole, _, plain = edges["D dollar" if key == "D" else key]
+            nbytes = {"E cusum": 17, "D": 12}.get(key, 8) * n
+            entries[key] = kernel_entry(key, launches[key], 0.0, whole, plain,
+                                        bound(nbytes, 10 * n), None)
+    a64 = torch.from_numpy(amount.astype(np.float64)).cuda()
+    if "S" in need:
+        entries["S"] = timed_entry("S", launches["S"], lambda: prefix_scan.fast_cumsum(a64),
+                                   lambda: prefix_scan.fast_cumsum_plain(a64), 16 * n, n,
+                                   PEAK_F64_OPS_PER_S, lambda: torch.cumsum(a64, 0),
+                                   rtol=1e-12)
+    if "C" in need:
+        x = torch.stack([a64 * (k + 1) for k in range(7)])
+        entries["C"] = timed_entry("C", launches["C"], lambda: prefix_scan.fast_cumsum_cols(x),
+                                   lambda: prefix_scan.fast_cumsum_cols_plain(x),
+                                   16 * 7 * n, 7 * n, PEAK_F64_OPS_PER_S,
+                                   lambda: torch.cumsum(x, 1), rtol=1e-12)
+    if "F" in need:
+        sig = torch.from_numpy(info_sigma(n)).cuda()
+        valid = ~torch.isnan(sig)
+        entries["F"] = timed_entry("F", launches["F"], lambda: prefix_scan.fast_ffill(sig, valid),
+                                   lambda: prefix_scan.fast_ffill_plain(sig, valid), 17 * n, n)
+    if "R" in need:
+        y = torch.from_numpy(price[::1000].copy()).cuda()
+        entries["R"] = timed_entry("R", launches["R"], lambda: scan.linear_recurrence(0.9, y),
+                                   lambda: scan.linear_recurrence_plain(0.9, y),
+                                   16 * y.shape[0], 2 * y.shape[0], PEAK_F64_OPS_PER_S,
+                                   rtol=1e-12)
+    if "G" in need:
+        m = int(np.searchsorted(ts, ts[0] + int(MESH_FP_DAYS * 86_400e9)))
+        q = quantize_trades(price[:m], amount[:m])
+        T = lambda v: torch.from_numpy(np.ascontiguousarray(v)).cuda()  # noqa: E731
+        dol_thr = float((price * amount.astype(np.float64)).sum()) / DOLLAR_BARS
+        _, ci = indexers.dollar_bar_indexer_q(T(ts[:m]), T(q.price_ticks), T(q.amount_units),
+                                              dol_thr, q.tick_size, q.amount_scale)
+        o = aggregate.comp_bar_ohlcv(T(price[:m]), T(amount[:m]), ci)
+        lo, hi = footprint.bar_levels(o["low"], o["high"], q.tick_size)
+        fp = footprint.comp_bar_footprints(T(price[:m]), T(amount[:m]), ci, T(side[:m]),
+                                           q.tick_size, o["low"], o["high"], 3.0,
+                                           max_levels=int((hi - lo + 1).max()))
+        k = min(2000, ci.shape[0] - 1)
+        tb, low, nlev, buy, sell = volume._footprint_tensors(
+            T(ts[:m])[ci[1:k + 1]], fp["low_level"][:k], fp["n_levels"][:k],
+            fp["buy_volumes"][:k], fp["sell_volumes"][:k], "cuda")
+        start, first, mx = volume._rolling_sizes(tb, low, nlev, buy.shape[1],
+                                                 int(PROFILE_WINDOW * 1e9), None)
+        args = (start, first, low, nlev, buy, sell, mx, 27, PROFILE_VA / 100.0)
+        entries["G"] = timed_entry("G", launches["G"], lambda: volume._rolling(*args),
+                                   lambda: volume.volume_profile_rolling_plain(*args),
+                                   8 * buy.numel() + 16 * k, 10 * buy.numel(), rtol=1e-12)
+    for key, e in entries.items():
+        say(f"kernel {key} (phase 14 alone): {e['ms']:.3f} ms vs plain {e['plain_ms']:.3f} "
+            f"ms, bound {e['bound_ms']:.4f} ms [{card}]")
+    return entries
+
+
+def phase_mesh(card, need, ranks=MESH_RANKS, dev="cuda"):
+    from finmlkit_tpu_torch.parallel import dryrun
+    from finmlkit_tpu_torch.parallel.mesh import spawn_mesh
+    t_phase = time.perf_counter()
+    e_held, d_held = check_e_entry(card, dev), check_d_entry(card, dev)
+    edges = month_shard_edges(card, ranks, dev)
+    # the rank path: the month through the sharded layer, gloo ranks on the card
+    t0 = time.perf_counter()
+    res = spawn_mesh(dryrun.month_path, ranks, args=(MESH_SPEC,), backend="gloo",
+                     device=dev, timeout=600, deadline=900)
+    wall = time.perf_counter() - t0
+    r0 = res[0]
+    if r0["bad"]:
+        fail(f"the sharded layer on {ranks} ranks differs from one device: {r0['bad']}")
+    if any(r["digests"] != r0["digests"] for r in res):
+        fail("the ranks' replicated outputs differ")
+    if dev != "cpu" and not all(r["staged_same"] for r in res):
+        fail("the indexers with every collective staged through host memory differ")
+    launches = {k: sum(r["launches"][k] for r in res) for k in r0["launches"]}
+    missing = [k for k, v in launches.items() if k != "S float" and v < 1]
+    if missing and dev != "cpu":
+        fail(f"kernels of the sharded path did not launch: {missing} ({launches})")
+    say(f"mesh: {ranks} gloo ranks on one card, {wall:.1f} s (spawn, CUDA contexts and "
+        f"kernel load included); bars {r0['counts']}; every output == one device (closes, "
+        f"integers, prices, medians, footprints of the first {MESH_FP_DAYS} days "
+        f"({r0['footprint_trades']:,} trades, grid {r0['grid']}), labels, weights, the "
+        f"profile's levels exact, pct within 1e-12, float sums within their bounds, largest "
+        f"share {max(r0['shares'].values()):.3g}); replicated on every rank; the time "
+        f"indexer and the volume ring with every collective staged through pinned host "
+        f"memory give the same closes ({res[0].get('staged_bytes', 0):,} bytes staged on "
+        f"rank 0); "
+        f"launches {launches} [{card}]")
+    for r in res:
+        say(f"mesh rank {r['rank']} stage seconds: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in r["seconds"].items()))
+    say("mesh ring (rank 0's scan s, the ring's wall s) beside one device's indexer s: "
+        + ", ".join(f"{k} ({v[0]:.3f}, {v[1]:.3f}) vs {r0['single_seconds'].get(f'indexer {k}', float('nan')):.3f}"
+                    for k, v in r0["ring"].items()))
+    say("mesh bytes moved by rank 0's collectives: " + json.dumps(r0["bytes"]))
+    say(f"mesh: {ranks} ranks sharing one card measure no scaling (one card's SMs and "
+        f"memory, the collectives through gloo on its host); N-GPU and N-host scaling are "
+        f"not measured [{card}]")
+    # one nccl rank: the same entry points on a world of one
+    one = spawn_mesh(dryrun.month_path, 1, args=(dict(MESH_SPEC, only="indexers",
+                                                      stage=False),),
+                     backend="nccl" if dev != "cpu" else "gloo", device=dev, timeout=600,
+                     deadline=600)[0]
+    same = {k: one["digests"][k] == r0["digests"][k] for k in one["digests"]}
+    if not all(same.values()):
+        fail(f"one nccl rank's closes differ from {ranks} gloo ranks': {same}")
+    say(f"mesh: one nccl rank gives the same closes as {ranks} gloo ranks "
+        f"({len(same)} indexers) [{card}]")
+    # the kernels line: the path's kernels, timed here where no earlier phase did
+    entries = mesh_entries(card, need, launches, edges) if need else {}
+    extra = {}
+    for key, name in (("E cusum", "E cusum"), ("E imbalance", "E imbalance"),
+                      ("E run", "E run"), ("E volume", "E volume"), ("D", "D dollar")):
+        spans, whole, split_same, _ = edges[name]
+        extra[key] = dict(entry_state_span_ms=spans, entry_state_whole_ms=whole,
+                          spans_equal_one_scan=split_same)
+    extra["E cusum"]["entry_states_held"] = e_held
+    extra["D"]["entry_sums_held"] = d_held
+    extra["D"]["volume_entry_state_span_ms"] = edges["D volume"][0]
+    say(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
+    return launches, entries, extra
+
+
 def main():
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14",
                     help="comma-separated phases to run (default: all)")
+    ap.add_argument("--ranks", type=int, default=MESH_RANKS,
+                    help=f"phase 14's gloo ranks on the card (default {MESH_RANKS})")
     ap.add_argument("--cli-trades", type=int, default=CLI_TRADES,
                     help="trades in phase 13's spot-layout ZIP for the CLI (default "
                          f"{CLI_TRADES:,}; {N_MONTH} is the whole month)")
@@ -3904,6 +4267,13 @@ def main():
     if 13 in phases:
         need = {"B", "S"} - set(kernels)
         merge("klines", *phase_klines(card, need, args.cli_trades))
+    if 14 in phases:
+        need = {"S", "C", "F", "R", "G", "D", "E cusum", "E imbalance", "E run",
+                "E volume"} - set(kernels)
+        launches, entries, extra = phase_mesh(card, need, args.ranks)
+        merge("mesh", launches, entries)
+        for key, fields in extra.items():
+            kernels[key].update(fields)
     say(f"smoke run: {time.perf_counter() - t_start:.1f} s, the kernels' build "
         f"included")
     if kernels:

@@ -53,6 +53,11 @@ package's layout, and the 1-second klines built and resampled on the card),
 (the ``FMKT_*`` logger) and ``native`` (the host C++ of ``medians="host"``).
 ``h5py`` is imported only where a file is opened.
 
+The parallel layer (``parallel``): the indexers, bar products, order
+statistics, footprints and store ingest across the ranks of a
+``torch.distributed`` group, one rank a device, each on a contiguous span of
+the trades (``spawn_mesh`` runs local ranks).
+
 This package never imports JAX, pandas or ``finmlkit_tpu``.
 """
 from ._version import __version__

@@ -35,7 +35,7 @@ _SIGNATURES = {
     "fmk_ffill": [ctypes.c_int, _P, _P, _P, _P, _I64, ctypes.c_int, _P],
     "fmk_event_scratch_bytes": [ctypes.c_int, _I64, _I64, _I64],
     "fmk_event_scan": [ctypes.c_int, _P, _P, _P, _P, _I64, _I64, _F64, _F64,
-                       _F64, _F64, _I64, _P, _I64, _P, _I64, _P, _P, _P],
+                       _F64, _F64, _I64, _P, _P, _I64, _P, _I64, _P, _P, _P, _P],
     "fmk_hist_pass": [_P, _P, _P, ctypes.c_int, _I64, _I64, _P, _P, _P],
     "fmk_less_pass": [_P, _P, _P, _I64, _I64, _P, _P, _P, _P],
     "fmk_planes_scratch_bytes": [_I64],
@@ -57,7 +57,8 @@ _SIGNATURES = {
     "fmk_float_walk_scratch_bytes": [_I64, _I64],
     "fmk_float_walk_route": [ctypes.c_int, _P, _P, _I64, _P, _P],
     "fmk_float_walk_units": [_P, _I64, ctypes.c_int, _P, _P],
-    "fmk_float_walk": [ctypes.c_int] * 2 + [_P, _P, _I64, _F64, _I64, _I64] + [_P] * 5,
+    "fmk_float_walk": [ctypes.c_int] * 2 + [_P, _P, _I64, _F64, _I64, _I64, ctypes.c_int,
+                                            _F64] + [_P] * 6,
 }
 _SIZES = {"fmk_scan_scratch_bytes", "fmk_event_scratch_bytes",
           "fmk_planes_scratch_bytes", "fmk_products_scratch_bytes",

@@ -36,7 +36,7 @@ from ..ops.segment import (bar_ids_from_close_indices,
                            sorted_segments)
 
 __all__ = ["comp_bar_ohlcv", "comp_bar_directional_features",
-           "comp_bar_trade_size_features"]
+           "comp_bar_trade_size_features", "trade_size_final"]
 
 _F64 = torch.float64
 
@@ -171,7 +171,6 @@ def comp_bar_trade_size_features(amounts, theta, ci, theta_mult, *,
     n, nb = amounts.shape[0], ci.shape[0] - 1
     bar_id, valid = bar_ids_from_close_indices(ci, n, cumsum=cumsum)
     counts = range_count(ci)
-    empty = counts == 0
 
     amt = amounts.to(_F64)
     total = range_sum(amt, ci, cumsum=cumsum)
@@ -184,8 +183,16 @@ def comp_bar_trade_size_features(amounts, theta, ci, theta_mult, *,
     sorted_amt = sorted_segments(amounts.to(torch.float32), bar_id, valid, nb)
     del bar_id, valid
     p95 = segment_quantile_sorted(sorted_amt, ci[:-1] - ci[0], counts, 0.95)
+    return trade_size_final(counts, theta, thr, mean, total, sumsq, block, p95)
 
-    nan = torch.full((nb,), float("nan"), dtype=_F64, device=ci.device)
+
+def trade_size_final(counts, theta, thr, mean, total, sumsq, block, p95):
+    """The trade-size features of :func:`comp_bar_trade_size_features` from
+    each bar's count, ``theta``, block threshold ``thr``, mean, float64 sums
+    (total, squares, block volume) and 95th percentile."""
+    nb = counts.shape[0]
+    empty = counts == 0
+    nan = torch.full((nb,), float("nan"), dtype=_F64, device=counts.device)
     base_nan = empty | (theta == 0.0)
     safe_thr = torch.where(thr > 0, thr, 1.0)
     mean_size_rel = torch.where(base_nan, nan, torch.log1p(mean / safe_thr))

@@ -9,6 +9,12 @@ nor do the TPU's float32 scans and the JAX device forms of the float64 volume
 and dollar indexers (prefix-sum searches that can move a close by one trade).
 Indexers return ``(close_ts, close_indices)``: element 0 is the open anchor of
 the first bar, and bar *i* spans trades ``(ci[i], ci[i+1]]``.
+
+The scans under the volume, dollar, CUSUM, imbalance and run indexers (kernels
+E and D) also take the state a stream enters with and return the state after
+its last trade (``state=``, ``exit_state=``); ``parallel/sharded_indexers.py``
+runs them span by span, each from the state the span before left, and gets
+these indexers' closes.
 """
 import math
 

@@ -44,7 +44,7 @@
 //      closes; it then takes the segment's end state from the end aggregate in
 //      O(1), bit for bit what a scan would give. Other segments are scanned.
 //   2. pass 1: the tiles are cut into chunks of whole tiles, one warp each;
-//      chunk 0 walks from the true initial state, every other chunk from the
+//      chunk 0 walks from the entry state, every other chunk from the
 //      mode's reset state. Each tile records its closes (one bit a trade),
 //      their count and the state at its end.
 //   3. pass 2: every chunk c > 0 walks again from chunk c-1's pass-1 end
@@ -63,6 +63,17 @@
 // The result does not depend on the number of chunks or on scheduling: each
 // tile's record is a walk from its true entry state. One chunk is the
 // sequential walk.
+//
+// Entry and exit states. The stream enters with a state (Args::entry, the
+// mode's State as five 8-byte words): by default the mode's initial state,
+// or the state a scan of the trades before it left, so that the shards of
+// one stream scan in turn. Chunk 0 walks from it, so pass 2 and the fix-up
+// test their merges against walks that saw it. After the fix-up every tile's
+// recorded end state is that of the walk from the true entry, and the last
+// tile's is copied out as the exit state. A scan that starts at trade 0
+// lets trade 0 close; volume bars starting at trade 1 add trade 0 to the
+// carry unchecked. Mode 4 enters with the in-bar sum of the entry state, and
+// its exit takes the last tile's end state and the last close as the open.
 //
 // Mode 4 has no chunks. With a fixed theta and integer weights the in-bar sum
 // takes 2K + 1 values (K the largest integer below theta), so a tile's effect
@@ -109,7 +120,18 @@ struct Args {
   long long n, start;              // stream length; first trade checked
   double e_t, e_r, alpha_t, alpha_r;  // info: E0[T], E0[rate], EMA rates
   long long thr;                   // volume: the threshold in amount units
+  long long entry[5];              // the state entering the stream, as the
+                                   // mode's State (zeros: CUSUM's and volume's
+                                   // initial state)
 };
+
+// The mode's State from the entry words.
+template <typename S> __device__ S entry_state(const Args& a) {
+  static_assert(sizeof(S) <= sizeof(Args::entry), "five 8-byte words");
+  S s;
+  memcpy(&s, a.entry, sizeof(S));
+  return s;
+}
 
 // Scratch, per tile and per chunk. States and summaries are stored as the
 // mode's structs in the untyped regions.
@@ -197,7 +219,7 @@ struct Cusum {
   __device__ static E shfl(const E& x, int o) {
     return {shfl_up(x.a, o), shfl_up(x.c, o), shfl_up(x.b, o)};
   }
-  __device__ static State init(const Args&) { return {0.0, 0.0}; }
+  __device__ static State init(const Args& a) { return entry_state<State>(a); }
   __device__ static State reset(const Args&, long long) { return {0.0, 0.0}; }
   __device__ static In load(const Args& a, long long g) {
     if (g >= a.n) return {0.0, INFINITY, 0};
@@ -299,9 +321,7 @@ struct InfoCommon {
   using State = InfoState;
   static constexpr bool kStops = false;
   struct In { double w; };
-  __device__ static State init(const Args& a) {
-    return {0.0, 0.0, a.e_t, a.e_r, 0};
-  }
+  __device__ static State init(const Args& a) { return entry_state<State>(a); }
   // a chunk that does not know its entry state guesses a bar opened at the
   // trade before it
   __device__ static State reset(const Args& a, long long g) {
@@ -410,8 +430,11 @@ struct Volume {
   __device__ static E elem(const In& v) { return v.u; }
   __device__ static E combine(E x, E y) { return x + y; }
   __device__ static E shfl(E x, int o) { return shfl_up(x, o); }
-  // trade 0 opens the first bar and counts toward it
-  __device__ static State init(const Args& a) { return {a.units[0]}; }
+  // the carried units; trade 0 counts toward the bar unchecked where the
+  // walk starts at trade 1
+  __device__ static State init(const Args& a) {
+    return {entry_state<State>(a).carry + (a.start > 0 ? a.units[0] : 0)};
+  }
   __device__ static State reset(const Args&, long long) { return {0}; }
   __device__ static In load(const Args& a, long long g) {
     return {g < a.n ? a.units[g] : 0};
@@ -823,13 +846,14 @@ map_groups_kernel(const unsigned char* __restrict__ maps, long long tiles, int s
   gmaps[g * kMapRow + u0] = static_cast<unsigned char>(u);
 }
 
-// Pass 2b, one block: the groups' entry states, from the stream's empty bar
-// (state K) through the group maps in order, kGroup of them at a time.
+// Pass 2b, one block: the groups' entry states, from the stream's entry
+// state u0 (K + the entry sum) through the group maps in order, kGroup of
+// them at a time.
 __global__ void __launch_bounds__(kMapRow)
-map_top_kernel(const unsigned char* __restrict__ gmaps, long long groups, int k,
+map_top_kernel(const unsigned char* __restrict__ gmaps, long long groups, int u0,
                int* __restrict__ gentry) {
   __shared__ __align__(16) unsigned char sm[kGroup][kMapRow];
-  int u = k;
+  int u = u0;
   for (long long g0 = 0; g0 < groups; g0 += kGroup) {
     const int cnt = static_cast<int>(min(static_cast<long long>(kGroup), groups - g0));
     __syncthreads();  // the previous rows are read
@@ -862,18 +886,20 @@ map_expand_kernel(const unsigned char* __restrict__ maps, long long tiles,
 
 // Pass 3, a thread a tile: the walk from the tile's true entry state over its
 // byte weights, 64 trades (one word of close bits) a step, the next 64
-// requested before the current are walked.
+// requested before the current are walked. Where `exit` is not null (an
+// InfoState holding the entry state), the last tile writes its end sum and
+// every tile raises the open to its last close.
 __global__ void __launch_bounds__(128)
 map_walk_kernel(const signed char* __restrict__ w8, const int* __restrict__ tentry,
-                long long tiles, int k, unsigned long long* __restrict__ flags,
-                long long* __restrict__ cnt) {
+                long long tiles, int k, long long start, unsigned long long* __restrict__ flags,
+                long long* __restrict__ cnt, InfoState* __restrict__ exit) {
   const long long tile = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (tile >= tiles) return;
   constexpr int kWords = kTile / 64;
   const int4* src = reinterpret_cast<const int4*>(w8 + tile * kTile);
   unsigned long long* f = flags + tile * kWords;
   int u = tentry[tile];
-  long long c = 0;
+  long long c = 0, last = -1;
   int4 nxt[4];
 #pragma unroll
   for (int q = 0; q < 4; ++q) nxt[q] = src[q];
@@ -902,9 +928,17 @@ map_walk_kernel(const signed char* __restrict__ w8, const int* __restrict__ tent
     }
     f[b] = bits;
     c += __popcll(bits);
+    if (bits) last = 64LL * b + 63 - __clzll(static_cast<long long>(bits));
   }
   cnt[tile] = c;
+  if (exit != nullptr) {
+    if (tile == tiles - 1) exit->cb = static_cast<double>(u - k);
+    if (last >= 0) atomicMax(&exit->open, start + tile * kTile + last);
+  }
 }
+
+// The exit state of mode 4 before pass 3: the entry state.
+__global__ void map_exit_kernel(InfoState* exit, InfoState entry) { *exit = entry; }
 
 long long round_up(long long x) { return (x + kAlign - 1) / kAlign * kAlign; }
 
@@ -940,7 +974,7 @@ template <class M> long long layout(Work* w, char* base, long long n,
 
 template <class M>
 int launch(const Args& a, void* scratch, long long chunks, long long* out,
-           long long max_out, long long* count, void* stats, cudaStream_t s) {
+           long long max_out, long long* count, void* stats, void* exit, cudaStream_t s) {
   Work w;
   layout<M>(&w, static_cast<char*>(scratch), a.n, a.start, chunks);
   if (stats != nullptr) w.stats = static_cast<long long*>(stats);
@@ -956,6 +990,9 @@ int launch(const Args& a, void* scratch, long long chunks, long long* out,
     fixup_kernel<M><<<1, 32, 0, s>>>(a, w);
     FMK_CHECK(cudaGetLastError());
   }
+  if (exit != nullptr)  // the last tile's end state, from the true entry
+    FMK_CHECK(cudaMemcpyAsync(exit, static_cast<const typename M::State*>(w.states) + w.tiles - 1,
+                              sizeof(typename M::State), cudaMemcpyDeviceToDevice, s));
   const int rc = fmk_prefix_scan(1, w.cnt, w.incl, w.scan_scratch, w.tiles, s);
   if (rc != 0) return rc;
   scatter_kernel<<<tiles, 32, 0, s>>>(
@@ -1001,9 +1038,18 @@ long long map_layout(MapWork* w, char* base, long long n, long long start) {
 // group), the walk of every tile from its entry state (pass 3), then the
 // compaction of the other modes.
 int launch_map(const Args& a, void* scratch, long long* out, long long max_out,
-               long long* count, void* stats, cudaStream_t s) {
+               long long* count, void* stats, void* exit, cudaStream_t s) {
   const int k = map_k(a);
-  if (k < 0) return static_cast<int>(cudaErrorInvalidValue);
+  InfoState entry;
+  memcpy(&entry, a.entry, sizeof(entry));
+  // the entry sum must be one of the map's states
+  if (k < 0 || !(fabs(entry.cb) <= k) || entry.cb != std::trunc(entry.cb))
+    return static_cast<int>(cudaErrorInvalidValue);
+  InfoState* ex = static_cast<InfoState*>(exit);
+  if (ex != nullptr) {
+    map_exit_kernel<<<1, 1, 0, s>>>(ex, entry);
+    FMK_CHECK(cudaGetLastError());
+  }
   MapWork w;
   map_layout(&w, static_cast<char*>(scratch), a.n, a.start);
   if (stats != nullptr) FMK_CHECK(cudaMemsetAsync(stats, 0, 4 * sizeof(long long), s));
@@ -1014,13 +1060,14 @@ int launch_map(const Args& a, void* scratch, long long* out, long long max_out,
   map_groups_kernel<<<static_cast<unsigned>(w.groups), kMapRow, 0, s>>>(
       w.maps, w.tiles, 2 * k + 1, w.gmaps);
   FMK_CHECK(cudaGetLastError());
-  map_top_kernel<<<1, kMapRow, 0, s>>>(w.gmaps, w.groups, k, w.gentry);
+  map_top_kernel<<<1, kMapRow, 0, s>>>(w.gmaps, w.groups, k + static_cast<int>(entry.cb),
+                                       w.gentry);
   FMK_CHECK(cudaGetLastError());
   map_expand_kernel<<<static_cast<unsigned>(w.groups), 32, 0, s>>>(
       w.maps, w.tiles, w.gentry, w.tentry);
   FMK_CHECK(cudaGetLastError());
   map_walk_kernel<<<static_cast<unsigned>((w.tiles + 127) / 128), 128, 0, s>>>(
-      w.w8, w.tentry, w.tiles, k, w.flags, w.cnt);
+      w.w8, w.tentry, w.tiles, k, a.start, w.flags, w.cnt, ex);
   FMK_CHECK(cudaGetLastError());
   const int rc = fmk_prefix_scan(1, w.cnt, w.incl, w.scan_scratch, w.tiles, s);
   if (rc != 0) return rc;
@@ -1056,28 +1103,36 @@ extern "C" long long fmk_event_scratch_bytes(int mode, long long n,
 // writes the first max_out close indices to out and their number to
 // count[0]. `stats`, if not null, receives four int64 counts: segments
 // skipped, segments scanned, pass-2 chunks that did not merge, chunks fixed up.
-// Returns cudaGetLastError().
+// `entry` (host memory, five int64 words, or null for zeros) is the state the
+// stream enters trade `start` with, as the mode's State: CUSUM {sp, sn}
+// (doubles), imbalance and run {cb, cs, e_t, e_r (doubles), open (int64, the
+// trade the bar opened at, relative to the stream)}, volume {carry} (int64;
+// where start is 1, trade 0's units are added to it unchecked); mode 4 takes
+// the imbalance state, its cb an integer of at most K in magnitude. `exit`
+// (device memory, five int64 words, or null) receives the state after trade
+// n-1 in the same layout. Returns cudaGetLastError().
 extern "C" int fmk_event_scan(int mode, const void* x, const void* lam,
                               const void* can_close, const void* units,
                               long long n, long long start, double e_t,
                               double e_r, double alpha_t, double alpha_r,
-                              long long thr, void* scratch, long long chunks,
-                              void* out, long long max_out, void* count,
-                              void* stats, void* stream) {
+                              long long thr, const void* entry, void* scratch,
+                              long long chunks, void* out, long long max_out,
+                              void* count, void* stats, void* exit, void* stream) {
   if (start >= n || chunks < 1 || max_out < 1) return static_cast<int>(cudaErrorInvalidValue);
   Args a{static_cast<const double*>(x), static_cast<const double*>(lam),
          static_cast<const unsigned char*>(can_close),
          static_cast<const long long*>(units), n, start, e_t, e_r, alpha_t,
-         alpha_r, thr};
+         alpha_r, thr, {0, 0, 0, 0, 0}};
+  if (entry != nullptr) memcpy(a.entry, entry, sizeof(a.entry));
   long long* o = static_cast<long long*>(out);
   long long* c = static_cast<long long*>(count);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
-    case 0: return launch<Cusum>(a, scratch, chunks, o, max_out, c, stats, s);
-    case 1: return launch<Imbalance>(a, scratch, chunks, o, max_out, c, stats, s);
-    case 2: return launch<Run>(a, scratch, chunks, o, max_out, c, stats, s);
-    case 3: return launch<Volume>(a, scratch, chunks, o, max_out, c, stats, s);
-    case 4: return launch_map(a, scratch, o, max_out, c, stats, s);
+    case 0: return launch<Cusum>(a, scratch, chunks, o, max_out, c, stats, exit, s);
+    case 1: return launch<Imbalance>(a, scratch, chunks, o, max_out, c, stats, exit, s);
+    case 2: return launch<Run>(a, scratch, chunks, o, max_out, c, stats, exit, s);
+    case 3: return launch<Volume>(a, scratch, chunks, o, max_out, c, stats, exit, s);
+    case 4: return launch_map(a, scratch, o, max_out, c, stats, exit, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -55,10 +55,16 @@
 //    stops the search as a crossing does; the walker adds r from the exact
 //    parity there and goes on if the state stays below L_e (else it is a
 //    crossing). k is capped at 2^52, which also reaches L_e from any S.
-// 5. The first trade is the state the walk starts with, unchecked; states
-//    below 2^e_lo (0 after a volume close among them) or at or above the
-//    threshold (a dollar carry) take real adds, kRun at once while their sum
-//    stays below 2^e_lo (values >= 0: no sum before the last is larger).
+// 5. The first trade is the state the walk starts with, unchecked, or an
+//    entry sum carried from the trades before the stream starts it and trade
+//    0 is checked; states below 2^e_lo (0 after a volume close among them)
+//    or at or above the threshold (a dollar carry) take real adds, kRun at
+//    once while their sum stays below 2^e_lo (values >= 0: no sum before the
+//    last is larger). The tables' seven binades thus cover every entry sum
+//    in [2^e_lo, thr), and any other takes real adds until it enters them.
+//    The host sends an entry sum that is negative or not finite to the block
+//    walk, as the route pass sends such a value; the units route takes an
+//    entry sum only where it is a whole number of the unit (6.).
 //
 // 6. The exact-sum case (volume bars). Where every value is a multiple of
 //    U = 2^u and ceil(thr / U) and the largest value are below 2^52 U, every
@@ -86,14 +92,16 @@
 //
 // Volume bars restart at exactly 0 at each close, so two walks that close at
 // one trade are equal from there on (kernel E's volume mode): pass 1 walks all
-// chunks at once (chunk 0 from trade 0, the others from a bar that opens at
-// their first trade), pass 2 walks each chunk c > 0 again from chunk c-1's
+// chunks at once (chunk 0 from trade 0 or the entry sum, the others from a
+// bar that opens at their first trade), pass 2 walks each chunk c > 0 again from chunk c-1's
 // pass-1 end state until it closes where pass 1 did, and the fix-up walks, in
 // chunk order, each chunk whose last walk did not begin at its predecessor's
 // final end state, until it closes where that walk did. Each walk sets its
 // closes in a bitmap of its own; the compaction takes a chunk's closes from
 // the fix-up's before its merge trade, pass 2's before its merge trade, and
-// pass 1's after. Dollar bars carry a remainder and walk as one chunk.
+// pass 1's after. Dollar bars carry a remainder and walk as one chunk. The
+// exit sum is the last chunk's end state after the fix-up (pass 1's with one
+// chunk).
 //
 // Bound: the walker's chain of dependent shared loads, ballots and shuffles,
 // some hundreds of cycles an event, not memory: the stream's bytes (4 a trade
@@ -148,11 +156,15 @@ __device__ __forceinline__ bool step(double& cum, double x, double thr, long lon
   return false;
 }
 
+// With `entered`, the walk starts from the sum cum0 before trade 0 and
+// checks trade 0; `exit`, if not null, receives the sum after the last trade
+// (after the last close written where max_bars stops the walk).
 template <bool kDollar>
 __global__ void __launch_bounds__(kThreads)
 walk_kernel(const double* __restrict__ p, const float* __restrict__ v,
-            long long n, double thr, long long max_bars,
-            long long* __restrict__ out, long long* __restrict__ count) {
+            long long n, double thr, long long max_bars, bool entered, double cum0,
+            long long* __restrict__ out, long long* __restrict__ count,
+            double* __restrict__ exit) {
   __shared__ double buf[2][kChunk];
   __shared__ volatile int done;   // lane 0 stops the block at max_bars
   const int t = threadIdx.x;
@@ -171,8 +183,8 @@ walk_kernel(const double* __restrict__ p, const float* __restrict__ v,
       const int m = static_cast<int>(n - base < kChunk ? n - base : kChunk);
       int j = 0;
       if (c == 0) {
-        cum = x[0];
-        j = 1;
+        cum = entered ? cum0 : x[0];
+        j = entered ? 0 : 1;
       }
       bool stop = false;
       for (; j + kBlock <= m && !stop; j += kBlock) {
@@ -208,7 +220,10 @@ walk_kernel(const double* __restrict__ p, const float* __restrict__ v,
     }
     __syncthreads();
   }
-  if (t == 0) *count = k;
+  if (t == 0) {
+    *count = k;
+    if (exit != nullptr) *exit = cum;
+  }
 }
 
 // The route pass: info[0] = 1 where a value is negative or not finite; for
@@ -310,6 +325,9 @@ struct Walk {
   const float* v;
   long long n, per, chunks, max_bars;
   double thr, lo_bound, s0;     // s0 = 2^(52 - e_lo), lo_bound = 2^e_lo
+  bool entered;                 // chunk 0 starts from g0 at trade 0
+  double g0;
+  double* exit;                 // the sum after the last trade, or null
   int e_lo;
   u64 lim[kBinades];            // L of each binade e_lo + d
   unsigned *a, *b, *f;          // close bitmaps: pass 1, pass 2, the fix-up
@@ -674,14 +692,19 @@ __device__ __forceinline__ Shared& shared_state() {
 }
 
 // Pass 1: chunk c from a bar that opens at its first trade (chunk 0 from
-// trade 0's value); with one chunk, the whole walk, to at most max_bars closes.
+// trade 0's value, or from the entry sum g0 at trade 0); with one chunk, the
+// whole walk, to at most max_bars closes.
 template <bool kDollar>
 __global__ void __launch_bounds__(kWalkThreads, 1) pass1_kernel(Walk w) {
   Shared& sm = shared_state();
   const long long c = blockIdx.x, lo = c * w.per, hi = min(lo + w.per, w.n);
-  walk<kDollar>(w, sm, lo, hi, c == 0, 0.0, nullptr, nullptr, 0, w.a,
-                w.chunks == 1 ? w.max_bars : LLONG_MAX);
-  if (threadIdx.x == 0) w.rec[c] = Rec{sm.end, sm.end, lo, lo};
+  const bool entered = c == 0 && w.entered;
+  walk<kDollar>(w, sm, lo, hi, c == 0 && !entered, entered ? w.g0 : 0.0, nullptr, nullptr,
+                0, w.a, w.chunks == 1 ? w.max_bars : LLONG_MAX);
+  if (threadIdx.x == 0) {
+    w.rec[c] = Rec{sm.end, sm.end, lo, lo};
+    if (w.chunks == 1 && w.exit != nullptr) *w.exit = sm.end;
+  }
 }
 
 // Pass 2: chunk c > 0 from chunk c-1's pass-1 end state until it merges with
@@ -721,6 +744,7 @@ __global__ void __launch_bounds__(kWalkThreads, 1) fixup_kernel(Walk w) {
     }
     fe = last;
   }
+  if (threadIdx.x == 0 && w.exit != nullptr) *w.exit = fe;   // the last chunk's end
 }
 
 // The closes of bitmap word gw: the fix-up's below m3, pass 2's below m2,
@@ -884,15 +908,19 @@ extern "C" int fmk_float_walk_units(const void* volumes, long long n, int u, voi
 
 // Kernel D's walk over n >= 1 trades by one route: 0 the warp step, 1 the
 // block walk (mode as for the route pass; a dollar walk is one chunk, a
-// volume walk of the warp step `chunks`). Writes at most max_bars close
-// indices (int64) to `out` and their number to `count` (int64[1]); `stats`
-// (int64[NSTATS] or null) receives the warp step's counts (Stat). `scratch`
-// holds fmk_float_walk_scratch_bytes (the warp step). Pointers to float32
-// and float64 data are 16-byte aligned. On `stream`; returns
-// cudaGetLastError().
+// volume walk of the warp step `chunks`). With `entered`, the walk starts
+// from the running sum `entry` before trade 0 (the volume since the last
+// close, or the dollar remainder) and checks trade 0; else trade 0's value
+// starts it unchecked. Writes at most max_bars close indices (int64) to
+// `out` and their number to `count` (int64[1]); `exit` (a double, or null)
+// receives the sum after the last trade; `stats` (int64[NSTATS] or null)
+// receives the warp step's counts (Stat). `scratch` holds
+// fmk_float_walk_scratch_bytes (the warp step). Pointers to float32 and
+// float64 data are 16-byte aligned. On `stream`; returns cudaGetLastError().
 extern "C" int fmk_float_walk(int mode, int route, const void* prices, const void* volumes,
                               long long n, double thr, long long max_bars, long long chunks,
-                              void* scratch, void* out, void* count, void* stats, void* stream) {
+                              int entered, double entry, void* scratch, void* out,
+                              void* count, void* exit, void* stats, void* stream) {
   if (n <= 0 || chunks < 1 || (mode != 0 && mode != 1) || (route != 0 && route != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -901,12 +929,14 @@ extern "C" int fmk_float_walk(int mode, int route, const void* prices, const voi
   const auto* v = static_cast<const float*>(volumes);
   auto* o = static_cast<long long*>(out);
   auto* c = static_cast<long long*>(count);
+  auto* ex = static_cast<double*>(exit);
   const bool dollar = mode == 1;
   if (route == 1) {
     if (dollar) {
-      walk_kernel<true><<<1, kThreads, 0, s>>>(p, v, n, thr, max_bars, o, c);
+      walk_kernel<true><<<1, kThreads, 0, s>>>(p, v, n, thr, max_bars, entered, entry, o, c, ex);
     } else {
-      walk_kernel<false><<<1, kThreads, 0, s>>>(p, v, n, thr, max_bars, o, c);
+      walk_kernel<false><<<1, kThreads, 0, s>>>(p, v, n, thr, max_bars, entered, entry, o, c,
+                                                ex);
     }
     return static_cast<int>(cudaGetLastError());
   }
@@ -921,6 +951,9 @@ extern "C" int fmk_float_walk(int mode, int route, const void* prices, const voi
   w.chunks = l.chunks;
   w.max_bars = max_bars;
   w.thr = thr;
+  w.entered = entered != 0;
+  w.g0 = entry;
+  w.exit = ex;
   w.e_lo = std::ilogb(thr) - kBinades + 1;
   w.lo_bound = std::ldexp(1.0, w.e_lo);
   w.s0 = std::ldexp(1.0, 52 - w.e_lo);

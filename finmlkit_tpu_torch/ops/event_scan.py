@@ -23,7 +23,23 @@ the reference the kernel is held against on the card.
 Every scan returns the close indices it found, at most ``max_bars`` of them,
 as an int64 tensor on the input's device; the indexers grow ``max_bars`` and
 run again when a scan fills it.
+
+Entry and exit states. Every scan, kernel and plain, takes the state the
+stream enters with (``state=``) and can return the state after its last trade
+(``exit_state=True``: a pair ``(closes, state)``), so that the time shards of
+one stream scan in turn, each from the state the one before it left
+(``parallel/sharded_indexers.py``). The states are host values: CUSUM
+``(s+, s-)``; volume the carried units (an int); imbalance and run ``(cb, cs,
+E[T], E[rate], open)``, the in-bar sums, the expectations and the trade the
+open bar opened at, relative to the stream (a negative index opens it in an
+earlier shard; the JAX ring carries it absolute and subtracts the shard's
+offset, ``sharded_indexers.py:436-442``). The CUSUM scan's ``start=-1`` and the
+others' ``first_closes=True`` let trade 0 close, as the JAX ring's
+``pos_init=-1`` does on every shard after the first. With no entry state the
+closes are those of the whole-stream scans. An exit state is that of the
+stream's end only where fewer than ``max_bars`` closes were found.
 """
+import ctypes
 import math
 import struct
 
@@ -71,10 +87,34 @@ def _default_chunks(mode: int, device) -> int:
     return 4 * sms if mode == _CUSUM else max(sms // 4, 1)
 
 
+# each mode's state as the kernel's State: 8-byte words, d a double, q an int64
+_LAYOUT = {_CUSUM: "dd", _IMBALANCE: "ddddq", _RUN: "ddddq", _VOLUME: "q",
+           _IMBALANCE_MAP: "ddddq"}
+
+
+def _initial(mode: int, e_t: float = 0.0, e_r: float = 0.0) -> tuple:
+    """The state a stream enters with by default."""
+    if mode == _CUSUM:
+        return 0.0, 0.0
+    if mode == _VOLUME:
+        return (0,)
+    return 0.0, 0.0, float(e_t), float(e_r), 0
+
+
+def _words(mode: int, state) -> tuple:
+    fmt = _LAYOUT[mode]
+    return struct.unpack(f"<{len(fmt)}q", struct.pack(f"<{fmt}", *state))
+
+
+def _unwords(mode: int, words) -> tuple:
+    fmt = _LAYOUT[mode]
+    return struct.unpack(f"<{fmt}", struct.pack(f"<{len(fmt)}q", *words[:len(fmt)]))
+
+
 def _launch(mode: int, n: int, start: int, max_bars: int, device, *, x=None,
             lam=None, can_close=None, units=None, e_t=0.0, e_r=0.0,
             alpha_t=0.0, alpha_r=0.0, thr=0, chunks=None,
-            stats=None) -> torch.Tensor:
+            stats=None, entry=None, exit_state=False):
     """Launch kernel E over trades ``start .. n-1`` and return its closes.
 
     ``chunks`` is the number of chunks the stream is cut into (default
@@ -84,11 +124,21 @@ def _launch(mode: int, n: int, start: int, max_bars: int, device, *, x=None,
     that did not merge and the chunks the fix-up walked again. The map path
     (``_IMBALANCE_MAP``, on weights :func:`_map_states` admits) has no chunks
     and leaves the stats at 0.
+
+    ``entry`` is the state entering trade ``start`` as a tuple in the mode's
+    layout (:data:`_LAYOUT`; default :func:`_initial`); volume bars that start
+    at trade 1 add trade 0's units to its carry. With ``exit_state`` the
+    return is ``(closes, state after trade n-1)``, read with the count.
     """
     global LAUNCHES
+    entry = _initial(mode, e_t, e_r) if entry is None else tuple(entry)
     out = torch.empty(max(max_bars, 1), dtype=torch.int64, device=device)
-    if start >= n or max_bars <= 0:
-        return out[:0]
+    if start >= n or (max_bars <= 0 and not exit_state):
+        if not exit_state:
+            return out[:0]
+        if mode == _VOLUME and start == 1 and n >= 1:
+            entry = (entry[0] + int(units[0]),)
+        return out[:0], entry
     if device.type != "cuda":
         raise ValueError(f"kernel E runs on cuda, not {device}")
     if chunks is None:
@@ -98,7 +148,8 @@ def _launch(mode: int, n: int, start: int, max_bars: int, device, *, x=None,
     if stats is not None and (stats.shape != (4,) or stats.dtype != torch.int64
                               or stats.device != out.device):
         raise ValueError("stats must be an int64 tensor of 4 on the stream's device")
-    count = torch.empty(1, dtype=torch.int64, device=device)
+    io = torch.empty(6, dtype=torch.int64, device=device)   # the count, the exit state
+    words = (ctypes.c_longlong * 5)(*_words(mode, entry))
     ins = [None if t is None else t.contiguous() for t in (x, lam, can_close, units)]
     ptrs = [None if t is None else t.data_ptr() for t in ins]
     lib = _build.library()
@@ -110,12 +161,15 @@ def _launch(mode: int, n: int, start: int, max_bars: int, device, *, x=None,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.fmk_event_scan(mode, *ptrs, n, start, e_t, e_r, alpha_t,
-                                alpha_r, thr, scratch.data_ptr(), chunks,
-                                out.data_ptr(), max_bars, count.data_ptr(),
+                                alpha_r, thr, words, scratch.data_ptr(), chunks,
+                                out.data_ptr(), max(max_bars, 1), io.data_ptr(),
                                 None if stats is None else stats.data_ptr(),
-                                stream)
+                                io.data_ptr() + 8 if exit_state else None, stream)
     _build.check(rc, "event scan")
-    return out[:int(count)]
+    if not exit_state:
+        return out[:int(io[0])]
+    got = io.tolist()
+    return out[:min(got[0], max(max_bars, 0))], _unwords(mode, got[1:])
 
 
 def _map_k(e_t: float, e_r: float):
@@ -129,18 +183,20 @@ def _map_k(e_t: float, e_r: float):
     return k if 2 * k + 1 <= _MAP_STATES else None
 
 
-def _map_states(w, e_t, e_r, alpha_t, alpha_r, integral: bool = False):
+def _map_states(w, e_t, e_r, alpha_t, alpha_r, integral: bool = False,
+                entry_sum: float = 0.0):
     """K where the imbalance scan of ``w`` takes the map path, else None.
 
-    The path needs both alphas 0 (theta never moves), :func:`_map_k`, and
-    every weight a finite integer (the in-bar sum then stays an integer of
-    at most K in magnitude). ``integral=True`` says the caller knows that
-    (the int8 sides of tick imbalance); otherwise the device is asked once
-    (one read of a reduction over ``w``)."""
+    The path needs both alphas 0 (theta never moves), :func:`_map_k`, an
+    entry sum that is one of its states (an integer of at most K in
+    magnitude), and every weight a finite integer (the in-bar sum then stays
+    an integer of at most K in magnitude). ``integral=True`` says the caller
+    knows that (the int8 sides of tick imbalance); otherwise the device is
+    asked once (one read of a reduction over ``w``)."""
     if alpha_t != 0 or alpha_r != 0:
         return None
     k = _map_k(e_t, e_r)
-    if k is None:
+    if k is None or not (abs(entry_sum) <= k and entry_sum == math.trunc(entry_sum)):
         return None
     if not integral:
         integral = bool(torch.all(torch.isfinite(w) & (w == torch.trunc(w))))
@@ -148,7 +204,7 @@ def _map_states(w, e_t, e_r, alpha_t, alpha_r, integral: bool = False):
 
 
 def _map_scan_model(n: int, start: int, max_bars: int, tile: int, *, x, e_t,
-                    e_r, group: int = _MAP_GROUP):
+                    e_r, group: int = _MAP_GROUP, entry=None, exit_state=False):
     """Kernel E's map path on the CPU, for the tests: the arguments of
     :func:`_launch` (``x`` a CPU tensor of finite integer weights, alphas 0)
     at any tile size, in numpy.
@@ -160,7 +216,10 @@ def _map_scan_model(n: int, start: int, max_bars: int, tile: int, *, x, e_t,
     the maps in groups of ``group`` tiles, follows the stream's empty bar
     (state K) through the groups' maps and then through each group's tiles
     for every tile's entry state; pass 3 walks each tile from it. Returns the
-    first ``max_bars`` closes and ``{"states", "tiles", "groups"}``."""
+    first ``max_bars`` closes and ``{"states", "tiles", "groups"}``, and with
+    ``exit_state`` the state after trade n-1. ``entry`` is the imbalance state
+    entering trade ``start`` (:func:`_launch`), its sum one of the states."""
+    cb0, cs0, et0, er0, open0 = _initial(_IMBALANCE, e_t, e_r) if entry is None else entry
     k = _map_k(e_t, e_r)
     m = 2 * k
     tiles = max(-(-(n - start) // tile), 0)
@@ -181,7 +240,7 @@ def _map_scan_model(n: int, start: int, max_bars: int, tile: int, *, x, e_t,
     for g in range(groups):
         for t in range(g * group, min((g + 1) * group, tiles)):
             gmaps[g] = maps[t][gmaps[g]]
-    gentry, u = np.zeros(groups, np.int64), k
+    gentry, u = np.zeros(groups, np.int64), k + int(cb0)
     for g in range(groups):
         gentry[g], u = u, gmaps[g][u]
     tentry = np.zeros(tiles, np.int64)
@@ -193,9 +252,14 @@ def _map_scan_model(n: int, start: int, max_bars: int, tile: int, *, x, e_t,
     u = tentry
     for j in range(tile):
         u, flags[:, j] = step(u, w[:, j])
-    out = start + np.flatnonzero(flags.ravel())[:max(max_bars, 0)]
-    return (torch.from_numpy(out.astype(np.int64)),
-            {"states": m + 1, "tiles": tiles, "groups": groups})
+    every = start + np.flatnonzero(flags.ravel())
+    out = (torch.from_numpy(every[:max(max_bars, 0)].astype(np.int64)),
+           {"states": m + 1, "tiles": tiles, "groups": groups})
+    if not exit_state:
+        return out
+    end = (float(u[-1] - k) if tiles else float(cb0), cs0, et0, er0,
+           int(every[-1]) if every.size else open0)
+    return out + (end,)
 
 
 def _same(a, b) -> bool:
@@ -204,11 +268,16 @@ def _same(a, b) -> bool:
     return bits == [struct.pack("<d", v) if isinstance(v, float) else v for v in b]
 
 
-def _tile_walker(mode, x, lam, can_close, units, e_t, e_r, alpha_t, alpha_r, thr):
+def _tile_walker(mode, x, lam, can_close, units, e_t, e_r, alpha_t, alpha_r, thr,
+                 start=1, entry=None):
     """The plain sequential walk over trades lo .. hi-1 from a state, in numpy:
-    ``(init, reset, step)``, ``step(lo, hi, state) -> (closes, state)``."""
+    ``(init, reset, step)``, ``step(lo, hi, state) -> (closes, state)``;
+    ``init()`` is the state entering trade ``start`` (``entry``, see
+    :func:`_launch`)."""
+    entry = _initial(mode, e_t, e_r) if entry is None else tuple(entry)
     if mode == _VOLUME:
         u = units.numpy()
+        carry = entry[0] + (int(u[0]) if start > 0 else 0)
 
         def step(lo, hi, carry):
             closes = []
@@ -221,7 +290,7 @@ def _tile_walker(mode, x, lam, can_close, units, e_t, e_r, alpha_t, alpha_r, thr
                 closes.append(lo + e)
                 carry, lo = (0,), lo + e + 1
             return closes, carry
-        return (lambda: (int(u[0]),)), (lambda g: (0,)), step
+        return (lambda: (carry,)), (lambda g: (0,)), step
     if mode == _CUSUM:
         r, lm, cc = x.numpy(), lam.numpy(), can_close.numpy()
         stops = np.flatnonzero(~np.isfinite(r))
@@ -248,7 +317,7 @@ def _tile_walker(mode, x, lam, can_close, units, e_t, e_r, alpha_t, alpha_r, thr
                                  closes)
                 lo = g + 1
             return closes, finite(lo, hi, *st, closes)
-        return (lambda: (0.0, 0.0)), (lambda g: (0.0, 0.0)), step
+        return (lambda: entry), (lambda g: (0.0, 0.0)), step
     w, run = x.numpy(), mode == _RUN
 
     def step(lo, hi, st):
@@ -275,31 +344,31 @@ def _tile_walker(mode, x, lam, can_close, units, e_t, e_r, alpha_t, alpha_r, thr
             closes.append(g)
             cb, cs, op, lo = 0.0, 0.0, g, g + 1
         return closes, (cb, cs, et, er, op)
-    return ((lambda: (0.0, 0.0, e_t, e_r, 0)),
-            (lambda g: (0.0, 0.0, e_t, e_r, g - 1)), step)
+    return ((lambda: entry), (lambda g: (0.0, 0.0, e_t, e_r, g - 1)), step)
 
 
 def _chunked_scan_model(mode: int, n: int, start: int, max_bars: int,
                         chunks: int, *, x=None, lam=None, can_close=None,
                         units=None, e_t=0.0, e_r=0.0, alpha_t=0.0, alpha_r=0.0,
-                        thr=0):
+                        thr=0, entry=None, exit_state=False):
     """Kernel E's chunked walk on the CPU, for the tests: the arguments of
     :func:`_launch` (CPU tensors), over the plain sequential walk in numpy.
 
     Trades ``start .. n-1`` are cut into tiles of 2048 and ``chunks`` chunks of
-    whole tiles. Pass 1 walks every chunk from the mode's initial (chunk 0) or
-    reset state, recording each tile's closes and end state; pass 2 walks each
+    whole tiles. Pass 1 walks every chunk from the entry state (chunk 0;
+    ``entry`` as in :func:`_launch`) or the mode's reset state, recording each tile's closes and end state; pass 2 walks each
     chunk c > 0 from chunk c-1's pass-1 end state until a tile end where its
     state equals the recorded one bit for bit; the fix-up walks, in order,
     each chunk whose last walk began elsewhere than at its predecessor's final
     end state, with the same stop rule. Returns the first ``max_bars`` closes
     and ``{"tiles", "chunks", "unmerged", "fixed"}``: the pass-2 chunks that
-    did not merge and the chunks fixed up. The walker's float sums start at
+    did not merge and the chunks fixed up; with ``exit_state`` also the state
+    after trade n-1 (the last tile's, after the fix-up). The walker's float sums start at
     each tile, so on data whose sums round the closes may differ from the
     plain scans' at near ties; on data whose sums are exact they may not.
     """
     init, reset, step = _tile_walker(mode, x, lam, can_close, units, e_t, e_r,
-                                     alpha_t, alpha_r, thr)
+                                     alpha_t, alpha_r, thr, start, entry)
     tiles = max(-(-(n - start) // _TILE), 0)
     per = max(-(-tiles // chunks), 1)
     n_chunks = -(-tiles // per)
@@ -332,9 +401,10 @@ def _chunked_scan_model(mode: int, n: int, start: int, max_bars: int,
             walk(c, used[c], True)
             fixed += 1
     out = [g for t in range(tiles) for g in closes[t]][:max(max_bars, 0)]
-    return (torch.tensor(out, dtype=torch.int64),
-            {"tiles": tiles, "chunks": n_chunks, "unmerged": unmerged,
-             "fixed": fixed})
+    res = (torch.tensor(out, dtype=torch.int64),
+           {"tiles": tiles, "chunks": n_chunks, "unmerged": unmerged,
+            "fixed": fixed})
+    return res + (states[tiles - 1] if tiles else init(),) if exit_state else res
 
 
 # ---------------------------------------------------------------------------
@@ -356,7 +426,8 @@ def _cusum_stop(sp, sn, r, lam, can_close, g, closes):
     return sp, sn
 
 
-def cusum_scan_plain(rets, lam, can_close, start: int, max_bars: int):
+def cusum_scan_plain(rets, lam, can_close, start: int, max_bars: int, *,
+                     state=None, exit_state=False):
     """Plain PyTorch version of :func:`cusum_scan`: ``_cusum_boundaries``
     (``indexers.py:508-597``) with a host loop. Each chunk of 8192 trades is
     solved in closed form, ``s+ = max(s0 + D, D - running min of D)`` and
@@ -373,7 +444,8 @@ def cusum_scan_plain(rets, lam, can_close, start: int, max_bars: int):
     stops = (torch.nonzero(~torch.isfinite(rets[start + 1:])).flatten()
              + (start + 1)).tolist()
     stops.append(n)
-    sp, sn = zero, zero
+    sp, sn = (zero, zero) if state is None else (
+        torch.tensor(float(v), dtype=rets.dtype, device=dev) for v in state)
     out, pos, k = [], start + 1, 0
     while pos < n and len(out) < max_bars:
         while stops[k] < pos:
@@ -416,14 +488,19 @@ def cusum_scan_plain(rets, lam, can_close, start: int, max_bars: int):
         else:       # the chunk is done: its last state is the carry
             sp, sn = s_pos[m - 1], s_neg[m - 1]
             pos += m
-    return torch.tensor(out, dtype=torch.int64, device=dev)
+    out = torch.tensor(out, dtype=torch.int64, device=dev)
+    return (out, tuple(torch.stack([sp, sn]).tolist())) if exit_state else out
 
 
-def cusum_scan(rets, lam, can_close, start: int, max_bars: int):
+def cusum_scan(rets, lam, can_close, start: int, max_bars: int, *, state=None,
+               exit_state=False):
     """Close indices of the CUSUM bars (at most ``max_bars``): from trade
     ``start + 1`` on, ``s+ = max(0, s+ + rets[i])`` and ``s- = min(0, s- +
     rets[i])``; trade i closes a bar when ``can_close[i]`` and ``s+ >=
     lam[i]`` (then s+ resets) or else ``s- <= -lam[i]`` (then s- resets).
+    The sums enter at ``state = (s+, s-)`` (default 0 and 0); ``start=-1``
+    lets trade 0 close (a shard after the first). With ``exit_state`` the
+    return is ``(closes, (s+, s-) after the last trade)``.
 
     Sums and compares are IEEE doubles, and the clamps keep a NaN, as the
     reference's host loop (``finmlkit_tpu/native/seg_stats.cpp:159-176``): a
@@ -443,9 +520,11 @@ def cusum_scan(rets, lam, can_close, start: int, max_bars: int):
     _check(lam, torch.float64, "lam", rets)
     _check(can_close, torch.bool, "can_close", rets)
     if rets.device.type == "cpu":
-        return cusum_scan_plain(rets, lam, can_close, start, max_bars)
+        return cusum_scan_plain(rets, lam, can_close, start, max_bars, state=state,
+                                exit_state=exit_state)
     return _launch(_CUSUM, rets.shape[0], start + 1, max_bars, rets.device,
-                   x=rets, lam=lam, can_close=can_close)
+                   x=rets, lam=lam, can_close=can_close, entry=state,
+                   exit_state=exit_state)
 
 
 # ---------------------------------------------------------------------------
@@ -453,15 +532,18 @@ def cusum_scan(rets, lam, can_close, start: int, max_bars: int):
 # ---------------------------------------------------------------------------
 
 def info_scan_plain(w, e_ticks0: float, e_rate0: float, alpha_t: float,
-                    alpha_r: float, max_bars: int, run_mode: bool):
+                    alpha_r: float, max_bars: int, run_mode: bool, *, state=None,
+                    first_closes=False, exit_state=False):
     """Plain PyTorch version of :func:`info_scan`: ``_info_bar_boundaries``
     (``indexers.py:680-753``) with a host loop, one chunk of 2048 trades or
     one event per step; the expectations update in float64 on the host."""
     n, dev = w.shape[0], w.device
+    cb0, cs0, e_t, e_r, open_pos = (_initial(_IMBALANCE, e_ticks0, e_rate0)
+                                    if state is None else state)
+    cb, cs = (torch.tensor(float(v), dtype=w.dtype, device=dev) for v in (cb0, cs0))
     zero = torch.zeros((), dtype=w.dtype, device=dev)
-    cb = cs = zero
-    e_t, e_r = float(e_ticks0), float(e_rate0)
-    out, pos, open_pos = [], 1, 0
+    e_t, e_r, open_pos = float(e_t), float(e_r), int(open_pos)
+    out, pos = [], 0 if first_closes else 1
     while pos < n and len(out) < max_bars:
         r = w[pos:pos + _INFO_CHUNK]
         if run_mode:
@@ -490,12 +572,17 @@ def info_scan_plain(w, e_ticks0: float, e_rate0: float, alpha_t: float,
             if run_mode:
                 cs = ss[-1]
             pos += _INFO_CHUNK
-    return torch.tensor(out, dtype=torch.int64, device=dev)
+    out = torch.tensor(out, dtype=torch.int64, device=dev)
+    if not exit_state:
+        return out
+    cb, cs = torch.stack([cb, cs if run_mode else zero]).tolist()
+    return out, (cb, cs, e_t, e_r, open_pos)
 
 
 def info_scan(w, e_ticks0: float, e_rate0: float, alpha_t: float,
               alpha_r: float, max_bars: int, run_mode: bool, *,
-              integral: bool = False):
+              integral: bool = False, state=None, first_closes=False,
+              exit_state=False):
     """Close indices of the imbalance bars (``run_mode=False``: ``|in-bar sum
     of w|``) or run bars (``max(in-bar sum of the positive w, in-bar sum of
     the negative |w|)``), at most ``max_bars``. Trade 0 opens the first bar
@@ -504,35 +591,50 @@ def info_scan(w, e_ticks0: float, e_rate0: float, alpha_t: float,
     E[T] + alpha_t T`` and ``E[rate] <- (1 - alpha_r) E[rate] + alpha_r
     stat / max(T, 1)``, T the bar's length.
 
+    ``state = (cb, cs, E[T], E[rate], open)`` is the state the stream enters
+    with (default ``(0, 0, e_ticks0, e_rate0, 0)``; ``cs`` is unused by
+    imbalance bars and returns 0); ``first_closes=True`` lets trade 0 close,
+    else trade 0 only opens the bar. With ``exit_state`` the return is
+    ``(closes, state after the last trade)``, ``open`` relative to the stream.
+
     ``w`` is float64. On a CUDA tensor this launches kernel E: imbalance
-    bars whose weights and threshold :func:`_map_states` admits (``integral=True``:
-    the caller knows the weights are finite integers) by its map path, all others
-    by its walk. On a CPU tensor it runs :func:`info_scan_plain`.
+    bars whose weights, threshold and entry sum :func:`_map_states` admits
+    (``integral=True``: the caller knows the weights are finite integers) by
+    its map path, all others by its walk. On a CPU tensor it runs
+    :func:`info_scan_plain`.
     """
     _check(w, torch.float64, "w", w)
     if w.device.type == "cpu":
         return info_scan_plain(w, e_ticks0, e_rate0, alpha_t, alpha_r,
-                               max_bars, run_mode)
+                               max_bars, run_mode, state=state,
+                               first_closes=first_closes, exit_state=exit_state)
+    state = _initial(_IMBALANCE, e_ticks0, e_rate0) if state is None else tuple(state)
+    e_t, e_r = float(state[2]), float(state[3])
     mode = _RUN if run_mode else _IMBALANCE
-    if not run_mode and w.shape[0] > 1 and _map_states(
-            w, e_ticks0, e_rate0, alpha_t, alpha_r, integral) is not None:
+    start = 0 if first_closes else 1
+    if not run_mode and w.shape[0] > start and _map_states(
+            w, e_t, e_r, alpha_t, alpha_r, integral, float(state[0])) is not None:
         mode = _IMBALANCE_MAP
-    return _launch(mode, w.shape[0], 1, max_bars,
-                   w.device, x=w, e_t=float(e_ticks0), e_r=float(e_rate0),
-                   alpha_t=float(alpha_t), alpha_r=float(alpha_r))
+    return _launch(mode, w.shape[0], start, max_bars,
+                   w.device, x=w, e_t=e_t, e_r=e_r,
+                   alpha_t=float(alpha_t), alpha_r=float(alpha_r), entry=state,
+                   exit_state=exit_state)
 
 
 # ---------------------------------------------------------------------------
 # Volume bars
 # ---------------------------------------------------------------------------
 
-def volume_scan_plain(units, thr: int, max_bars: int):
+def volume_scan_plain(units, thr: int, max_bars: int, *, state=None,
+                      first_closes=False, exit_state=False):
     """Plain PyTorch version of :func:`volume_scan`: ``_volume_boundaries``
     (``indexers.py:368-404``) with a host loop, one ``searchsorted`` jump
-    over the int64 prefix of the units per bar."""
+    over the int64 prefix of the units per bar; the in-bar sum at trade j is
+    ``c[j] - base``, the entry carry a negative base (``base_init`` there)."""
     n, dev = units.shape[0], units.device
     c = torch.cumsum(units, 0)
-    out, pos, base = [], 0, 0
+    carry = 0 if state is None else int(state)
+    out, pos, base = [], -1 if first_closes else 0, -carry
     while pos < n and len(out) < max_bars:
         at = torch.searchsorted(c, torch.tensor([base + thr], device=dev))[0]
         nxt = torch.clamp(at, min=pos + 1)
@@ -541,20 +643,34 @@ def volume_scan_plain(units, thr: int, max_bars: int):
             break
         out.append(nxt)
         pos, base = nxt, val
-    return torch.tensor(out, dtype=torch.int64, device=dev)
+    out = torch.tensor(out, dtype=torch.int64, device=dev)
+    if not exit_state:
+        return out
+    return out, (int(c[n - 1]) if n else 0) - base
 
 
-def volume_scan(units, thr: int, max_bars: int):
+def volume_scan(units, thr: int, max_bars: int, *, state=None, first_closes=False,
+                exit_state=False):
     """Close indices of the volume bars (at most ``max_bars``): the in-bar sum
     of the int64 ``units`` starts with trade 0's, checks start at trade 1, a
     bar closes at the first trade where the sum reaches the integer ``thr``,
     and the sum resets to zero (the overshoot is dropped).
+
+    ``state`` is the carried units of the bar open before trade 0 (default
+    0), to which trade 0 adds unchecked, or, with ``first_closes=True``, from
+    which trade 0 is checked. With ``exit_state`` the return is ``(closes,
+    units carried after the last trade)``. (The JAX ring carries the volume
+    since the last close as a float and seeds ``base_init=-carry``,
+    ``sharded_indexers.py:281-289``; here it is the same integer.)
 
     On a CUDA tensor this launches kernel E; on a CPU tensor it runs
     :func:`volume_scan_plain`.
     """
     _check(units, torch.int64, "units", units)
     if units.device.type == "cpu":
-        return volume_scan_plain(units, thr, max_bars)
-    return _launch(_VOLUME, units.shape[0], 1, max_bars, units.device,
-                   units=units, thr=int(thr))
+        return volume_scan_plain(units, thr, max_bars, state=state,
+                                 first_closes=first_closes, exit_state=exit_state)
+    got = _launch(_VOLUME, units.shape[0], 0 if first_closes else 1, max_bars,
+                  units.device, units=units, thr=int(thr),
+                  entry=None if state is None else (int(state),), exit_state=exit_state)
+    return (got[0], got[1][0]) if exit_state else got

@@ -33,6 +33,17 @@ picks one, and the host reads it once:
   threshold outside that range): one thread adds 16 values before one
   compare (:func:`walk_blocks` on the CPU).
 
+Entry and exit sums. Every walk, kernel, plain loop and CPU model, takes
+``state=``, the running float64 sum before trade 0 (the volume since the last
+close, or the dollar remainder): trade 0 is then checked like any other, as
+in a time shard after the first. ``exit_state=True`` returns ``(closes, the
+sum after the last trade)``; it is the stream's end only where fewer than
+``max_bars`` closes were found. The walk is the loop, so a stream cut anywhere
+and walked in turn gives its closes bit for bit. An entry sum that is
+negative or not finite goes to the block walk, as such a value does; the
+units route takes one only where it is a whole number of the unit (it is
+then one more value of the route pass's); the warp step takes any other.
+
 ``LAUNCHES`` counts walks, one a call; ``ROUTE_LAUNCHES`` counts them by
 route. On the device a walk is the route pass (one launch, two memsets) and
 then: the warp step 4 launches and a memset (6 launches where a volume walk
@@ -56,7 +67,7 @@ from . import event_scan
 
 __all__ = ["volume_walk", "volume_walk_plain", "dollar_walk", "dollar_walk_plain",
            "walk_blocks", "walk_warp", "walk_chunked", "grid_step", "in_warp_domain",
-           "exact_unit", "units_threshold"]
+           "exact_unit", "units_threshold", "route_of"]
 
 LAUNCHES = 0                 # kernel D walks in this process (volume and dollar)
 ROUTE_LAUNCHES = [0, 0, 0]   # of them by route: the warp step, the block walk, units
@@ -73,53 +84,69 @@ _TIE = _TWO52 + 1         # added to a tie's floor in the tables (kTie)
 _THR_LO, _THR_HI = 2.0 ** -960, 2.0 ** 1000
 
 
-def _walk_plain(values: torch.Tensor, thr: float, max_bars: int, reset: bool):
+def _walk_plain(values: torch.Tensor, thr: float, max_bars: int, reset: bool,
+                state=None, exit_state=False):
     """The loop of ``seg_stats.cpp:183-211`` over float64 ``values`` (one per
-    trade); returns the close indices as int64 on the values' device."""
+    trade), from the sum ``state`` before trade 0 where given; returns the
+    close indices as int64 on the values' device (and the sum after the last
+    trade)."""
     x = values.tolist()
     out = []
+    cum = 0.0 if state is None else float(state)
     if x and max_bars > 0:
         thr = float(thr)
-        cum = x[0]
-        for i, xi in enumerate(islice(x, 1, None), 1):
+        if state is None:
+            cum = x[0]
+        for i, xi in enumerate(islice(x, 0 if state is not None else 1, None),
+                               0 if state is not None else 1):
             cum += xi
             if cum >= thr:
                 out.append(i)
                 cum = 0.0 if reset else cum - thr
                 if len(out) == max_bars:
                     break
-    return torch.tensor(out, dtype=torch.int64, device=values.device)
+    out = torch.tensor(out, dtype=torch.int64, device=values.device)
+    return (out, cum) if exit_state else out
 
 
-def volume_walk_plain(volumes: torch.Tensor, thr: float, max_bars: int) -> torch.Tensor:
+def volume_walk_plain(volumes: torch.Tensor, thr: float, max_bars: int, *, state=None,
+                      exit_state=False):
     """Plain version of :func:`volume_walk`, on any device."""
-    return _walk_plain(volumes.to(torch.float64), thr, max_bars, reset=True)
+    return _walk_plain(volumes.to(torch.float64), thr, max_bars, True, state, exit_state)
 
 
 def dollar_walk_plain(prices: torch.Tensor, volumes: torch.Tensor, thr: float,
-                      max_bars: int) -> torch.Tensor:
+                      max_bars: int, *, state=None, exit_state=False):
     """Plain version of :func:`dollar_walk`, on any device. The products
     ``prices * volumes`` are formed first, each rounded once, as the kernel
     forms them."""
     return _walk_plain(prices.to(torch.float64) * volumes.to(torch.float64), thr,
-                       max_bars, reset=False)
+                       max_bars, False, state, exit_state)
 
 
 def walk_blocks(values, thr: float, max_bars: int, reset: bool, *, chunk: int = _CHUNK,
-                block: int = _BLOCK):
+                block: int = _BLOCK, state=None, exit_state=False):
     """Kernel D's block walk on the CPU, for the tests: float64 ``values``
     (numpy) cut into chunks of ``chunk`` and each chunk's values after the
     first trade into blocks of ``block``. A block whose values are all >= 0
     and whose in-order sum stays below ``thr`` after its last value is added
     in one go; any other block, and a chunk's tail, is walked again a step at
     a time from the sum before it. Returns the closes and the number of
-    blocks walked twice."""
+    blocks walked twice (and with ``exit_state`` the sum after the last
+    trade; ``state`` as in :func:`_walk_plain`)."""
     out, again = [], 0
     n = len(values)
+    cum = 0.0 if state is None else float(state)
+
+    def result():
+        res = np.asarray(out, np.int64), again
+        return res + (cum,) if exit_state else res
+
     if n == 0 or max_bars <= 0:
-        return np.asarray(out, np.int64), again
+        return result()
     x = values.tolist()
-    cum = x[0]
+    if state is None:
+        cum = x[0]
 
     def step(i):
         nonlocal cum
@@ -131,7 +158,7 @@ def walk_blocks(values, thr: float, max_bars: int, reset: bool, *, chunk: int = 
 
     for base in range(0, n, chunk):
         m = min(chunk, n - base)
-        j = 1 if base == 0 else 0
+        j = 1 if base == 0 and state is None else 0
         while j + block <= m:
             xs = x[base + j:base + j + block]
             total = cum
@@ -142,12 +169,12 @@ def walk_blocks(values, thr: float, max_bars: int, reset: bool, *, chunk: int = 
             else:
                 again += 1
                 if any(step(base + j + u) for u in range(block)):
-                    return np.asarray(out, np.int64), again
+                    return result()
             j += block
         for i in range(base + j, base + m):
             if step(i):
-                return np.asarray(out, np.int64), again
-    return np.asarray(out, np.int64), again
+                return result()
+    return result()
 
 
 # --- the warp step on the CPU, on exact integers --------------------------
@@ -377,7 +404,7 @@ def _new_stats():
 
 
 def walk_warp(values, thr: float, max_bars: int, reset: bool, *, binades: int = BINADES,
-              tile: int = TILE):
+              tile: int = TILE, state=None, exit_state=False):
     """Kernel D's warp step on the CPU, for the tests: the walk of float64
     ``values`` (numpy, in :func:`in_warp_domain`) from trade 0, as one walker
     over tables of ``binades`` binades in buffers of ``tile`` trades.
@@ -387,17 +414,20 @@ def walk_warp(values, thr: float, max_bars: int, reset: bool, *, binades: int = 
     buffer's later steps of 32), ``searches`` (second rounds, in the step
     found), ``ties``, ``crossings`` (real adds from a table's
     exact state: binade crossings and closes), ``serial`` (real adds below the
-    lowest table or above the threshold) and ``closes``."""
+    lowest table or above the threshold) and ``closes``; with ``exit_state``
+    also the sum after the last trade (``state`` as in :func:`_walk_plain`)."""
     assert tile % 32 == 0 and tile <= 1024 and in_warp_domain(values, thr)
     st = _new_stats()
     x = np.asarray(values, np.float64).tolist()
     closes = []
+    end = 0.0 if state is None else float(state)
     if x and max_bars > 0:
         win = _window(thr, binades)
         kap = _tables(x, win[0], binades)
-        _segment(x, kap, win, thr, reset, 0, len(x), 1, x[0], None, max_bars, tile, st,
-                 closes)
-    return np.asarray(closes, np.int64), st
+        end = _segment(x, kap, win, thr, reset, 0, len(x), 1 if state is None else 0,
+                       x[0] if state is None else end, None, max_bars, tile, st, closes)[0]
+    res = np.asarray(closes, np.int64), st
+    return res + (end,) if exit_state else res
 
 
 def chunk_bounds(n: int, chunks: int, tile: int = TILE):
@@ -408,7 +438,7 @@ def chunk_bounds(n: int, chunks: int, tile: int = TILE):
 
 
 def walk_chunked(values, thr: float, max_bars: int, chunks: int, *,
-                 binades: int = BINADES, tile: int = TILE):
+                 binades: int = BINADES, tile: int = TILE, state=None, exit_state=False):
     """Kernel D's volume walk in chunks on the CPU, for the tests (the sum
     restarts at 0 at each close, so two walks that close at one trade agree
     from there on).
@@ -421,27 +451,32 @@ def walk_chunked(values, thr: float, max_bars: int, chunks: int, *,
     that last walk closed. A chunk's closes are the fix-up's before its merge,
     pass 2's before its merge, pass 1's after. Returns the first ``max_bars``
     closes and :func:`walk_warp`'s counts with ``chunks``, ``unmerged`` (pass-2
-    walks that never merged) and ``fixed`` (chunks the fix-up walked)."""
+    walks that never merged) and ``fixed`` (chunks the fix-up walked); with
+    ``exit_state`` also the sum after the last trade, the last chunk's final
+    end state (``state``, chunk 0's entry sum, as in :func:`_walk_plain`)."""
     assert tile % 32 == 0 and tile <= 1024 and in_warp_domain(values, thr)
     st = _new_stats()
     x = np.asarray(values, np.float64).tolist()
     n = len(x)
     if n == 0 or max_bars <= 0:
-        return np.zeros(0, np.int64), dict(st, chunks=0)
+        res = np.zeros(0, np.int64), dict(st, chunks=0)
+        return res + (0.0 if state is None else float(state),) if exit_state else res
     win = _window(thr, binades)
     kap = _tables(x, win[0], binades)
     per, nch = chunk_bounds(n, chunks, tile)
     bounds = [(c * per, min(c * per + per, n)) for c in range(nch)]
 
-    def walk(c, g, old, closes):
+    def walk(c, g, old, closes, first=False):
         lo, hi = bounds[c]
-        return _segment(x, kap, win, thr, True, lo, hi, lo + (c == 0), g, old, math.inf,
+        return _segment(x, kap, win, thr, True, lo, hi, lo + first, g, old, math.inf,
                         tile, st, closes)
 
     a, end1 = set(), []
     for c in range(nch):
         got = []
-        end1.append(walk(c, x[0] if c == 0 else 0.0, None, got)[0])
+        first = c == 0 and state is None
+        g0 = (x[0] if first else float(state)) if c == 0 else 0.0
+        end1.append(walk(c, g0, None, got, first)[0])
         a.update(got)
     b, m2, end2 = set(), [lo for lo, _ in bounds], list(end1)
     for c in range(1, nch):
@@ -469,7 +504,8 @@ def walk_chunked(values, thr: float, max_bars: int, chunks: int, *,
     closes = sorted(i for c, (lo, hi) in enumerate(bounds)
                     for i in range(lo, hi)
                     if (i in f if i < m3[c] else i in b if i < m2[c] else i in a))
-    return np.asarray(closes[:max_bars], np.int64), dict(st, chunks=nch)
+    res = np.asarray(closes[:max_bars], np.int64), dict(st, chunks=nch)
+    return res + (final_end,) if exit_state else res
 
 
 # --- the wrappers ----------------------------------------------------------
@@ -503,8 +539,37 @@ def _aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _entry_low_bit(state: float):
+    """The exponent of an entry sum's lowest set bit, or None for 0."""
+    if state == 0.0:
+        return None
+    num, den = Fraction(state).as_integer_ratio()
+    return (num & -num).bit_length() - 1 - (den.bit_length() - 1)
+
+
+def route_of(mode: int, flag: int, low_bit: int, top: int, thr: float, state=None):
+    """The route of a walk from what the route pass found (``flag``: a value
+    negative or not finite; ``low_bit`` and ``top``: the lowest set bit over
+    the values > 0, 2^62 or more where none, and the largest value's bits) and
+    the entry sum ``state`` (None: a fresh stream). The entry sum is one more
+    value: negative or not finite, it sends the walk to the block walk, and
+    the units route takes it where it is a whole number of the unit. Returns
+    ``(route, u)``, u the units route's exponent."""
+    entered = state is not None
+    if flag or (entered and not (math.isfinite(state) and state >= 0.0)) \
+            or not _THR_LO <= thr < _THR_HI:
+        return BLOCK, None
+    u = None
+    if mode == _VOLUME:
+        lows = [b for b in (low_bit if low_bit < 1 << 62 else None,
+                            _entry_low_bit(state) if entered else None) if b is not None]
+        if lows:
+            u = _units_exponent(min(lows), max(_from_bits(top), state or 0.0), thr)
+    return (WARP, None) if u is None else (UNITS, u)
+
+
 def _launch(mode: int, prices, volumes, thr: float, max_bars: int, *, chunks=None,
-            stats=None) -> torch.Tensor:
+            stats=None, state=None, exit_state=False):
     """Kernel D over CUDA tensors: the route pass, one device read of what it
     found, then the route's launches and one device read of the number of
     closes. ``chunks`` cuts a volume walk of the warp step (default
@@ -512,12 +577,20 @@ def _launch(mode: int, prices, volumes, thr: float, max_bars: int, *, chunks=Non
     depend on it. ``stats``, a zeroed int64 tensor of ``len(STATS)`` on the
     device, receives the warp step's counts (``STATS``; the last three in SM
     clock cycles: the walkers', their waits for a tile, the producers' waits
-    for room); other routes leave it at 0."""
+    for room); other routes leave it at 0. ``state`` and ``exit_state`` as in
+    :func:`volume_walk`; the exit sum is read with the count."""
     global LAUNCHES
     dev = volumes.device
     n, max_bars = volumes.shape[0], int(max_bars)
     if n == 0 or max_bars <= 0:
-        return torch.empty(0, dtype=torch.int64, device=dev)
+        empty = torch.empty(0, dtype=torch.int64, device=dev)
+        if not exit_state:
+            return empty
+        if n == 0 or state is not None:   # an empty stream, or no walk from its entry
+            return empty, (0.0 if state is None else float(state))
+        return empty, None
+    entered = state is not None
+    state = float(state) if entered else 0.0
     if chunks is None:
         chunks = 1 if mode == _DOLLAR else _default_chunks(dev)
     if chunks < 1:
@@ -537,52 +610,70 @@ def _launch(mode: int, prices, volumes, thr: float, max_bars: int, *, chunks=Non
         stream = torch.cuda.current_stream(dev).cuda_stream
         _build.check(lib.fmk_float_walk_route(mode, p, volumes.data_ptr(), n, info.data_ptr(),
                                               stream), "float_walk route")
-        flag, low_bit, top = info.tolist()
-        route, u = BLOCK, None
-        if not flag and _THR_LO <= thr < _THR_HI:
-            if mode == _VOLUME and low_bit < 1 << 62:   # a value > 0
-                u = _units_exponent(low_bit, _from_bits(top), thr)
-            route = WARP if u is None else UNITS
+        route, u = route_of(mode, *info.tolist(), thr, state if entered else None)
         if route == UNITS:
             units = torch.empty(n, dtype=torch.int64, device=dev)
             _build.check(lib.fmk_float_walk_units(volumes.data_ptr(), n, u, units.data_ptr(),
                                                   stream), "float_walk units")
         else:
             out = torch.empty(max_bars, dtype=torch.int64, device=dev)
-            count = torch.empty(1, dtype=torch.int64, device=dev)
+            io = torch.empty(2, dtype=torch.int64, device=dev)   # the count, the exit sum
             scratch = torch.empty(lib.fmk_float_walk_scratch_bytes(n, chunks) if route == WARP
                                   else 0, dtype=torch.uint8, device=dev)
             _build.check(lib.fmk_float_walk(mode, route, p, volumes.data_ptr(), n, float(thr),
-                                            max_bars, chunks, scratch.data_ptr(),
-                                            out.data_ptr(), count.data_ptr(),
+                                            max_bars, chunks, int(entered), state,
+                                            scratch.data_ptr(), out.data_ptr(), io.data_ptr(),
+                                            io.data_ptr() + 8 if exit_state else None,
                                             None if stats is None else stats.data_ptr(),
                                             stream), "float_walk")
     if route == UNITS:
-        out = event_scan.volume_scan(units, units_threshold(thr, u), max_bars)
+        got = event_scan.volume_scan(
+            units, units_threshold(thr, u), max_bars,
+            state=int(Fraction(state) / Fraction(2) ** u) if entered else None,
+            first_closes=entered, exit_state=exit_state)
+        if exit_state:
+            out, carry = got
+            end = math.ldexp(float(carry), u)   # exact: below 2^53 units
+        else:
+            out = got
+    elif exit_state:
+        count, bits = io.tolist()
+        out, end = out[:count], _from_bits(bits)
     else:
-        out = out[:int(count)]
+        out = out[:int(io[0])]
     LAUNCHES += 1
     ROUTE_LAUNCHES[route] += 1
-    return out
+    return (out, end) if exit_state else out
 
 
-def volume_walk(volumes: torch.Tensor, thr: float, max_bars: int) -> torch.Tensor:
+def volume_walk(volumes: torch.Tensor, thr: float, max_bars: int, *, state=None,
+                exit_state=False):
     """Close indices (int64) of volume bars over float32 ``volumes``: the sum
-    in float64 restarts at 0 at each close. On a CUDA tensor this launches
-    kernel D; on a CPU tensor it runs :func:`volume_walk_plain`."""
+    in float64 restarts at 0 at each close. ``state`` is the volume since the
+    last close before trade 0 (a float64; trade 0 is then checked, as in a
+    time shard after the first); by default trade 0's volume starts the sum.
+    With ``exit_state`` the return is ``(closes, the sum after the last
+    trade)``. (The JAX ring carries the same sum and seeds ``base_init =
+    -carry`` into a prefix-sum search, ``sharded_indexers.py:281-289``; the
+    walk adds it as the loop does.) On a CUDA tensor this launches kernel D;
+    on a CPU tensor it runs :func:`volume_walk_plain`."""
     _check("volume_walk", volumes)
     if volumes.device.type == "cpu":
-        return volume_walk_plain(volumes, thr, max_bars)
-    return _launch(_VOLUME, None, volumes, thr, max_bars)
+        return volume_walk_plain(volumes, thr, max_bars, state=state, exit_state=exit_state)
+    return _launch(_VOLUME, None, volumes, thr, max_bars, state=state, exit_state=exit_state)
 
 
 def dollar_walk(prices: torch.Tensor, volumes: torch.Tensor, thr: float,
-                max_bars: int) -> torch.Tensor:
+                max_bars: int, *, state=None, exit_state=False):
     """Close indices (int64) of dollar bars over float64 ``prices`` times
-    float32 ``volumes``: the sum carries its remainder past each close. On
-    CUDA tensors this launches kernel D; on CPU tensors it runs
-    :func:`dollar_walk_plain`."""
+    float32 ``volumes``: the sum carries its remainder past each close.
+    ``state`` is the remainder carried into trade 0 (trade 0 is then
+    checked); with ``exit_state`` the return is ``(closes, the remainder after
+    the last trade)``. On CUDA tensors this launches kernel D; on CPU tensors
+    it runs :func:`dollar_walk_plain`."""
     _check("dollar_walk", volumes, prices)
     if volumes.device.type == "cpu":
-        return dollar_walk_plain(prices, volumes, thr, max_bars)
-    return _launch(_DOLLAR, prices, volumes, thr, max_bars)
+        return dollar_walk_plain(prices, volumes, thr, max_bars, state=state,
+                                 exit_state=exit_state)
+    return _launch(_DOLLAR, prices, volumes, thr, max_bars, state=state,
+                   exit_state=exit_state)

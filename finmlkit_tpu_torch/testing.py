@@ -13,7 +13,9 @@ __all__ = ["to_numpy", "assert_exact", "assert_close", "assert_window_close",
            "cusum_recurrence", "CUSUM_BAD", "cusum_bad_inputs", "PROFILE_CASES",
            "PROFILE_TS", "PROFILE_WINDOW", "profile_case", "PROFILE_EXTRA_CASES",
            "PROFILE_ROW_CASES", "profile_rows_case", "CSW_FILTER_CASES", "csw_filter_case",
-           "offgrid_trades", "FLOAT_WALK_CASES", "float_walk_case"]
+           "offgrid_trades", "FLOAT_WALK_CASES", "float_walk_case", "same_state",
+           "E_ENTRY_CASES", "e_entry_case", "D_ENTRY_CASES", "d_entry_case",
+           "bench_trades", "cusum_sigma"]
 
 
 def to_numpy(x) -> np.ndarray:
@@ -525,6 +527,32 @@ def csw_filter_case(name: str):
     raise KeyError(name)
 
 
+def bench_trades(n: int, seed: int = 0, rounded: bool = True):
+    """The synthetic month of bench.py:78-86 (about 32 days at 70 ms mean
+    spacing for 39.17M trades): ``(ts, price, amount, side)``;
+    ``rounded=False`` leaves the prices off the 0.1 grid (the same draws, the
+    round left out)."""
+    r = np.random.default_rng(seed)
+    dt = (r.exponential(70.0, n) * 1e6).astype(np.int64)
+    ts = 1_751_328_000_000_000_000 + np.cumsum(dt)  # 2025-07-01 epoch ns
+    price = 107_000.0 * np.exp(np.cumsum(r.normal(0, 2e-5, n)))
+    if rounded:
+        price = np.round(price, 1)
+    amount = np.maximum(np.round(r.lognormal(-4.0, 1.5, n), 5), 1e-5).astype(np.float32)
+    side = np.where(r.random(n) < 0.5, 1, -1).astype(np.int8)
+    return ts, price, amount, side
+
+
+def cusum_sigma(n: int, sigma: float, seed: int = 0):
+    """The CUSUM bars' sigma: ``sigma`` a trade, NaN at the first 1,000 trades
+    and at 1% of the trades drawn from the seed, so that kernel F has gaps to
+    fill."""
+    out = np.full(n, sigma)
+    out[:1000] = np.nan
+    out[np.random.default_rng(seed).random(n) < 0.01] = np.nan
+    return out
+
+
 def offgrid_trades(n: int, seed: int = 0):
     """The prices (float64, on no tick grid) and amounts (float32) of
     ``chip_smoke.synth_trades(n, seed, rounded=False)``: bench.py's draws."""
@@ -579,3 +607,97 @@ def float_walk_case(name: str, n: int = 20_000):
         thr = (thr[1] / px[0], thr[1])
         v[0] = max(v[0], np.float32(3.0 * thr[0]))
     return px, v, thr[0], thr[1], (7 if name == "cap" else n)
+
+
+def same_state(a, b) -> bool:
+    """Two scan states (tuples or numbers) equal bit for bit, NaNs alike."""
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    return len(a) == len(b) and all(
+        (x != x and y != y) or (x == y and np.signbit(x) == np.signbit(y))
+        if isinstance(x, float) else x == y for x, y in zip(a, b))
+
+
+# kernel E's entry states that sit at an edge of a scan's rule
+E_ENTRY_CASES = ("volume_below_thr", "volume_below_thr_start1", "cusum_sp_ulp",
+                 "cusum_nan_sn", "imbalance_open", "run_open", "map_outer_plus",
+                 "map_outer_minus")
+
+
+def e_entry_case(name: str, n: int, device, seed: int = 0):
+    """An entry state of kernel E at an edge: ``(mode, start, launch
+    keywords, plain)``, the keywords those of ``event_scan._launch`` (the
+    entry among them) and ``plain(max_bars)`` the plain scan from the same
+    state, returning ``(closes, exit state)``. The sums are exact (integer
+    units, dyadic returns and weights), so the kernel and the plain version
+    agree bit for bit. ``volume_below_thr``: a carry one unit below the
+    threshold, trade 0 checked (``..._start1``: trade 0 added unchecked);
+    ``cusum_sp_ulp``: s+ one ulp below a constant lam; ``cusum_nan_sn``: a NaN
+    s-; ``imbalance_open``/``run_open``: EMA bars whose open lies 12,345 trades
+    before the stream, an in-bar sum a quarter below theta (imbalance weights
+    that drift a quarter a trade); ``map_outer_*``:
+    tick imbalance at a fixed theta of 30 from the in-bar sum +-29 (K)."""
+    from .ops import event_scan as es
+    g = np.random.default_rng(seed)
+    dev = torch.device(device)
+    if name.startswith("volume"):
+        thr = 5000
+        u = torch.from_numpy(g.integers(1, 200, n)).to(dev)
+        first = name == "volume_below_thr"
+        entry = (thr - 1,)
+        return (es._VOLUME, 0 if first else 1, dict(units=u, thr=thr, entry=entry),
+                lambda mb: es.volume_scan_plain(u, thr, mb, state=thr - 1,
+                                                first_closes=first, exit_state=True))
+    if name.startswith("cusum"):
+        r = torch.from_numpy(g.integers(-64, 65, n) * 2.0 ** -20).to(dev)
+        r[0], r[1] = 0.0, 2.0 ** -20
+        lam = torch.full((n,), 2.0 ** -9, dtype=torch.float64, device=dev)
+        cc = torch.from_numpy(g.random(n) < 0.9).to(dev)
+        cc[:2] = True
+        sp = float(np.nextafter(2.0 ** -9, 0.0))
+        entry = (sp, -2.0 ** -9) if name == "cusum_sp_ulp" else (0.0, float("nan"))
+        return (es._CUSUM, 0, dict(x=r, lam=lam, can_close=cc, entry=entry),
+                lambda mb: es.cusum_scan_plain(r, lam, cc, -1, mb, state=entry,
+                                               exit_state=True))
+    if name.startswith("map"):
+        w = torch.from_numpy(np.where(g.random(n) < 0.5, 1.0, -1.0)).to(dev)
+        cb = 29.0 if name == "map_outer_plus" else -29.0
+        entry = (cb, 0.0, 1.0, 30.0, -7)
+        return (es._IMBALANCE_MAP, 0, dict(x=w, e_t=1.0, e_r=30.0, entry=entry),
+                lambda mb: es.info_scan_plain(w, 1.0, 30.0, 0.0, 0.0, mb, False,
+                                              state=entry, first_closes=True,
+                                              exit_state=True))
+    run = name == "run_open"
+    # imbalance: a drift of a quarter a trade, so that the bars keep closing
+    w = torch.from_numpy(g.integers(-8, 9, n) / 8.0 if run
+                         else g.integers(-6, 11, n) / 8.0).to(dev)
+    e_t, e_r, a_t, a_r = 40.0, (0.75 if run else 0.25), 0.05, 0.05
+    entry = (e_t * e_r - 0.25, (e_t * e_r - 0.5) if run else 0.0, e_t, e_r, -12_345)
+    mode = es._RUN if run else es._IMBALANCE
+    return (mode, 0, dict(x=w, e_t=e_t, e_r=e_r, alpha_t=a_t, alpha_r=a_r, entry=entry),
+            lambda mb: es.info_scan_plain(w, e_t, e_r, a_t, a_r, mb, run, state=entry,
+                                          first_closes=True, exit_state=True))
+
+
+# kernel D's streams for entry sums, by the route the walk takes
+D_ENTRY_CASES = ("units", "warp", "block", "dollar_warp", "dollar_block")
+
+
+def d_entry_case(name: str, n: int, device, seed: int = 31):
+    """A stream of kernel D for entry sums: ``(mode, prices, volumes,
+    threshold)`` on ``device``, mode "volume" or "dollar". ``units``: the
+    off-grid draws, whose volume walk is the exact-sum case; ``warp``: one
+    dust trade of 2^-100 among them (the warp step); ``block``: one amount
+    negated (the block walk); ``dollar_*`` the same for the dollar walk.
+    Thresholds total / 500."""
+    px, v = offgrid_trades(n, seed)
+    v = v.copy()
+    if name.endswith("warp") and name != "dollar_warp":
+        v[n // 2] = np.float32(2.0 ** -100)
+    if name.endswith("block"):
+        v[n // 3] = -v[n // 3]
+    mode = "dollar" if name.startswith("dollar") else "volume"
+    x = px * v.astype(np.float64) if mode == "dollar" else v.astype(np.float64)
+    dev = torch.device(device)
+    return (mode, torch.from_numpy(px).to(dev), torch.from_numpy(v).to(dev),
+            float(np.abs(x).sum()) / 500)

@@ -609,8 +609,9 @@ def fe_library(src_dir, out_dir):
         lib.fmk_ffill_scratch_bytes.restype = I64
     lib.fmk_event_scratch_bytes.argtypes = [Int, I64, I64, I64]
     lib.fmk_event_scratch_bytes.restype = I64
+    entered = "const void* entry" in (Path(src_dir) / "event_scan.cu").read_text()
     lib.fmk_event_scan.argtypes = [Int, P, P, P, P, I64, I64, F64, F64, F64, F64, I64, P,
-                                   I64, P, I64, P, P, P]
+                                   I64, P, I64, P, P, P] + ([P, P] if entered else [])
     scratch = {}
 
     def buffer(key, nbytes):
@@ -634,10 +635,15 @@ def fe_library(src_dir, out_dir):
         out = torch.empty(n, dtype=torch.int64, device="cuda")
         count = torch.empty(1, dtype=torch.int64, device="cuda")
         sc = buffer("e", lib.fmk_event_scratch_bytes(0, n, start + 1, chunks))
-        rc = lib.fmk_event_scan(0, rets.data_ptr(), lam.data_ptr(), cc.data_ptr(), None,
-                                n, start + 1, 0.0, 0.0, 0.0, 0.0, 0, sc.data_ptr(), chunks,
-                                out.data_ptr(), n, count.data_ptr(), None,
-                                torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        head = (0, rets.data_ptr(), lam.data_ptr(), cc.data_ptr(), None, n, start + 1,
+                0.0, 0.0, 0.0, 0.0, 0)
+        if entered:   # no entry state (zeros) and no exit state
+            rc = lib.fmk_event_scan(*head, None, sc.data_ptr(), chunks, out.data_ptr(), n,
+                                    count.data_ptr(), None, None, stream)
+        else:
+            rc = lib.fmk_event_scan(*head, sc.data_ptr(), chunks, out.data_ptr(), n,
+                                    count.data_ptr(), None, stream)
         if rc != 0:
             raise RuntimeError(f"kernel E from {src_dir}: CUDA error {rc}")
         return out, count
@@ -1291,10 +1297,12 @@ def d_library(src_dir, out_dir, edits=()):
     lib = ctypes.CDLL(str(out_dir / "lib.so"))
     P, I64, F64, I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_double, ctypes.c_int
     routed = "fmk_float_walk_route" in src
+    entered = "int entered" in src
     if routed:
         lib.fmk_float_walk_scratch_bytes.argtypes = [I64, I64]
         lib.fmk_float_walk_scratch_bytes.restype = I64
-        lib.fmk_float_walk.argtypes = [I32, I32, P, P, I64, F64, I64, I64, P, P, P, P, P]
+        lib.fmk_float_walk.argtypes = [I32, I32, P, P, I64, F64, I64, I64] + (
+            [I32, F64, P, P, P, P, P, P] if entered else [P, P, P, P, P])
     else:
         lib.fmk_float_walk.argtypes = [I32, P, P, I64, F64, I64, P, P, P]
 
@@ -1308,9 +1316,14 @@ def d_library(src_dir, out_dir, edits=()):
             ch = 1 if mode == 1 else (chunks or fw._default_chunks(v.device))
             scratch = torch.empty(lib.fmk_float_walk_scratch_bytes(n, ch) if route == 0 else 0,
                                   dtype=torch.uint8, device="cuda")
-            rc = lib.fmk_float_walk(mode, route, pp, v.data_ptr(), n, thr, max_bars, ch,
-                                    scratch.data_ptr(), out.data_ptr(), count.data_ptr(),
-                                    None if stats is None else stats.data_ptr(), stream)
+            st = None if stats is None else stats.data_ptr()
+            head = (mode, route, pp, v.data_ptr(), n, thr, max_bars, ch)
+            if entered:   # a fresh stream, no exit sum
+                rc = lib.fmk_float_walk(*head, 0, 0.0, scratch.data_ptr(), out.data_ptr(),
+                                        count.data_ptr(), None, st, stream)
+            else:
+                rc = lib.fmk_float_walk(*head, scratch.data_ptr(), out.data_ptr(),
+                                        count.data_ptr(), st, stream)
         else:
             rc = lib.fmk_float_walk(mode, pp, v.data_ptr(), n, thr, max_bars, out.data_ptr(),
                                     count.data_ptr(), stream)

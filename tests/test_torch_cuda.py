@@ -1203,3 +1203,145 @@ def test_store_round_trip_on_card(cuda, tmp_path):
         assert_exact(got[k], v, k)
     chip_smoke.hold_resample(card.read(timeframe="1min"), cpu.read(timeframe="1min"),
                              "the card's 1min read vs the CPU's")
+
+
+# --- entry and exit states of kernels E and D -------------------------------
+
+from finmlkit_tpu_torch.testing import (D_ENTRY_CASES, E_ENTRY_CASES,  # noqa: E402
+                                       d_entry_case, e_entry_case, same_state)
+
+ENTRY_N = 2048 * 200 + 17          # 201 tiles: 132 chunks of whole tiles
+
+
+@pytest.mark.parametrize("chunks", [1, None, 132])
+@pytest.mark.parametrize("name", E_ENTRY_CASES)
+def test_event_scan_entry_state_matches_plain(cuda, name, chunks):
+    """Kernel E from an adversarial entry state against its plain version:
+    the closes and the exit state bit for bit, at 1, the default and 132
+    chunks."""
+    mode, start, kw, plain = e_entry_case(name, ENTRY_N, cuda)
+    want, want_end = plain(ENTRY_N)
+    got, end = event_scan._launch(mode, ENTRY_N, start, ENTRY_N, cuda, chunks=chunks,
+                                  exit_state=True, **kw)
+    assert_exact(got, want, name)
+    assert same_state(end, want_end), (end, want_end)
+    assert len(want) > 10
+
+
+def _split_scans(mode, n, k, kw, start):
+    """Kernel E over [0, k) and then over [k, n) from its exit state."""
+    whole = event_scan._launch(mode, n, start, n, kw["dev"], exit_state=True,
+                               **kw["args"])
+    cut = {key: (t[:k] if torch.is_tensor(t) and t.dim() == 1 else t)
+           for key, t in kw["args"].items()}
+    rest = {key: (t[k:] if torch.is_tensor(t) and t.dim() == 1 else t)
+            for key, t in kw["args"].items()}
+    a, mid = event_scan._launch(mode, k, start, n, kw["dev"], exit_state=True, **cut)
+    if mode in (event_scan._IMBALANCE, event_scan._RUN, event_scan._IMBALANCE_MAP):
+        mid = mid[:4] + (mid[4] - k,)            # open relative to the second part
+    b, end = event_scan._launch(mode, n - k, 0, n, kw["dev"], exit_state=True,
+                                entry=mid, **rest)
+    if mode in (event_scan._IMBALANCE, event_scan._RUN, event_scan._IMBALANCE_MAP):
+        end = end[:4] + (end[4] + k,)
+    return whole, (torch.cat([a, b + k]), end)
+
+
+@pytest.mark.parametrize("where", ["tile", "chunk", "close", "mid"])
+@pytest.mark.parametrize("mode", ["cusum", "imbalance", "run", "volume", "map"])
+def test_event_scan_split_equals_whole(cuda, mode, where):
+    """A stream scanned in two parts, the second from the first's exit state,
+    gives the whole scan's closes and exit state (exact sums)."""
+    n = ENTRY_N
+    g = np.random.default_rng(3)
+    if mode == "cusum":
+        r = torch.from_numpy(g.integers(-64, 65, n) * 2.0 ** -20).to(cuda)
+        args = dict(x=r, lam=torch.full((n,), 2.0 ** -8, dtype=torch.float64, device=cuda),
+                    can_close=torch.from_numpy(g.random(n) < 0.9).to(cuda))
+        m, start = event_scan._CUSUM, 1
+    elif mode == "volume":
+        args = dict(units=torch.from_numpy(g.integers(1, 200, n)).to(cuda), thr=5000)
+        m, start = event_scan._VOLUME, 1
+    elif mode == "map":
+        args = dict(x=torch.from_numpy(np.where(g.random(n) < 0.5, 1.0, -1.0)).to(cuda),
+                    e_t=1.0, e_r=30.0)
+        m, start = event_scan._IMBALANCE_MAP, 1
+    else:
+        w = g.integers(-8, 9, n) if mode == "run" else g.integers(-6, 11, n)  # a drift
+        args = dict(x=torch.from_numpy(w / 8.0).to(cuda), e_t=40.0,
+                    e_r=0.75 if mode == "run" else 0.25, alpha_t=0.05, alpha_r=0.05)
+        m, start = (event_scan._RUN if mode == "run" else event_scan._IMBALANCE), 1
+    closes = event_scan._launch(m, n, start, n, cuda, **args)
+    assert len(closes) > 10
+    k = {"tile": start + 2048 * 37, "chunk": start + 2048 * 100,
+         "close": int(closes[len(closes) // 2]) + 1, "mid": 150_001}[where]
+    (w, w_end), (s, s_end) = _split_scans(m, n, k, {"dev": cuda, "args": args}, start)
+    assert_exact(s, w, f"{mode} split at {k}")
+    assert same_state(s_end, w_end), (s_end, w_end)
+
+
+@pytest.mark.parametrize("entry", ["split", "below_thr"])
+@pytest.mark.parametrize("name", D_ENTRY_CASES)
+def test_float_walk_entry_sum_matches_plain(cuda, name, entry):
+    """Kernel D from an entry sum against its plain loop, closes and exit sum
+    bit for bit, on each route: the exit sum of the stream's first third
+    (the walk of the rest then equals the whole walk's tail), or one ulp
+    below the threshold (not a whole number of units: the warp step)."""
+    mode, px, v, thr = d_entry_case(name, WALK_N, cuda)
+    walk = float_walk.volume_walk if mode == "volume" else float_walk.dollar_walk
+    plain = float_walk.volume_walk_plain if mode == "volume" else float_walk.dollar_walk_plain
+    args = (lambda a, b: (v[a:b],)) if mode == "volume" else (lambda a, b: (px[a:b], v[a:b]))
+    k = WALK_N // 3
+    whole, whole_end = walk(*args(0, WALK_N), thr, WALK_N, exit_state=True)
+    if entry == "split":
+        head, state = walk(*args(0, k), thr, WALK_N, exit_state=True)
+        want_head, want_state = plain(*args(0, k), thr, WALK_N, exit_state=True)
+        assert_exact(head, want_head, "head")
+        assert same_state(state, want_state)
+    else:
+        state = float(np.nextafter(thr, 0.0))
+    before = list(float_walk.ROUTE_LAUNCHES)
+    got, end = walk(*args(k, WALK_N), thr, WALK_N, state=state, exit_state=True)
+    routes = _route_delta(before)
+    want, want_end = plain(*args(k, WALK_N), thr, WALK_N, state=state, exit_state=True)
+    assert_exact(got, want, f"{name} from {state}")
+    assert same_state(end, want_end), (end, want_end)
+    if entry == "split":
+        assert_exact(torch.cat([head, got + k]), whole, "split against whole")
+        assert same_state(end, whole_end)
+    route = {"units": float_walk.UNITS, "warp": float_walk.WARP,
+             "block": float_walk.BLOCK, "dollar_warp": float_walk.WARP,
+             "dollar_block": float_walk.BLOCK}[name]
+    if name == "units" and entry == "below_thr":
+        route = float_walk.WARP             # not a whole number of units
+    assert routes == [int(r == route) for r in range(3)], routes
+
+
+# --- the sharded layer on the card ---------------------------------------------
+
+@pytest.mark.parametrize("ranks,backend", [(2, "gloo"), (1, "nccl")])
+def test_sharded_layer_on_the_card(cuda, ranks, backend):
+    """``parallel/dryrun.py``'s flow on ranks sharing the card (gloo), and on
+    one nccl rank: every indexer, the products, footprints, profile, labels
+    and weights against the single-device functions on the card."""
+    from finmlkit_tpu_torch.parallel import dryrun
+    from finmlkit_tpu_torch.parallel.mesh import spawn_mesh
+    res = spawn_mesh(dryrun._dryrun_rank, ranks, args=(50_000, 7), backend=backend,
+                     device="cuda", timeout=300)
+    for r in res:
+        assert r["bad"] == [], r["bad"]
+        assert min(r["bars"].values()) > 5
+
+
+def test_sharded_indexers_staged_on_the_card(cuda):
+    """The indexers with every collective staged through pinned host memory
+    (as where gloo refuses CUDA tensors) give the same closes."""
+    from finmlkit_tpu_torch.parallel import dryrun
+    from finmlkit_tpu_torch.parallel.mesh import spawn_mesh
+    spec = dict(n=200_000, seed=0, sigma=2e-5, volume_bars=500, dollar_bars=500,
+                interval=60.0, ticks=1000, floor=1e-9, mult=60.0, theta=30.0,
+                run=dict(expected_ticks_init=1000.0, expected_rate_init=0.5,
+                         alpha_ticks=0.05, alpha_rate=0.05), only="indexers", stage=True)
+    res = spawn_mesh(dryrun.month_path, 2, args=(spec,), device="cuda", timeout=300)
+    assert all(r["staged_same"] and r["staged_bytes"] > 0 for r in res)
+    assert res[0]["digests"] == res[1]["digests"]
+    assert res[0]["launches"]["E cusum"] >= 1 and res[0]["launches"]["D"] >= 1
