@@ -392,10 +392,13 @@ def phase_env():
 
 def phase_build():
     from finmlkit_tpu_torch import _build
+    from finmlkit_tpu_torch.utils import trace
     t0 = time.perf_counter()
     _build.library()
     secs = time.perf_counter() - t0
-    say(f"build: {secs:.2f} s (nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'}) "
+    nvcc = trace.report().get("build.nvcc")
+    built = f"nvcc {nvcc['first_ms'] / 1e3:.2f} s" if nvcc else "cached"
+    say(f"build: {secs:.2f} s ({built}; library loads {trace.counter('build.library')}) "
         f"-> {_build.library_path()}")
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -680,8 +683,9 @@ def phase_month(card, month):
     import torch
     from finmlkit_tpu_torch import interop
     from finmlkit_tpu_torch.label.weights import return_attribution
-    from finmlkit_tpu_torch.ops import fused_scan, prefix_scan
+    from finmlkit_tpu_torch.ops import prefix_scan
     from finmlkit_tpu_torch.testing import assert_exact, assert_window_close
+    from finmlkit_tpu_torch.utils import trace
 
     n_trades, ts, amount, side, q, tr = (month[k] for k in
                                          ("n", "ts", "amount", "side", "q", "tr"))
@@ -692,11 +696,10 @@ def phase_month(card, month):
     args = (tr, int(ts[0]), int(ts[-1]))
     run_slice(*args)                      # warm: allocator, build, caches
     run_slice(*args, plain=True)
-    fused_scan.LAUNCHES = 0
-    prefix_scan.LAUNCHES = prefix_scan.FLOAT_LAUNCHES = 0
+    trace.reset()
     k_out, st = run_slice(*args)          # the main path's counted run
-    launches = {"B": fused_scan.LAUNCHES, "S": prefix_scan.LAUNCHES,
-                "S float": prefix_scan.FLOAT_LAUNCHES}
+    launches = {"B": trace.counter("launch.B"), "S": trace.counter("launch.S"),
+                "S float": trace.counter("launch.S.float")}
     if launches["B"] < 1 or launches["S"] < 1:
         fail(f"a kernel of the main path did not launch: {launches}")
     stages = {False: [st], True: []}
@@ -998,8 +1001,8 @@ def check_trade_size_numpy(out, q, amount, theta_mult=5.0, n_sample=40):
 
 def phase_dollar(card, month, with_bs=False, profile=False):
     import torch
-    from finmlkit_tpu_torch.ops import fused_scan, prefix_scan
     from finmlkit_tpu_torch.testing import assert_exact
+    from finmlkit_tpu_torch.utils import trace
     n_trades, price, amount, side, q, tr = (month[k] for k in
                                             ("n", "price", "amount", "side", "q", "tr"))
     thr = float((price * amount).sum()) / DOLLAR_BARS      # bench.py:784-786
@@ -1009,13 +1012,11 @@ def phase_dollar(card, month, with_bs=False, profile=False):
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    fused_scan.LAUNCHES = 0
-    prefix_scan.LAUNCHES = prefix_scan.FLOAT_LAUNCHES = 0
-    prefix_scan.COLS_LAUNCHES = 0
+    trace.reset()
     k_out, st = run_dollar(tr, thr)                # the path's counted run
-    launches = {"B": fused_scan.LAUNCHES, "S": prefix_scan.LAUNCHES,
-                "S float": prefix_scan.FLOAT_LAUNCHES,
-                "C": prefix_scan.COLS_LAUNCHES}
+    launches = {"B": trace.counter("launch.B"), "S": trace.counter("launch.S"),
+                "S float": trace.counter("launch.S.float"),
+                "C": trace.counter("launch.C")}
     peak = torch.cuda.max_memory_allocated()
     if launches["C"] < 2 or launches["S"] < 1 or launches["B"] < 1:
         fail(f"a kernel of the order-flow path did not launch enough: {launches}")
@@ -1284,8 +1285,9 @@ def phase_info(card, month, need):
     earlier phase timed. Returns the path's launches and ``kernels``
     entries."""
     import torch
-    from finmlkit_tpu_torch.ops import event_scan, fused_scan, prefix_scan
+    from finmlkit_tpu_torch.ops import event_scan
     from finmlkit_tpu_torch.testing import assert_exact
+    from finmlkit_tpu_torch.utils import trace
     n = month["n"]
     month["sigma"] = info_sigma(n)
 
@@ -1295,12 +1297,11 @@ def phase_info(card, month, need):
         return e
 
     def counters():
-        return {"B": fused_scan.LAUNCHES, "S": prefix_scan.LAUNCHES,
-                "S float": prefix_scan.FLOAT_LAUNCHES,
-                "C": prefix_scan.COLS_LAUNCHES, "F": prefix_scan.FFILL_LAUNCHES,
-                **{f"E {scan}": event_scan.MODE_LAUNCHES[mode]
-                   + (event_scan.MODE_LAUNCHES[event_scan._IMBALANCE_MAP]
-                      if mode == event_scan._IMBALANCE else 0)
+        return {"B": trace.counter("launch.B"), "S": trace.counter("launch.S"),
+                "S float": trace.counter("launch.S.float"),
+                "C": trace.counter("launch.C"), "F": trace.counter("launch.F.ffill"),
+                **{f"E {scan}": trace.counter("launch.E." + event_scan.MODE_NAMES[mode])
+                   + (trace.counter("launch.E.imbalance_map") if mode == event_scan._IMBALANCE else 0)
                    for scan, mode in E_MODES.items()}}
 
     kits = info_kits(month)
@@ -1310,13 +1311,10 @@ def phase_info(card, month, need):
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    fused_scan.LAUNCHES = prefix_scan.LAUNCHES = prefix_scan.COLS_LAUNCHES = 0
-    prefix_scan.FLOAT_LAUNCHES = prefix_scan.FFILL_LAUNCHES = event_scan.LAUNCHES = 0
-    event_scan.MODE_LAUNCHES[:] = [0] * len(event_scan.MODE_LAUNCHES)
+    trace.reset()
     k_out, k_st = run_info(kits, event)        # the path's counted run
     launches = counters()
-    imb_paths = {"map": event_scan.MODE_LAUNCHES[event_scan._IMBALANCE_MAP],
-                 "walk": event_scan.MODE_LAUNCHES[event_scan._IMBALANCE]}
+    imb_paths = {"map": trace.counter("launch.E.imbalance_map"), "walk": trace.counter("launch.E.imbalance")}
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     tr = kits["cusum"].trades
@@ -1627,6 +1625,7 @@ def phase_engines(card, month, need):
     from finmlkit_tpu_torch.ops import segment_hist as sh
     from finmlkit_tpu_torch.ops.segment_select import segment_median_pair_select
     from finmlkit_tpu_torch.testing import assert_exact
+    from finmlkit_tpu_torch.utils import trace
     tr, ts = month["tr"], month["ts"]
     ci = month.get("ci_time")
     if ci is None:
@@ -1644,9 +1643,9 @@ def phase_engines(card, month, need):
                                   scan=scans[sc], **kw)
 
     def counters():
-        return {"B": fs.LAUNCHES, "S": ps.LAUNCHES, "S float": ps.FLOAT_LAUNCHES,
-                "C": ps.COLS_LAUNCHES, "F": ps.FFILL_LAUNCHES + ps.FILL_LAST_LAUNCHES,
-                "H": sh.LAUNCHES, "V": fs.PLANES_LAUNCHES}
+        return {"B": trace.counter("launch.B"), "S": trace.counter("launch.S"),
+                "S float": trace.counter("launch.S.float"), "C": trace.counter("launch.C"),
+                "F": trace.counter("launch.F"), "H": trace.counter("launch.H"), "V": trace.counter("launch.V")}
 
     def timed(m, sc):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1661,9 +1660,7 @@ def phase_engines(card, month, need):
         run(m, sc)
     torch.cuda.synchronize()
     base_mem = torch.cuda.memory_allocated()
-    fs.LAUNCHES = fs.PLANES_LAUNCHES = sh.LAUNCHES = 0
-    ps.LAUNCHES = ps.FLOAT_LAUNCHES = ps.COLS_LAUNCHES = 0
-    ps.FFILL_LAUNCHES = ps.FILL_LAST_LAUNCHES = 0
+    trace.reset()
     outs, per, peak, ms = {}, {}, {}, {}
     for m, sc in combos:                       # the path's counted run
         before = counters()
@@ -1843,11 +1840,11 @@ def phase_engines(card, month, need):
     streams = fs.prep_planes_plain(*trade_args)
     stack = torch.stack(streams)
     torch.cuda.synchronize()
-    fs.IO_FLOOR_LAUNCHES = 0
+    trace.reset()
     got = {"P1": fs.bar_scan_io_floor(*streams),
            **{f"P2 k={k}": fs.bar_scan_io_floor_k(streams[0], k) for k in IO_FLOOR_K},
            "P3": fs.bar_scan_io_floor_stacked(stack)}
-    floor_launches = {"P": fs.IO_FLOOR_LAUNCHES}
+    floor_launches = {"P": trace.counter("launch.P")}
     if floor_launches["P"] != 2 + len(IO_FLOOR_K):
         fail(f"the floor probes launched P {floor_launches['P']} times")
     want = {"P1": fs.io_floor_plain(streams),
@@ -1996,8 +1993,7 @@ def phase_features(card, month):
     """Phase 9: the feature slice on the month's time bars. Returns the
     path's launches (R, W) and the ``kernels`` entries of R and W."""
     import torch
-    from finmlkit_tpu_torch.feature.kernels import structural_break
-    from finmlkit_tpu_torch.ops import scan
+    from finmlkit_tpu_torch.utils import trace
     b = month_bars(month)
     n_bars = b["close"].shape[0]
     calls = feature_calls(b)
@@ -2006,10 +2002,10 @@ def phase_features(card, month):
     torch.cuda.synchronize()
     base_mem = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    scan.LAUNCHES = structural_break.LAUNCHES = 0
+    trace.reset()
     got = {name: f() for name, f in calls.items()}     # the path's counted run
     torch.cuda.synchronize()
-    launches = {"R": scan.LAUNCHES, "W": structural_break.LAUNCHES}
+    launches = {"R": trace.counter("launch.R"), "W": trace.counter("launch.W")}
     peak_gib = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
     if launches["R"] < 1 or launches["W"] < 1:
         fail(f"a kernel of the feature path did not launch: {launches}")
@@ -2489,9 +2485,9 @@ def phase_framework(card, month, need):
     import torch
     from finmlkit_tpu_torch import _build
     from finmlkit_tpu_torch.feature import fuse
-    from finmlkit_tpu_torch.feature.kernels import VolumePro, structural_break, volume
-    from finmlkit_tpu_torch.ops import fused_scan, prefix_scan, scan
+    from finmlkit_tpu_torch.feature.kernels import VolumePro, volume
     from finmlkit_tpu_torch.testing import assert_close, assert_exact
+    from finmlkit_tpu_torch.utils import trace
     t_phase = time.perf_counter()
     b = month_bars(month)
     frame = framework_frame(b)
@@ -2521,14 +2517,12 @@ def phase_framework(card, month, need):
     torch.cuda.synchronize()
     base_mem = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    fused_scan.LAUNCHES = prefix_scan.LAUNCHES = prefix_scan.FLOAT_LAUNCHES = 0
-    prefix_scan.COLS_LAUNCHES = scan.LAUNCHES = structural_break.LAUNCHES = 0
-    volume.LAUNCHES = 0
+    trace.reset()
     got4, got4f, got4g, got_all, dollar, fp, prof = path()   # the path's counted run
     torch.cuda.synchronize()
-    launches = {"B": fused_scan.LAUNCHES, "S": prefix_scan.LAUNCHES,
-                "S float": prefix_scan.FLOAT_LAUNCHES, "C": prefix_scan.COLS_LAUNCHES,
-                "R": scan.LAUNCHES, "W": structural_break.LAUNCHES, "G": volume.LAUNCHES}
+    launches = {"B": trace.counter("launch.B"), "S": trace.counter("launch.S"),
+                "S float": trace.counter("launch.S.float"), "C": trace.counter("launch.C"),
+                "R": trace.counter("launch.R"), "W": trace.counter("launch.W"), "G": trace.counter("launch.G")}
     peak_gib = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
     if min(launches[k] for k in ("B", "S", "C", "R", "W", "G")) < 1:
         fail(f"a kernel of the framework path did not launch: {launches}")
@@ -2935,8 +2929,8 @@ def phase_chain(card, month, need):
     versions. Returns the path's launches and the ``kernels`` entries of
     those of ``need`` that no earlier phase timed."""
     import torch
-    from finmlkit_tpu_torch.ops import fused_scan, prefix_scan, scan
     from finmlkit_tpu_torch.testing import assert_exact
+    from finmlkit_tpu_torch.utils import trace
     t_phase = time.perf_counter()
     trades, td_s = chain_trades(month)
     d = trades.data
@@ -2953,12 +2947,11 @@ def phase_chain(card, month, need):
     torch.cuda.synchronize()
     base_mem = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    fused_scan.LAUNCHES = prefix_scan.LAUNCHES = prefix_scan.FLOAT_LAUNCHES = 0
-    scan.LAUNCHES = 0
+    trace.reset()
     k_out, k_st = run_chain(trades, graph)        # the path's counted run
     torch.cuda.synchronize()
-    launches = {"B": fused_scan.LAUNCHES, "S": prefix_scan.LAUNCHES,
-                "S float": prefix_scan.FLOAT_LAUNCHES, "R": scan.LAUNCHES}
+    launches = {"B": trace.counter("launch.B"), "S": trace.counter("launch.S"),
+                "S float": trace.counter("launch.S.float"), "R": trace.counter("launch.R")}
     peak_gib = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
     if min(launches[x] for x in ("B", "S", "R")) < 1:
         fail(f"a kernel of the chain did not launch: {launches}")
@@ -3165,9 +3158,9 @@ def kernel_d(card, tr, thr_v, thr_d, n_v, n_d, launches, need_e):
                 else fw.dollar_walk_plain(p, v, thr, mb))
         plain_ms[name] = (time.perf_counter() - t0) * 1e3
         st = torch.zeros(len(fw.STATS), dtype=torch.int64, device=dev)
-        before = list(fw.ROUTE_LAUNCHES)
+        before = fw.route_launches()
         assert_exact(walk(st), want, f"kernel D {name} alone vs plain")
-        if fw.ROUTE_LAUNCHES[route] != before[route] + 1:
+        if fw.route_launches()[route] != before[route] + 1:
             fail(f"kernel D's walk of the month, {name}, did not take {routes[route]}")
         ms[name] = cuda_ms(walk, reps=2 if route == fw.BLOCK else 5)
         counts[name] = dict(zip(fw.STATS, st.tolist()), route=routes[route])
@@ -3260,7 +3253,8 @@ def phase_offgrid(card, need):
     import torch
     from finmlkit_tpu_torch import interop
     from finmlkit_tpu_torch.bar.quantize import quantize_trades
-    from finmlkit_tpu_torch.ops import event_scan, float_walk, prefix_scan
+    from finmlkit_tpu_torch.ops import float_walk
+    from finmlkit_tpu_torch.utils import trace
     t_phase = time.perf_counter()
     ts, price, amount, side = synth_trades(N_MONTH, rounded=False)
     t0 = time.perf_counter()
@@ -3277,20 +3271,17 @@ def phase_offgrid(card, need):
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    prefix_scan.LAUNCHES = prefix_scan.FLOAT_LAUNCHES = prefix_scan.COLS_LAUNCHES = 0
-    float_walk.LAUNCHES = 0
-    float_walk.ROUTE_LAUNCHES[:] = [0, 0, 0]
-    event_scan.MODE_LAUNCHES[:] = [0] * len(event_scan.MODE_LAUNCHES)
+    trace.reset()
     t0 = time.perf_counter()
     kits = run_offgrid_kits(ts, price, amount, side, thr_v, thr_d)   # the main path
     kits_s = time.perf_counter() - t0
-    if float_walk.ROUTE_LAUNCHES != [1, 0, 1]:
-        fail(f"the kits' walks took kernel D's routes {float_walk.ROUTE_LAUNCHES} (warp step, "
-             f"block walk, units), not the dollar walk by the warp step and the volume walk "
-             f"in units")
-    launches = {"S": prefix_scan.LAUNCHES, "S float": prefix_scan.FLOAT_LAUNCHES,
-                "C": prefix_scan.COLS_LAUNCHES, "D": float_walk.LAUNCHES,
-                "E volume": event_scan.MODE_LAUNCHES[event_scan._VOLUME]}
+    routes = float_walk.route_launches()
+    if routes != [1, 0, 1]:
+        fail(f"the kits' walks took kernel D's routes {routes} (warp step, block walk, "
+             f"units), not the dollar walk by the warp step and the volume walk in units")
+    launches = {"S": trace.counter("launch.S"), "S float": trace.counter("launch.S.float"),
+                "C": trace.counter("launch.C"), "D": trace.counter("launch.D"),
+                "E volume": trace.counter("launch.E.volume")}
     peak = torch.cuda.max_memory_allocated()
     if launches["S"] < 1 or launches["C"] < 2 or launches["D"] != 2 \
             or launches["E volume"] != 1:
@@ -3694,8 +3685,8 @@ def phase_klines(card, need, cli_trades=CLI_TRADES):
     from finmlkit_tpu_torch.bar.fused import bar_products_final, median_engine
     from finmlkit_tpu_torch.bar.indexers import time_bar_indexer
     from finmlkit_tpu_torch.data import klines
-    from finmlkit_tpu_torch.ops import fused_scan, prefix_scan
     from finmlkit_tpu_torch.testing import assert_exact
+    from finmlkit_tpu_torch.utils import trace
     t_phase = time.perf_counter()
     ts, price, amount, side = synth_trades(N_MONTH)
     trades = TradesData(ts, price, amount, side=side, timestamp_unit="ns")
@@ -3703,16 +3694,15 @@ def phase_klines(card, need, cli_trades=CLI_TRADES):
     # --- the main path: the 1-second klines (a kit) and their resamples ---
     klines.resample(klines.build_klines(trades), "1min")     # warm: allocator, caches
     torch.cuda.synchronize()
-    fused_scan.LAUNCHES = 0
-    prefix_scan.LAUNCHES = prefix_scan.FLOAT_LAUNCHES = 0
+    trace.reset()
     t0 = time.perf_counter()
     bars = klines.build_klines(trades)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     frames = {tf: klines.resample(bars, tf) for tf in KLINE_TIMEFRAMES}
     torch.cuda.synchronize()
-    launches = {"B": fused_scan.LAUNCHES, "S": prefix_scan.LAUNCHES,
-                "S float": prefix_scan.FLOAT_LAUNCHES}
+    launches = {"B": trace.counter("launch.B"), "S": trace.counter("launch.S"),
+                "S float": trace.counter("launch.S.float")}
     if launches["B"] != 1 or launches["S"] != 1 + 2 * len(KLINE_TIMEFRAMES):
         fail(f"the klines path did not launch B once and S {1 + 2 * len(KLINE_TIMEFRAMES)} "
              f"times: {launches}")
@@ -3902,9 +3892,9 @@ def check_d_entry(card, dev="cuda"):
         whole, whole_end = walk(*args(0, n), thr, n, exit_state=True)
         head, mid = walk(*args(0, k), thr, n, exit_state=True)
         for entry, state in (("split", mid), ("below", float(np.nextafter(thr, 0.0)))):
-            before = list(fw.ROUTE_LAUNCHES)
+            before = fw.route_launches()
             got, end = walk(*args(k, n), thr, n, state=state, exit_state=True)
-            routes = [a - b for a, b in zip(fw.ROUTE_LAUNCHES, before)] or [0]
+            routes = [a - b for a, b in zip(fw.route_launches(), before)] or [0]
             want, want_end = plain(*args(k, n), thr, n, state=state, exit_state=True)
             assert_exact(got, want, f"D {name} from {entry}")
             if not same_state(end, want_end):

@@ -6,14 +6,17 @@ interface, at first use, and loaded with ``ctypes``. The library goes to
 ``build/finmlkit_tpu_torch/`` beside the package, named by a hash of the
 sources and flags, so a changed source builds anew and an unchanged one is
 reused. There is no fallback: a missing ``nvcc`` or a failed build raises.
+A build is the trace registry's span ``build.nvcc``, and each load of the
+library into the process counts ``build.library`` (``utils/trace.py``).
 """
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
+
+from .utils import trace
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "finmlkit_tpu_torch"
@@ -67,7 +70,6 @@ _SIZES = {"fmk_scan_scratch_bytes", "fmk_event_scratch_bytes",
           "fmk_float_walk_scratch_bytes"}
 
 _lib = None
-build_seconds = None  # wall time of the nvcc run in this process, if any
 build_log = ""        # nvcc's output (ptxas register and spill report)
 
 
@@ -99,12 +101,11 @@ def library_path() -> Path:
 
 
 def _compile(out: Path) -> None:
-    global build_seconds, build_log
+    global build_log
     srcs, _ = _sources()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc, tag = nvcc_path(), f"{out.stem}.{os.getpid()}"
     objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in srcs]
-    t0 = time.perf_counter()
     procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                               text=True) for src, obj in zip(srcs, objs)]
@@ -117,7 +118,6 @@ def _compile(out: Path) -> None:
                            capture_output=True, text=True)
         build_log += r.stdout + r.stderr
         failed = ["the link"] if r.returncode != 0 else []
-    build_seconds = time.perf_counter() - t0
     for obj in objs:
         obj.unlink(missing_ok=True)
     if failed:
@@ -133,8 +133,10 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         path = library_path()
         if not path.exists():
-            _compile(path)
+            with trace.span("build.nvcc"):
+                _compile(path)
         lib = ctypes.CDLL(str(path))
+        trace.count("build.library")
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes

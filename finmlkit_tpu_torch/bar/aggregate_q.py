@@ -26,6 +26,7 @@ import torch
 from ..ops.prefix_scan import fast_cumsum, fast_cumsum_cols
 from ..ops.segment import (bar_ids_from_close_indices, prefix_differences,
                            segment_quantile_sorted, sorted_segments)
+from ..utils import trace
 
 __all__ = ["comp_bar_trade_size_features_q", "bar_trade_size_features",
            "per_bar_theta"]
@@ -63,7 +64,9 @@ def comp_bar_trade_size_features_q(amount_units, amounts_f32, theta, ci,
     qamt = amount_units.to(f64) * asc
     # segments: the trades before bar 0, the bars, the trades after the last
     lengths = torch.cat([(ci[:1] + 1), counts, (n - 1 - ci[-1:])])
-    sumsq = torch.segment_reduce(qamt * qamt, "sum", lengths=lengths)[1:-1]
+    # segment_reduce checks the lengths on the host: two reads
+    sumsq = trace.host_read(lambda q: torch.segment_reduce(q, "sum", lengths=lengths),
+                            qamt * qamt, n=2)[1:-1]
     del qamt
     sorted_amt = sorted_segments(amounts_f32, bar_id, valid, nb)
     del bar_id, valid
@@ -101,6 +104,7 @@ def per_bar_theta(theta, ci) -> torch.Tensor:
     return theta
 
 
+@trace.span("bar_trade_size_features")
 def bar_trade_size_features(amount_units, amounts_f32, ci, theta, *,
                             theta_mult: float = 5.0, amount_scale,
                             cumsum=fast_cumsum, cumsum_cols=fast_cumsum_cols):

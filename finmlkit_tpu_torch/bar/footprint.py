@@ -32,6 +32,7 @@ import torch
 
 from ..ops.prefix_scan import fast_cumsum
 from ..ops.segment import bar_ids_from_close_indices
+from ..utils import trace
 
 __all__ = ["comp_bar_footprints", "bar_levels", "footprint_features_from_tensors",
            "check_grid_fits"]
@@ -52,6 +53,7 @@ def _free_bytes(device: torch.device) -> int:
     return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
 
 
+@trace.span("check_grid_fits")
 def check_grid_fits(n_bars: int, n_levels: int, device) -> None:
     """Raise ``ValueError`` before a footprint grid of ``n_bars`` x
     ``n_levels`` cells is allocated where it would not fit: a stream off
@@ -80,7 +82,8 @@ def bar_levels(bar_lows, bar_highs, price_tick_size):
     tick = _tick(price_tick_size, bar_lows.device)
     low = torch.round(bar_lows.to(torch.float64) / tick)
     high = torch.round(bar_highs.to(torch.float64) / tick)
-    if low.numel() and not bool(((low >= _INT32[0]) & (high <= _INT32[1])).all()):
+    if low.numel() and not trace.host_read(
+            bool, ((low >= _INT32[0]) & (high <= _INT32[1])).all()):
         raise ValueError(f"footprint levels at tick {float(price_tick_size)} leave int32")
     return low.to(torch.int64), high.to(torch.int64)
 

@@ -26,6 +26,7 @@ import torch
 
 from ..ops.prefix_scan import fast_cumsum, fast_cumsum_cols
 from ..ops.scan import next_bucket
+from ..utils import trace
 from .footprint import (bar_levels, check_grid_fits, comp_bar_footprints,
                         footprint_features_from_tensors)
 
@@ -94,6 +95,7 @@ def comp_bar_footprints_q(price_ticks, amounts_f32, ci, sides, low_t, high_t,
         cnt[..., 0].contiguous(), cnt[..., 1].contiguous(), imbalance_factor)
 
 
+@trace.span("bar_footprints")
 def bar_footprints(ticks, amounts_f32, ci, sides, ohlcv, *, tick_size,
                    price_tick_size=None, imbalance_factor: float = 3.0,
                    prices=None, cumsum=fast_cumsum, cumsum_cols=fast_cumsum_cols):
@@ -133,10 +135,10 @@ def bar_footprints(ticks, amounts_f32, ci, sides, ohlcv, *, tick_size,
         low_t = torch.round(ohlcv["low"] / price_tick_size).to(torch.int64)
         high_t = torch.round(ohlcv["high"] / price_tick_size).to(torch.int64)
         # every trade's tick is refined, also those outside every bar
-        t_min, t_max, nl_max = (int(v) for v in torch.stack([
+        t_min, t_max, nl_max = trace.host_read(torch.Tensor.tolist, torch.stack([
             torch.minimum(ticks.min().to(torch.int64) * ratio, low_t.min()),
             torch.maximum(ticks.max().to(torch.int64) * ratio, high_t.max()),
-            (high_t - low_t + 1).max()]).cpu())
+            (high_t - low_t + 1).max()]))
         if -2**31 <= t_min and t_max < 2**31:
             max_levels = next_bucket(max(nl_max, 1), 8)
             check_grid_fits(nb, max_levels, dev)
@@ -147,7 +149,8 @@ def bar_footprints(ticks, amounts_f32, ci, sides, ohlcv, *, tick_size,
     if prices is None:
         prices = ticks.to(torch.float64) * float(tick_size)
     low, high = bar_levels(ohlcv["low"], ohlcv["high"], price_tick_size)
-    max_levels = next_bucket(max(int((high - low + 1).max()) if nb else 1, 1), 8)
+    levels = trace.host_read(int, (high - low + 1).max()) if nb else 1
+    max_levels = next_bucket(max(levels, 1), 8)
     check_grid_fits(nb, max_levels, dev)
     return comp_bar_footprints(prices, amounts_f32, ci, sides, price_tick_size,
                                ohlcv["low"], ohlcv["high"], imbalance_factor,

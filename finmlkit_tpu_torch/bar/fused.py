@@ -35,6 +35,7 @@ from ..ops.prefix_scan import fast_cumsum
 from ..ops.segment import (bar_ids_from_close_indices, segment_median_pair,
                            sorted_segments)
 from ..ops.segment_select import segment_median_pair_select
+from ..utils import trace
 
 __all__ = ["bar_products_final", "median_pairs", "bar_finals", "median_engine",
            "median_sort_device", "median_rowsort_device", "median_select_device",
@@ -268,6 +269,7 @@ def bar_scan(name: str, *, plain: bool = False):
     return _SCANS[name][plain]
 
 
+@trace.span("bar_products_final")
 def bar_products_final(ticks, units, ci, sides, *, tick_size, amount_scale,
                        amounts_f32, scan=bar_scan_products, medians="sort"):
     """OHLCV + directional features of every bar, as two dicts of tensors.

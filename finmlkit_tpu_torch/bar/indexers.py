@@ -24,6 +24,7 @@ import torch
 from ..ops.event_scan import cusum_scan, info_scan, volume_scan
 from ..ops.float_walk import dollar_walk, volume_walk
 from ..ops.prefix_scan import fast_cumsum, fast_ffill
+from ..utils import trace
 
 __all__ = ["time_bar_indexer", "tick_bar_indexer", "dollar_bar_indexer_q",
            "volume_bar_indexer_q", "volume_bar_indexer", "dollar_bar_indexer",
@@ -33,6 +34,7 @@ __all__ = ["time_bar_indexer", "tick_bar_indexer", "dollar_bar_indexer_q",
 _DOLLAR_SHIFT = 6  # >>6 keeps a month of tick*unit dollars inside int64
 
 
+@trace.span("time_bar_indexer")
 def time_bar_indexer(timestamps: torch.Tensor, interval_seconds: float,
                      ts_first: int | None = None, ts_last_i: int | None = None):
     """Time-bar indexer over sorted int64 ns ``timestamps``.
@@ -47,8 +49,9 @@ def time_bar_indexer(timestamps: torch.Tensor, interval_seconds: float,
     if timestamps.dim() != 1 or timestamps.dtype != torch.int64:
         raise TypeError("timestamps must be a 1-D int64 tensor")
     step = float(interval_seconds) * 1e9
-    ts0 = float(timestamps[0]) if ts_first is None else float(ts_first)
-    ts_last = float(timestamps[-1]) if ts_last_i is None else float(ts_last_i)
+    ts0 = trace.host_read(float, timestamps[0]) if ts_first is None else float(ts_first)
+    ts_last = (trace.host_read(float, timestamps[-1])
+               if ts_last_i is None else float(ts_last_i))
     start = math.floor(ts0 / step) * step
     last = math.ceil(ts_last / step) * step
     stop = last + step + 1.0
@@ -73,6 +76,7 @@ def tick_bar_indexer(timestamps: torch.Tensor, threshold: int):
     return timestamps[ci], ci
 
 
+@trace.span("dollar_bar_indexer_q")
 def dollar_bar_indexer_q(timestamps, price_ticks, amount_units, threshold,
                          tick_size, amount_scale, *, cumsum=fast_cumsum):
     """Integer-exact dollar-bar indexer over quantized trades.
@@ -95,12 +99,13 @@ def dollar_bar_indexer_q(timestamps, price_ticks, amount_units, threshold,
     dev = price_ticks.device
     d = (price_ticks.to(torch.int64) * amount_units) >> _DOLLAR_SHIFT
     c = cumsum(d)
-    max_bars = min(max(int(float(int(c[n - 1])) / thr_scaled) + 1, 1), n)
+    total = trace.host_read(int, c[n - 1])
+    max_bars = min(max(int(float(total) / thr_scaled) + 1, 1), n)
     m = torch.arange(1, max_bars + 1, dtype=torch.int64, device=dev)
     u = torch.ceil(m.to(torch.float64) * thr_scaled).to(torch.int64)
     naive = torch.searchsorted(c, u).clamp(min=1)  # #{c < u}; checks start at trade 1
     b = m + torch.cummax(naive - m, 0).values
-    count = int((b <= n - 1).sum())
+    count = trace.host_read(int, (b <= n - 1).sum())
     ci = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), b[:count]])
     return timestamps[ci], ci
 

@@ -22,11 +22,12 @@ import numpy as np
 import torch
 
 from ... import _build
+from ...utils import trace
 from ._inputs import device_of, f64
 
 __all__ = ["cusum_test_rolling", "cusum_test_developing", "cusum_test_last"]
 
-LAUNCHES = 0  # kernel W launches in this process
+# kernel W's launches: launch.W in the trace registry (utils/trace.py)
 
 _PLAIN_ELEMENTS = 1 << 20  # the plain version's (block, lags) matrices
 
@@ -99,7 +100,6 @@ def _sup_stat(y, sigma, w: int, sqrt_k, crit, *, stats=None):
     beside them). ``stats``, if given, is an int32
     tensor of ``(n, 4)`` that receives, for each t, the admissible lags, the
     lags walked in pass 2, the quotients taken and the path (``csw.cu``)."""
-    global LAUNCHES
     if y.device.type == "cpu":
         return _sup_stat_plain(y, sigma, w, sqrt_k, crit)
     if y.device.type != "cuda":
@@ -117,7 +117,7 @@ def _sup_stat(y, sigma, w: int, sqrt_k, crit, *, stats=None):
                                   *(o.data_ptr() for o in out),
                                   None if stats is None else stats.data_ptr(), stream)
     _build.check(rc, "cusum_test_rolling")
-    LAUNCHES += 1
+    trace.count("launch.W")
     return tuple(out)
 
 

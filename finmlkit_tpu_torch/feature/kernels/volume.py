@@ -25,13 +25,14 @@ float64 (ROADMAP R5).
 import torch
 
 from ... import _build
+from ...utils import trace
 from ._inputs import device_of, f64, i64, nan_like
 from ._rolling import roll_max, roll_min, roll_sum, warmup_nan
 
 __all__ = ["comp_flow_acceleration", "vpin", "volume_profile_rolling",
            "volume_profile_rolling_plain", "volume_profile_developing", "VolumePro"]
 
-LAUNCHES = 0  # kernel G launches in this process
+# kernel G's launches: launch.G in the trace registry (utils/trace.py)
 
 _THREADS = 256               # kernel G's block: the partial sums' stride
 _SCRATCH_BLOCKS_PER_SM = 4   # blocks of the global-grid path a streaming multiprocessor
@@ -243,7 +244,6 @@ def _launch(lib, mode: str, args, first: int, n_out: int, m: int, dev, shared_ca
     left with the full grid. ``shared_cap`` caps every shared-memory grid
     (None: the device's room), so that a caller can force the global-scratch
     path."""
-    global LAUNCHES
     if m >= 2**31:
         raise ValueError(f"max_levels {m} too large for kernel G")
     outs = [torch.zeros(n_out, dtype=torch.int32, device=dev) for _ in range(3)]
@@ -279,7 +279,7 @@ def _launch(lib, mode: str, args, first: int, n_out: int, m: int, dev, shared_ca
             rc = fn(*args, cap, 1, blocks, None, None if listed is None else listed.data_ptr(),
                     defer.data_ptr(), *tail, poc.data_ptr(), pct.data_ptr(), stream)
             _build.check(rc, f"kernel G ({mode}, spans up to {cap} levels)")
-            LAUNCHES += 1
+            trace.count("launch.G")
             listed = defer
         shared = m <= room
         if shared and listed is None:
@@ -293,12 +293,12 @@ def _launch(lib, mode: str, args, first: int, n_out: int, m: int, dev, shared_ca
                 None if listed is None else listed.data_ptr(), None, *tail, poc.data_ptr(),
                 pct.data_ptr(), stream)
         _build.check(rc, f"kernel G ({mode})")
-        LAUNCHES += 1
+        trace.count("launch.G")
         warp = rows < _WARP_WALKS_PER_SM * sms if walk_warp is None else bool(walk_warp)
         rc = lib.fmk_profile_walk(walks.data_ptr(), pool.data_ptr(), first, n_out, m, int(warp),
                                   hva.data_ptr(), lva.data_ptr(), stream)
         _build.check(rc, f"kernel G ({mode}, the walks)")
-        LAUNCHES += 1
+        trace.count("launch.G")
     return tuple(outs)
 
 
@@ -310,7 +310,6 @@ def _rolling(start, first: int, low, nlev, buy, sell, max_levels: int, n_bins,
     ``start`` int64. Bars before ``first`` are 0. ``shared_cap``, ``split``
     and ``walk_warp`` as in :func:`_launch`; ``lib`` another build of the
     kernels (the package's by default)."""
-    global LAUNCHES
     dev = buy.device
     if dev.type == "cpu":
         return volume_profile_rolling_plain(start, first, low, nlev, buy, sell, max_levels,
@@ -327,7 +326,7 @@ def _rolling(start, first: int, low, nlev, buy, sell, max_levels: int, n_bins,
                                        first, n, max_levels, slots.data_ptr(),
                                        torch.cuda.current_stream(dev).cuda_stream)
         _build.check(rc, "kernel G (the pool's slots)")
-        LAUNCHES += 1
+        trace.count("launch.G")
     args = (start.data_ptr(), low.data_ptr(), nlev.data_ptr(), buy.data_ptr(),
             sell.data_ptr(), L, first, n, max_levels, int(n_bins or 0), float(va_frac))
     return _launch(lib, "rolling", args, first, n, max_levels, dev, shared_cap, split,

@@ -14,6 +14,7 @@ import time
 
 import torch
 
+from ..utils import trace
 from . import utils as U
 from .base import (BaseTransform, BinaryOpTransform, ConstantOpTransform,
                    MinMaxOpTransform, TIMESTAMP, UnaryOpTransform, as_frame)
@@ -297,9 +298,11 @@ class FeatureKit:
         single compiled program does not cross, and the planned graph
         (``feature/fuse.py``) would run the same transforms in the same
         order. ``timeit`` prints each feature's wall time, the card
-        synchronised before each clock read. ``profile_dir``
-        (or ``FMKT_PROFILE_DIR``) records a ``torch.profiler`` trace of the
-        build with one ``feature:<name>`` range a feature, written there as
+        synchronised before each clock read. Each feature runs in the trace
+        registry's span ``feature.<name>`` (``utils/trace.py``).
+        ``profile_dir`` (or ``FMKT_PROFILE_DIR``) records a ``torch.profiler``
+        trace of the build, tracing on, so that each feature is an
+        ``fmkt.feature.<name>`` range, written there as
         ``feature_trace.json``. Numpy columns go to ``device``.
         """
         profile_dir = profile_dir or os.environ.get("FMKT_PROFILE_DIR")
@@ -316,32 +319,32 @@ class FeatureKit:
             features_seq = [name2feat[n] for n in topo if n in name2feat]
             features_seq += [f for f in self.features if str(f.name) not in set(topo)]
 
+        was_on = trace.enabled()
         if profile_dir:
-            from torch.profiler import ProfilerActivity, profile, record_function
+            from torch.profiler import ProfilerActivity, profile
             acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                              if torch.cuda.is_available() else [])
             trace_ctx = profile(activities=acts)
-
-            def annot(name):
-                return record_function(f"feature:{name}")
+            trace.enable()       # the features' spans as fmkt.feature.<name> ranges
         else:
             trace_ctx = contextlib.nullcontext()
 
-            def annot(name):
-                return contextlib.nullcontext()
-
         timing = {}
-        with trace_ctx as prof:
-            for feat in features_seq:
-                if timeit:
-                    _sync(cache)
-                    t0 = time.perf_counter()
-                with annot(str(feat.name)):
-                    res = feat(cache, cache=cache, device=device)
-                if timeit:
-                    _sync(cache)
-                    timing[str(feat.name)] = time.perf_counter() - t0
-                self._store_result(out, cache, feat, res)
+        try:
+            with trace_ctx as prof:
+                for feat in features_seq:
+                    if timeit:
+                        _sync(cache)
+                        t0 = time.perf_counter()
+                    with trace.span(f"feature.{feat.name}"):
+                        res = feat(cache, cache=cache, device=device)
+                    if timeit:
+                        _sync(cache)
+                        timing[str(feat.name)] = time.perf_counter() - t0
+                    self._store_result(out, cache, feat, res)
+        finally:
+            if not was_on:
+                trace.disable()
         if profile_dir:
             os.makedirs(profile_dir, exist_ok=True)
             prof.export_chrome_trace(os.path.join(profile_dir, "feature_trace.json"))

@@ -8,12 +8,15 @@ until none is left.
 """
 import torch
 
+from ..utils import trace
+
 __all__ = ["triple_barrier"]
 
 _CHUNK = 256
 _I64MAX = 2**63 - 1
 
 
+@trace.span("triple_barrier")
 def triple_barrier(timestamps, close, event_idxs, targets,
                    horizontal_barriers, vertical_barrier,
                    min_close_time_sec=0.0, side=None, min_ret=0.0,
@@ -74,7 +77,7 @@ def triple_barrier(timestamps, close, event_idxs, targets,
     zero = torch.zeros((), dtype=f64, device=dev)
     while True:
         run = ~done & (pos <= t1)
-        if not bool(run.any()):
+        if not trace.host_read(bool, run.any()):
             break
         j = pos[:, None] + offs
         jc = j.clamp(max=n - 1)

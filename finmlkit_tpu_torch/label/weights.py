@@ -14,6 +14,7 @@ every run (no float atomics).
 import torch
 
 from ..ops.prefix_scan import fast_cumsum
+from ..utils import trace
 
 __all__ = ["average_uniqueness", "return_attribution", "time_decay",
            "class_balance_weights"]
@@ -33,6 +34,7 @@ def _window_sums(values, event_idxs, touch_idxs, cumsum):
     return p[touch_idxs + 1] - p[event_idxs]
 
 
+@trace.span("average_uniqueness")
 def average_uniqueness(timestamps, event_idxs, touch_idxs, *,
                        cumsum=fast_cumsum):
     """Uniqueness weights and concurrency (AFML ch. 4 p. 61).
@@ -51,6 +53,7 @@ def average_uniqueness(timestamps, event_idxs, touch_idxs, *,
     return _window_sums(inv, ev, tch, cumsum) / cnt, conc
 
 
+@trace.span("return_attribution")
 def return_attribution(event_idxs, touch_idxs, close, concurrency,
                        normalize: bool = True, *, cumsum=fast_cumsum):
     """Return-attribution weights (AFML ch. 4 p. 68), float64 per event.
@@ -69,7 +72,7 @@ def return_attribution(event_idxs, touch_idxs, close, concurrency,
                           torch.zeros_like(log_rets))
     w = _window_sums(contrib, ev, tch, cumsum).abs()
     if normalize:
-        s = float(w.sum())
+        s = trace.host_read(float, w.sum())
         if s <= 0.0:
             raise ValueError("Sum of weights is zero or negative, cannot normalize.")
         w = w * (len(event_idxs) / s)
@@ -88,7 +91,7 @@ def time_decay(avg_uniqueness, last_weight: float, *, cumsum=fast_cumsum):
         raise ValueError("last_weight must lie in [-1, 1]")
     cum = cumsum(avg_uniqueness.to(torch.float64).contiguous())
     total = cum[-1]
-    if float(total) == 0.0:
+    if trace.host_read(float, total) == 0.0:
         raise ValueError("The sum of all average uniqueness weights must be greater than 0.")
     one = torch.ones((), dtype=torch.float64, device=cum.device)
     if last_weight >= 0.0:

@@ -47,22 +47,27 @@ import numpy as np
 import torch
 
 from .. import _build
-from . import prefix_scan
+from ..utils import trace
 
 __all__ = ["cusum_scan", "cusum_scan_plain", "info_scan", "info_scan_plain",
            "volume_scan", "volume_scan_plain"]
 
-LAUNCHES = 0  # kernel E launches in this process
-# of them by mode: CUSUM, imbalance (the walk), run, volume, imbalance by maps
-MODE_LAUNCHES = [0, 0, 0, 0, 0]
-
 _CUSUM, _IMBALANCE, _RUN, _VOLUME, _IMBALANCE_MAP = 0, 1, 2, 3, 4
+# kernel E's launches in the trace registry (utils/trace.py): launch.E, and
+# by mode launch.E.<MODE_NAMES[mode]>; each also counts one launch.S (E
+# compacts its closes with one launch of kernel S)
+MODE_NAMES = ("cusum", "imbalance", "run", "volume", "imbalance_map")
 _MAP_STATES = 127      # the most in-bar states of the map path (kMapStates)
 _MAP_GROUP = 128       # tiles a block of its scan composes (kGroup)
 _CUSUM_CHUNK = 8192        # the JAX scans' chunk sizes and in-chunk event
 _CUSUM_EVENTS_PER_CHUNK = 4  # extractions (indexers.py:504-505, 677)
 _INFO_CHUNK = 2048
 _TILE = 2048           # kernel E's tile (csrc/event_scan.cu kTile)
+
+
+def mode_launches() -> list:
+    """Kernel E's launches so far by mode, in the order of ``MODE_NAMES``."""
+    return [trace.counter("launch.E." + m) for m in MODE_NAMES]
 
 
 def _check(t: torch.Tensor, dtype, name: str, like: torch.Tensor) -> None:
@@ -130,7 +135,6 @@ def _launch(mode: int, n: int, start: int, max_bars: int, device, *, x=None,
     at trade 1 add trade 0's units to its carry. With ``exit_state`` the
     return is ``(closes, state after trade n-1)``, read with the count.
     """
-    global LAUNCHES
     entry = _initial(mode, e_t, e_r) if entry is None else tuple(entry)
     out = torch.empty(max(max_bars, 1), dtype=torch.int64, device=device)
     if start >= n or (max_bars <= 0 and not exit_state):
@@ -155,9 +159,9 @@ def _launch(mode: int, n: int, start: int, max_bars: int, device, *, x=None,
     lib = _build.library()
     scratch = torch.empty(lib.fmk_event_scratch_bytes(mode, n, start, chunks),
                           dtype=torch.uint8, device=device)
-    LAUNCHES += 1
-    MODE_LAUNCHES[mode] += 1
-    prefix_scan.LAUNCHES += 1   # E compacts its closes with one launch of S
+    trace.count("launch.E")
+    trace.count("launch.E." + MODE_NAMES[mode])
+    trace.count("launch.S")     # E compacts its closes with one launch of S
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.fmk_event_scan(mode, *ptrs, n, start, e_t, e_r, alpha_t,

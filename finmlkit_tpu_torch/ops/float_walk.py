@@ -44,9 +44,10 @@ negative or not finite goes to the block walk, as such a value does; the
 units route takes one only where it is a whole number of the unit (it is
 then one more value of the route pass's); the warp step takes any other.
 
-``LAUNCHES`` counts walks, one a call; ``ROUTE_LAUNCHES`` counts them by
-route. On the device a walk is the route pass (one launch, two memsets) and
-then: the warp step 4 launches and a memset (6 launches where a volume walk
+The trace registry (``utils/trace.py``) counts walks, one a call, as
+``launch.D``, and by route as ``launch.D.<ROUTE_NAMES[route]>``. On the
+device a walk is the route pass (one launch, two memsets) and then: the warp
+step 4 launches and a memset (6 launches where a volume walk
 has chunks), the block walk 1 launch, units 1 launch and kernel E's call
 (counted as E's).
 
@@ -63,15 +64,15 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..utils import trace
 from . import event_scan
 
 __all__ = ["volume_walk", "volume_walk_plain", "dollar_walk", "dollar_walk_plain",
            "walk_blocks", "walk_warp", "walk_chunked", "grid_step", "in_warp_domain",
            "exact_unit", "units_threshold", "route_of"]
 
-LAUNCHES = 0                 # kernel D walks in this process (volume and dollar)
-ROUTE_LAUNCHES = [0, 0, 0]   # of them by route: the warp step, the block walk, units
 WARP, BLOCK, UNITS = 0, 1, 2
+ROUTE_NAMES = ("warp", "block", "units")   # launch.D.<name> in the trace registry
 STATS = ("searches", "steps", "ties", "crossings", "serial", "closes", "unmerged",
          "fixed", "cycles", "wait", "producer_wait")   # the warp step's counters (Stat)
 _VOLUME, _DOLLAR = 0, 1
@@ -82,6 +83,11 @@ SERIAL_RUN = 4            # values a serial step adds before one compare (kRun)
 _TWO52, _TWO53 = 1 << 52, 1 << 53
 _TIE = _TWO52 + 1         # added to a tie's floor in the tables (kTie)
 _THR_LO, _THR_HI = 2.0 ** -960, 2.0 ** 1000
+
+
+def route_launches() -> list:
+    """Kernel D's walks so far by route, in the order of ``ROUTE_NAMES``."""
+    return [trace.counter("launch.D." + r) for r in ROUTE_NAMES]
 
 
 def _walk_plain(values: torch.Tensor, thr: float, max_bars: int, reset: bool,
@@ -579,7 +585,6 @@ def _launch(mode: int, prices, volumes, thr: float, max_bars: int, *, chunks=Non
     clock cycles: the walkers', their waits for a tile, the producers' waits
     for room); other routes leave it at 0. ``state`` and ``exit_state`` as in
     :func:`volume_walk`; the exit sum is read with the count."""
-    global LAUNCHES
     dev = volumes.device
     n, max_bars = volumes.shape[0], int(max_bars)
     if n == 0 or max_bars <= 0:
@@ -641,8 +646,8 @@ def _launch(mode: int, prices, volumes, thr: float, max_bars: int, *, chunks=Non
         out, end = out[:count], _from_bits(bits)
     else:
         out = out[:int(io[0])]
-    LAUNCHES += 1
-    ROUTE_LAUNCHES[route] += 1
+    trace.count("launch.D")
+    trace.count("launch.D." + ROUTE_NAMES[route])
     return (out, end) if exit_state else out
 
 

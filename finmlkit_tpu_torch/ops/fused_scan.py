@@ -30,6 +30,7 @@ two variants are the streaming-floor probes (P1-P3), all served by kernel P.
 import torch
 
 from .. import _build
+from ..utils import trace
 
 __all__ = ["bar_scan_products", "bar_scan_products_plain", "bar_scan_products_tiles",
            "pair_to_f32",
@@ -38,9 +39,9 @@ __all__ = ["bar_scan_products", "bar_scan_products_plain", "bar_scan_products_ti
            "bar_scan_io_floor", "bar_scan_io_floor_k", "bar_scan_io_floor_stacked",
            "io_floor_plain", "I32MIN", "I32MAX", "F32BIG"]
 
-LAUNCHES = 0         # kernel B launches by bar_scan_products in this process
-PLANES_LAUNCHES = 0  # kernel V calls by bar_scan_planes (all its passes count 1)
-IO_FLOOR_LAUNCHES = 0  # kernel P launches by the bar_scan_io_floor probes
+# launches in the trace registry (utils/trace.py): launch.B, kernel B by
+# bar_scan_products; launch.V, kernel V by bar_scan_planes (all its passes
+# count 1); launch.P, kernel P by the bar_scan_io_floor probes
 
 I32MIN = -2147483648
 I32MAX = 2147483647
@@ -175,7 +176,7 @@ def _cuda_inputs(ticks, units, sides, ci, what):
         raise ValueError(f"{n} trades or {nb} bars exceed the kernels' int32 counts")
     ticks, units, sides, ci = (t.contiguous() for t in (ticks, units, sides, ci))
     ok = (ci[0] >= -1) & (ci[-1] < n) & torch.all(ci[1:] >= ci[:-1])
-    if not bool(ok):
+    if not trace.host_read(bool, ok):
         raise ValueError("ci must be sorted with -1 <= ci[0] and ci[-1] < n")
     return ticks, units, sides, ci
 
@@ -193,14 +194,13 @@ def bar_scan_products(ticks, units, sides, ci):
     it runs :func:`bar_scan_products_plain`. ``ci`` must be sorted, with
     ``-1 <= ci[0]`` and ``ci[-1] < len(ticks)``.
     """
-    global LAUNCHES
     _check_inputs(ticks, units, sides, ci)
     if ticks.device.type == "cpu":
         return bar_scan_products_plain(ticks, units, sides, ci)
     args = _cuda_inputs(ticks, units, sides, ci, "bar_scan_products")
     bufs = _products_buffers(args[0].shape[0], ci.shape[0] - 1, ticks.device)
     _products_kernel(*args, bufs)
-    LAUNCHES += 1
+    trace.count("launch.B")
     return bufs[:3]
 
 
@@ -495,7 +495,6 @@ def bar_scan_planes(ticks, units, sides, ci):
     scan over fixed tiles of trades (:func:`bar_scan_planes_tiles` models its
     decomposition); on CPU tensors it runs :func:`bar_scan_planes_plain`.
     """
-    global PLANES_LAUNCHES
     _check_inputs(ticks, units, sides, ci)
     if ticks.device.type == "cpu":
         return bar_scan_planes_plain(ticks, units, sides, ci)
@@ -503,7 +502,7 @@ def bar_scan_planes(ticks, units, sides, ci):
                                            "bar_scan_planes")
     bufs = _planes_buffers(ticks.shape[0], ticks.device)
     _planes_kernel(ticks, units, sides, ci, bufs)
-    PLANES_LAUNCHES += 1
+    trace.count("launch.V")
     return bufs[:4]
 
 
@@ -669,7 +668,6 @@ def io_floor_plain(streams) -> torch.Tensor:
 
 
 def _io_floor(rows, what) -> torch.Tensor:
-    global IO_FLOOR_LAUNCHES
     if not 1 <= len(rows) <= 8:
         raise ValueError(f"{what} sums 1 to 8 streams, got {len(rows)}")
     x0 = rows[0]
@@ -688,7 +686,7 @@ def _io_floor(rows, what) -> torch.Tensor:
         stream = torch.cuda.current_stream(x0.device).cuda_stream
         rc = _build.library().fmk_io_floor(*ptrs, len(rows), out.data_ptr(),
                                            x0.shape[0], stream)
-    IO_FLOOR_LAUNCHES += 1
+    trace.count("launch.P")
     _build.check(rc, what)
     return out
 
@@ -710,7 +708,6 @@ def bar_scan_io_floor_stacked(x):
     """P3: the sum over the rows of one ``(8, n)`` int32 stack. Kernel P reads
     the stack through its one pointer with 16-byte loads, whatever the rows'
     alignment; :func:`io_floor_plain` on CPU tensors."""
-    global IO_FLOOR_LAUNCHES
     what = "bar_scan_io_floor_stacked"
     if x.dim() != 2 or x.shape[0] != 8:
         raise ValueError(f"{what} takes an (8, n) stack, got {tuple(x.shape)}")
@@ -726,6 +723,6 @@ def bar_scan_io_floor_stacked(x):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = _build.library().fmk_io_floor_stacked(x.data_ptr(), x.shape[0],
                                                    x.shape[1], out.data_ptr(), stream)
-    IO_FLOOR_LAUNCHES += 1
+    trace.count("launch.P")
     _build.check(rc, what)
     return out

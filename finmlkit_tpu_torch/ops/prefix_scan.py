@@ -27,17 +27,17 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..utils import trace
 
 __all__ = ["fast_cumsum", "fast_cumsum_plain", "fast_cumsum_cols",
            "fast_cumsum_cols_plain", "fast_ffill", "fast_ffill_plain",
            "fill_last", "fill_last_plain", "ffill_tiles"]
 
-LAUNCHES = 0        # kernel S launches in this process: fast_cumsum's, and the
-                    # one in each kernel E scan (ops/event_scan.py)
-FLOAT_LAUNCHES = 0  # of fast_cumsum's, those on float streams (three passes)
-COLS_LAUNCHES = 0   # kernel C launches by fast_cumsum_cols in this process
-FFILL_LAUNCHES = 0  # kernel F launches by fast_ffill in this process
-FILL_LAST_LAUNCHES = 0  # kernel F launches by fill_last in this process
+# launches in the trace registry (utils/trace.py): launch.S, kernel S by
+# fast_cumsum and the one in each kernel E scan (ops/event_scan.py), and
+# launch.S.float, those of fast_cumsum on float streams (three passes);
+# launch.C, kernel C by fast_cumsum_cols; launch.F, kernel F, and
+# launch.F.ffill and launch.F.fill_last, by fast_ffill and fill_last
 
 _DTYPE_CODE = {torch.int32: 0, torch.int64: 1, torch.float32: 2,
                torch.float64: 3}
@@ -98,13 +98,13 @@ def fast_cumsum(x: torch.Tensor) -> torch.Tensor:
     On a CUDA tensor this launches kernel S; on a CPU tensor it runs
     :func:`fast_cumsum_plain`.
     """
-    global LAUNCHES, FLOAT_LAUNCHES
     _check(x, 1, "fast_cumsum")
     if x.device.type == "cpu":
         return fast_cumsum_plain(x)
     if x.numel():
-        LAUNCHES += 1
-        FLOAT_LAUNCHES += x.dtype.is_floating_point
+        trace.count("launch.S")
+        if x.dtype.is_floating_point:
+            trace.count("launch.S.float")
     return _launch(x, 1, x.numel(), "fast_cumsum")
 
 
@@ -116,7 +116,6 @@ def fast_cumsum_cols(x: torch.Tensor) -> torch.Tensor:
     :func:`fast_cumsum_cols_plain`. int64 rows come back as int64 that wraps
     modulo 2^64, bit-equal to ``combine_i64`` of the TPU's hi/lo pair.
     """
-    global COLS_LAUNCHES
     _check(x, 2, "fast_cumsum_cols")
     if x.shape[0] > _MAX_ROWS:
         raise ValueError(f"fast_cumsum_cols takes at most {_MAX_ROWS} rows, "
@@ -124,7 +123,7 @@ def fast_cumsum_cols(x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return fast_cumsum_cols_plain(x)
     if x.numel():
-        COLS_LAUNCHES += 1
+        trace.count("launch.C")
     return _launch(x, x.shape[0], x.shape[1], "fast_cumsum_cols")
 
 
@@ -178,7 +177,6 @@ def fast_ffill(values: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     CUDA tensor this launches kernel F; on a CPU tensor it runs
     :func:`fast_ffill_plain`.
     """
-    global FFILL_LAUNCHES
     if values.dim() != 1 or values.dtype not in (torch.float32, torch.float64):
         raise TypeError("fast_ffill takes a 1-D float32 or float64 tensor, got "
                         f"{values.dtype} of shape {tuple(values.shape)}")
@@ -187,7 +185,8 @@ def fast_ffill(values: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
         return fast_ffill_plain(values, valid)
     out = _launch_ffill(values, valid, False, "fast_ffill")
     if values.numel():
-        FFILL_LAUNCHES += 1
+        trace.count("launch.F")
+        trace.count("launch.F.ffill")
     return out
 
 
@@ -213,7 +212,6 @@ def fill_last(values: torch.Tensor, marks: torch.Tensor) -> torch.Tensor:
     int32 values move as 4-byte bits); on a CPU tensor it runs
     :func:`fill_last_plain`.
     """
-    global FILL_LAST_LAUNCHES
     if values.dim() != 1 or values.dtype != torch.int32:
         raise TypeError("fill_last takes a 1-D int32 tensor, got "
                         f"{values.dtype} of shape {tuple(values.shape)}")
@@ -222,7 +220,8 @@ def fill_last(values: torch.Tensor, marks: torch.Tensor) -> torch.Tensor:
         return fill_last_plain(values, marks)
     out = _launch_ffill(values, marks, True, "fill_last")
     if values.numel():
-        FILL_LAST_LAUNCHES += 1
+        trace.count("launch.F")
+        trace.count("launch.F.fill_last")
     return out
 
 

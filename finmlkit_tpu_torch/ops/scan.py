@@ -21,10 +21,11 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..utils import trace
 
 __all__ = ["linear_recurrence", "linear_recurrence_plain", "lookback_model", "next_bucket"]
 
-LAUNCHES = 0  # kernel R launches in this process
+# kernel R's launches: launch.R in the trace registry (utils/trace.py)
 
 TILE = 2048  # kernel R's tile, in values of a row, where a comes a value an element
 TILE_WIDE = 8192  # its tile where a is a float or one value a row
@@ -192,7 +193,6 @@ def _kernel(a, b, y0, dist=None) -> torch.Tensor:
     """Kernel R on checked operands (CUDA). ``dist``, if given, is an int32
     tensor of one value a tile (``rows * ceil(n / tile_of(a, n))``) that
     receives each tile's look-back length."""
-    global LAUNCHES
     rows, n = (b.shape[0], b.shape[1]) if b.dim() == 2 else (1, b.shape[0])
     b = b.contiguous()
     out = torch.empty_like(b)
@@ -222,5 +222,5 @@ def _kernel(a, b, y0, dist=None) -> torch.Tensor:
                                        None if dist is None else dist.data_ptr(),
                                        stream)
     _build.check(rc, "linear_recurrence")
-    LAUNCHES += 1
+    trace.count("launch.R")
     return out

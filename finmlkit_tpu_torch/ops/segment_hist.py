@@ -27,12 +27,13 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..utils import trace
 
 __all__ = ["segment_median_pair_hist", "hist_pass", "hist_pass_plain",
            "hist_pass_tiles", "less_pass", "less_pass_plain", "less_pass_tiles",
            "SHIFTS"]
 
-LAUNCHES = 0  # kernel H launches by hist_pass and less_pass in this process
+# kernel H's launches by hist_pass and less_pass: launch.H in the trace registry
 
 SHIFTS = (28, 24, 20, 16, 12, 8, 4, 0)
 _NB = 16
@@ -217,7 +218,6 @@ def _tile_lo(bits):
 def _launch_hist(bits, ci, base, s: int) -> torch.Tensor:
     """Kernel H's histogram pass on contiguous CUDA tensors and a checked
     ``ci``."""
-    global LAUNCHES
     nb = ci.shape[0] - 1
     base = base.contiguous()
     out = torch.empty((nb, _NB), dtype=torch.int32, device=bits.device)
@@ -228,14 +228,13 @@ def _launch_hist(bits, ci, base, s: int) -> torch.Tensor:
                                             base.data_ptr(), int(s),
                                             bits.shape[0], nb, out.data_ptr(),
                                             tile_lo.data_ptr(), stream)
-    LAUNCHES += 1
+    trace.count("launch.H")
     _build.check(rc, "hist_pass")
     return out
 
 
 def _launch_less(bits, ci, v):
     """Kernel H's less pass on contiguous CUDA tensors and a checked ``ci``."""
-    global LAUNCHES
     nb = ci.shape[0] - 1
     v = v.contiguous()
     cnt = torch.empty(nb, dtype=torch.int32, device=bits.device)
@@ -247,7 +246,7 @@ def _launch_less(bits, ci, v):
                                             v.data_ptr(), bits.shape[0], nb,
                                             cnt.data_ptr(), mx.data_ptr(),
                                             tile_lo.data_ptr(), stream)
-    LAUNCHES += 1
+    trace.count("launch.H")
     _build.check(rc, "less_pass")
     return cnt, mx
 

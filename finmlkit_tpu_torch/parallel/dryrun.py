@@ -43,6 +43,7 @@ from .sharded import (gather_ragged, shard_trades, sharded_bar_products,
                       sharded_median_trade_size, sharded_segment_kth,
                       sharded_trade_size_features)
 from .sharded_footprint import sharded_bar_footprints, sharded_volume_profile_rolling
+from ..utils import trace
 
 __all__ = ["synth_trades", "uneven_spans", "indexer_cases", "single_indexers",
            "product_cases", "single_products", "footprint_cases", "single_footprints",
@@ -433,14 +434,17 @@ def _compare(got: dict, want: dict, exact_floats: bool) -> list:
 
 def launch_counts() -> dict:
     """The kernel launch counters of the sharded layer's path, by kernel:
-    E by scan, D, S (its float streams apart), C, F, R and G."""
-    from ..feature.kernels import volume
-    from ..ops import event_scan, float_walk, prefix_scan, scan
-    m = event_scan.MODE_LAUNCHES
-    return {"E cusum": m[0], "E imbalance": m[1] + m[4], "E run": m[2], "E volume": m[3],
-            "D": float_walk.LAUNCHES, "S": prefix_scan.LAUNCHES,
-            "S float": prefix_scan.FLOAT_LAUNCHES, "C": prefix_scan.COLS_LAUNCHES,
-            "F": prefix_scan.FFILL_LAUNCHES, "R": scan.LAUNCHES, "G": volume.LAUNCHES}
+    E by scan, D, S (its float streams apart), C, F, R and G, read from the
+    trace registry."""
+    return {"E cusum": trace.counter("launch.E.cusum"),
+            "E imbalance": (trace.counter("launch.E.imbalance")
+                            + trace.counter("launch.E.imbalance_map")),
+            "E run": trace.counter("launch.E.run"),
+            "E volume": trace.counter("launch.E.volume"),
+            "D": trace.counter("launch.D"), "S": trace.counter("launch.S"),
+            "S float": trace.counter("launch.S.float"), "C": trace.counter("launch.C"),
+            "F": trace.counter("launch.F.ffill"), "R": trace.counter("launch.R"),
+            "G": trace.counter("launch.G")}
 
 
 def _digest(x) -> str:
@@ -465,13 +469,28 @@ def month_path(mesh: TimeMesh, spec: dict) -> dict:
     profile. ``spec["only"] == "indexers"`` stops after the indexers.
 
     Returns, on every rank, each output's digest, the launches, the stage
-    seconds, ``sharded_indexers.RING_SECONDS`` and the bytes of the
+    seconds, each ring's seconds (this rank's scan, the ring's wall; the
+    trace registry's ``ring.<indexer>`` spans, tracing on) and the bytes of the
     collectives; with ``spec["stage"]`` also the time indexer and the volume
     ring again with every collective staged through host memory, and whether
     they gave the same closes; rank 0 also holds every output against the
     single-device functions on its device after the timed stages (``bad``:
     what differs, ``single_seconds``: their times, each after a warm call)
     and returns the bar counts."""
+    was_on = trace.enabled()
+    trace.enable()      # the rings' scans wait for the card, so their spans time them
+    try:
+        return _month_path(mesh, spec)
+    finally:
+        if not was_on:
+            trace.disable()
+
+
+def _ring_ms() -> dict:
+    return {k: v["host_ms"] for k, v in trace.report().items() if k.startswith("ring.")}
+
+
+def _month_path(mesh: TimeMesh, spec: dict) -> dict:
     from ..bar.quantize import quantize_trades
     from ..testing import bench_trades, cusum_sigma, hold_float_path
     from . import mesh as pmesh
@@ -482,7 +501,7 @@ def month_path(mesh: TimeMesh, spec: dict) -> dict:
     sigma = cusum_sigma(n, sp["sigma"], sp["seed"])
     vol_thr = float(amount.astype(np.float64).sum()) / sp["volume_bars"]
     dol_thr = float((price * amount.astype(np.float64)).sum()) / sp["dollar_bars"]
-    seconds, out, launches, moved = {}, {}, {}, {}
+    seconds, out, launches, moved, ring_ms = {}, {}, {}, {}, {}
 
     def sync():
         if dev.type == "cuda":
@@ -493,11 +512,14 @@ def month_path(mesh: TimeMesh, spec: dict) -> dict:
         calls), then timed, its launches and collective bytes counted."""
         fn()
         sync()
-        before, b0 = launch_counts(), dict(pmesh.BYTES)
+        before, b0, r0 = launch_counts(), dict(pmesh.BYTES), _ring_ms()
         t0 = time.perf_counter()
         got = fn()
         sync()
         seconds[name] = time.perf_counter() - t0
+        for k, v in _ring_ms().items():
+            if v > r0.get(k, 0.0):
+                ring_ms[k] = v - r0.get(k, 0.0)
         for k, v in launch_counts().items():
             launches[k] = launches.get(k, 0) + v - before[k]
         for k, v in pmesh.BYTES.items():
@@ -563,7 +585,8 @@ def month_path(mesh: TimeMesh, spec: dict) -> dict:
             fts[ci_d[1:]], fp["low_level"], fp["n_levels"], fp["buy_volumes"],
             fp["sell_volumes"], sp["profile_window"], mesh, n_bins=27))
         out.update({f"profile.{i}": x for i, x in enumerate(prof)})
-    ring = dict(si.RING_SECONDS)
+    ring = {k[5:]: (ring_ms.get(k + ".scan", 0.0) / 1e3, v / 1e3)
+            for k, v in ring_ms.items() if not k.endswith(".scan")}
     out = {k: (v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)) for k, v in out.items()}
     res = {"rank": mesh.rank, "digests": {k: _digest(v) for k, v in out.items()},
            "launches": launches, "seconds": seconds, "ring": ring, "bytes": moved,

@@ -33,13 +33,13 @@ threshold within that rounding, as between kernel E and its plain version.
 CUSUM closes follow the host loop after an infinite return (R10).
 
 A rank whose scan fills its buffer grows it and scans again before it hands
-its exit state on, as the single-device indexers do. ``RING_SECONDS`` holds,
-by indexer, this rank's scan seconds and the ring's wall seconds of the last
-call.
+its exit state on, as the single-device indexers do. Each ring is the trace
+registry's span ``ring.<indexer>`` (``utils/trace.py``), this rank's scan in
+it ``ring.<indexer>.scan``; with tracing on, the scan waits for the card, so
+that its span holds the scan's time.
 """
 import math
 import struct
-import time
 
 import numpy as np
 import torch
@@ -50,6 +50,7 @@ from ..ops.float_walk import dollar_walk, volume_walk
 from ..ops.prefix_scan import fast_cumsum, fast_ffill
 from .mesh import TimeMesh, all_gather, all_reduce, broadcast
 from .sharded import TradeShard, gather_ragged, shard_trades, values_at
+from ..utils import trace
 
 __all__ = [
     "sharded_time_bar_indexer", "sharded_tick_bar_indexer",
@@ -57,9 +58,6 @@ __all__ = [
     "sharded_cusum_bar_indexer", "sharded_imbalance_bar_indexer",
     "sharded_run_bar_indexer",
 ]
-
-RING_SECONDS = {}
-
 
 def _sync(device):
     if device.type == "cuda":
@@ -72,18 +70,18 @@ def _ring(mesh: TimeMesh, name: str, fmt: str, carry, step):
     format ``fmt``, bit for bit); returns this rank's closes and the state
     after the last rank."""
     mine = None
-    t_ring = time.perf_counter()
-    for k in range(mesh.size):
-        if mesh.rank == k:
-            t0 = time.perf_counter()
-            mine, carry = step(carry)
-            _sync(mesh.device)
-            seconds = time.perf_counter() - t0
-        words = torch.tensor(struct.unpack(f"<{len(fmt)}q", struct.pack(f"<{fmt}", *carry)),
-                             dtype=torch.int64, device=mesh.device)
-        words = broadcast(mesh, words, k)
-        carry = struct.unpack(f"<{fmt}", struct.pack(f"<{len(fmt)}q", *words.tolist()))
-    RING_SECONDS[name] = (seconds, time.perf_counter() - t_ring)
+    with trace.span(f"ring.{name}"):
+        for k in range(mesh.size):
+            if mesh.rank == k:
+                with trace.span(f"ring.{name}.scan"):
+                    mine, carry = step(carry)
+                    if trace.enabled():
+                        _sync(mesh.device)
+            words = torch.tensor(struct.unpack(f"<{len(fmt)}q",
+                                               struct.pack(f"<{fmt}", *carry)),
+                                 dtype=torch.int64, device=mesh.device)
+            words = broadcast(mesh, words, k)
+            carry = struct.unpack(f"<{fmt}", struct.pack(f"<{len(fmt)}q", *words.tolist()))
     return mine, carry
 
 

@@ -9,10 +9,12 @@ import numpy as np
 import torch
 
 from ..ops.prefix_scan import fast_cumsum
+from ..utils import trace
 
 __all__ = ["cusum_filter", "z_score_peak_filter"]
 
 
+@trace.span("cusum_filter")
 def cusum_filter(raw_time_series: torch.Tensor, threshold) -> torch.Tensor:
     """Symmetric CUSUM event filter on log returns (AFML snippet 2.4).
 
@@ -23,8 +25,9 @@ def cusum_filter(raw_time_series: torch.Tensor, threshold) -> torch.Tensor:
     triggered side resets. ``threshold`` is one value or one per sample.
     Returns int64 event indices on the device of ``raw_time_series``.
     """
-    x = raw_time_series.detach().to("cpu", torch.float64).numpy()
-    thr = np.asarray(threshold.cpu() if torch.is_tensor(threshold) else threshold,
+    x = trace.host_read(_to_host, raw_time_series.detach()).numpy()
+    thr = np.asarray(trace.host_read(_to_host, threshold)
+                     if torch.is_tensor(threshold) else threshold,
                      dtype=np.float64).reshape(-1)
     n = len(x)
     if n <= 1:
@@ -38,18 +41,24 @@ def cusum_filter(raw_time_series: torch.Tensor, threshold) -> torch.Tensor:
     h = thr.tolist()
     events = []
     s_pos = s_neg = 0.0
-    for i in range(1, n):
-        r = log_ret[i - 1]
-        sp, sn = s_pos + r, s_neg + r
-        s_pos = sp if sp > 0.0 else 0.0
-        s_neg = sn if sn < 0.0 else 0.0
-        if s_neg < -h[i]:
-            s_neg = 0.0
-            events.append(i)
-        elif s_pos > h[i]:
-            s_pos = 0.0
-            events.append(i)
-    return torch.tensor(events, dtype=torch.int64, device=raw_time_series.device)
+    with trace.span("cusum_filter.loop"):
+        for i in range(1, n):
+            r = log_ret[i - 1]
+            sp, sn = s_pos + r, s_neg + r
+            s_pos = sp if sp > 0.0 else 0.0
+            s_neg = sn if sn < 0.0 else 0.0
+            if s_neg < -h[i]:
+                s_neg = 0.0
+                events.append(i)
+            elif s_pos > h[i]:
+                s_pos = 0.0
+                events.append(i)
+    dev = raw_time_series.device
+    return trace.host_read(lambda e: torch.tensor(e, dtype=torch.int64, device=dev), events)
+
+
+def _to_host(x):
+    return x.to("cpu", torch.float64)
 
 
 def z_score_peak_filter(y, window: int, threshold: float = 3, *, cumsum=fast_cumsum,

@@ -1380,13 +1380,13 @@ def probe_d(specs):
                                             cs.VOLUME_BARS + 2),
                "dollar": lambda: fw._launch(fw._DOLLAR, p, v, thr["dollar"],
                                             cs.DOLLAR_BARS + 2)}
-    before = list(fw.ROUTE_LAUNCHES)
+    before = fw.route_launches()
     exact, counts = {}, {}
     for mode in args:
         exact[f"{mode} | package"] = bool(torch.equal(package[mode]().cpu(), want[mode]))
         if not exact[f"{mode} | package"]:
             cs.fail(f"D package {mode}: closes differ from the plain loop")
-    routes = [a - b for a, b in zip(fw.ROUTE_LAUNCHES, before)]
+    routes = [a - b for a, b in zip(fw.route_launches(), before)]
     cs.say(f"D package: the routes [warp step, block walk, units] of the two walks {routes}")
 
     def closes(out_count):

@@ -31,6 +31,7 @@ from finmlkit_tpu_torch.testing import (CSW_FILTER_CASES, CUSUM_BAD, FLOAT_WALK_
                                        csw_filter_case, cusum_recurrence, offgrid_trades,
                                        profile_case,
                                        profile_rows_case, tile_closes, zeros_and_twos)
+from finmlkit_tpu_torch.utils import trace
 
 pytestmark = pytest.mark.cuda
 
@@ -72,9 +73,9 @@ def _check_scan(got, want, again):
                                    torch.float64])
 def test_scan_matches_plain(cuda, dtype, n):
     x = _scan_input((n,), dtype, cuda, n)
-    before = (prefix_scan.LAUNCHES, prefix_scan.FLOAT_LAUNCHES)
+    before = (trace.counter("launch.S"), trace.counter("launch.S.float"))
     got = prefix_scan.fast_cumsum(x)
-    assert (prefix_scan.LAUNCHES, prefix_scan.FLOAT_LAUNCHES) == \
+    assert (trace.counter("launch.S"), trace.counter("launch.S.float")) == \
         (before[0] + 1, before[1] + dtype.is_floating_point)
     _check_scan(got, prefix_scan.fast_cumsum_plain(x),
                 lambda: prefix_scan.fast_cumsum(x))
@@ -88,9 +89,9 @@ def test_scan_matches_plain(cuda, dtype, n):
 def test_bar_products_and_medians_match_plain(cuda, case):
     arrs = adversarial_trades(**case)
     ticks, units, sides, amounts, ci = (torch.from_numpy(a).to(cuda) for a in arrs)
-    before = fused_scan.LAUNCHES
+    before = trace.counter("launch.B")
     got = fused_scan.bar_scan_products(ticks, units, sides, ci)
-    assert fused_scan.LAUNCHES == before + 1
+    assert trace.counter("launch.B") == before + 1
     want = fused_scan.bar_scan_products_plain(ticks, units, sides, ci)
     for a, b in zip(got, want):
         assert_exact(a, b)
@@ -110,9 +111,9 @@ def test_bar_products_tile_cases_match_plain(cuda, name, offset):
     ticks, units, sides, _, _ = (torch.from_numpy(a).to(cuda)[offset:]
                                  for a in adversarial_trades(n=n + offset, seed=41))
     ci = torch.from_numpy(tile_closes(name, n, tile)).to(cuda)
-    before = fused_scan.LAUNCHES
+    before = trace.counter("launch.B")
     got = fused_scan.bar_scan_products(ticks, units, sides, ci)
-    assert fused_scan.LAUNCHES == before + 1
+    assert trace.counter("launch.B") == before + 1
     for what, a, b in zip(("p64", "p32", "pf"), got,
                           fused_scan.bar_scan_products_plain(ticks, units, sides, ci)):
         assert_exact(a, b, f"{name} {what}")
@@ -132,9 +133,9 @@ def test_bar_products_reject_unsorted_ci(cuda):
                                    torch.float64])
 def test_cols_scan_matches_plain(cuda, dtype, c, n):
     x = _scan_input((c, n), dtype, cuda, n + c)
-    before = prefix_scan.COLS_LAUNCHES
+    before = trace.counter("launch.C")
     got = prefix_scan.fast_cumsum_cols(x)
-    assert prefix_scan.COLS_LAUNCHES == before + 1
+    assert trace.counter("launch.C") == before + 1
     _check_scan(got, prefix_scan.fast_cumsum_cols_plain(x),
                 lambda: prefix_scan.fast_cumsum_cols(x))
 
@@ -148,9 +149,9 @@ def test_order_flow_matches_plain(cuda, case):
         torch.from_numpy(a).to(cuda) for a in adversarial_trades(**case))
     ts = torch.arange(len(ticks), device=cuda)
     small = units.clamp(max=10**8)  # keeps the dollar prefix inside int64
-    before = prefix_scan.LAUNCHES
+    before = trace.counter("launch.S")
     _, dci = dollar_bar_indexer_q(ts, ticks, small, 5e4, 0.1, 1e-8)
-    assert prefix_scan.LAUNCHES == before + 1
+    assert trace.counter("launch.S") == before + 1
     _, dci_plain = dollar_bar_indexer_q(ts, ticks, small, 5e4, 0.1, 1e-8,
                                         cumsum=prefix_scan.fast_cumsum_plain)
     assert_exact(dci, dci_plain)
@@ -162,10 +163,10 @@ def test_order_flow_matches_plain(cuda, case):
     L = 8
     while L < int((high - low + 1).max()):
         L *= 2
-    before = prefix_scan.COLS_LAUNCHES
+    before = trace.counter("launch.C")
     got = comp_bar_footprints_q(ticks, amounts, ci, sides, low, high, 3.0,
                                 max_levels=L)
-    assert prefix_scan.COLS_LAUNCHES == before + 1
+    assert trace.counter("launch.C") == before + 1
     want = comp_bar_footprints_q(ticks, amounts, ci, sides, low, high, 3.0,
                                  max_levels=L,
                                  cumsum_cols=prefix_scan.fast_cumsum_cols_plain)
@@ -211,9 +212,9 @@ FFILL_NS = [1, 2047, 2048, 2049, 4095, 4096, 4097, 8193, 5_000_001,
                                   "none_valid"])
 def test_ffill_matches_plain(cuda, dtype, n, mask):
     v, m = _ffill_case(n, dtype, mask, cuda, n)
-    before = prefix_scan.FFILL_LAUNCHES
+    before = trace.counter("launch.F.ffill")
     got = prefix_scan.fast_ffill(v, m)
-    assert prefix_scan.FFILL_LAUNCHES == before + 1
+    assert trace.counter("launch.F.ffill") == before + 1
     assert_exact(_bits(got), _bits(prefix_scan.fast_ffill_plain(v, m)))
     if n > 1:   # a view that starts off 16-byte alignment takes the scalar path
         assert_exact(_bits(prefix_scan.fast_ffill(v[1:], m[1:])),
@@ -247,9 +248,9 @@ def test_info_scan_matches_plain(cuda, case, run_mode):
         n = 100_000
         w, args = w[:n], (1.0, 1.0, 0.0, 0.0)
     mb = 50 if case == "capped" else n
-    before = (event_scan.LAUNCHES, prefix_scan.LAUNCHES)
+    before = (trace.counter("launch.E"), trace.counter("launch.S"))
     got = event_scan.info_scan(w, *args, mb, run_mode)
-    assert (event_scan.LAUNCHES, prefix_scan.LAUNCHES) == \
+    assert (trace.counter("launch.E"), trace.counter("launch.S")) == \
         (before[0] + 1, before[1] + 1)   # E, and S for its compaction
     want = event_scan.info_scan_plain(w, *args, mb, run_mode)
     assert_exact(got, want)
@@ -270,9 +271,9 @@ def test_volume_scan_matches_plain(cuda, thr):
                           generator=g)
     units[::50] = 10**9
     mb = n if thr > 1 else 200_000      # thr 1: a bar per trade, capped
-    before = (event_scan.LAUNCHES, prefix_scan.LAUNCHES)
+    before = (trace.counter("launch.E"), trace.counter("launch.S"))
     got = event_scan.volume_scan(units, thr, mb)
-    assert (event_scan.LAUNCHES, prefix_scan.LAUNCHES) == \
+    assert (trace.counter("launch.E"), trace.counter("launch.S")) == \
         (before[0] + 1, before[1] + 1)
     assert_exact(got, event_scan.volume_scan_plain(units, thr, mb))
     for chunks in CHUNKS:
@@ -293,9 +294,9 @@ def test_cusum_scan_matches_plain(cuda, start, max_bars):
                                      generator=g))
     can_close = torch.rand(n, device=cuda, generator=g) < 0.9
     mb = n if max_bars is None else max_bars
-    before = (event_scan.LAUNCHES, prefix_scan.LAUNCHES)
+    before = (trace.counter("launch.E"), trace.counter("launch.S"))
     got = event_scan.cusum_scan(rets, lam, can_close, start, mb)
-    assert (event_scan.LAUNCHES, prefix_scan.LAUNCHES) == \
+    assert (trace.counter("launch.E"), trace.counter("launch.S")) == \
         (before[0] + 1, before[1] + 1)
     want = event_scan.cusum_scan_plain(rets, lam, can_close, start, mb)
     assert_exact(got, want)
@@ -333,9 +334,9 @@ def test_info_scan_map_path_matches_plain(cuda, case):
         w[::89] = -1e15
         w[torch.rand(n, device=cuda, generator=g) < 0.3] = 0.0
     for mb in (n, 5):
-        before = list(event_scan.MODE_LAUNCHES)
+        before = event_scan.mode_launches()
         got = event_scan.info_scan(w, 1.0, theta, 0.0, 0.0, mb, False)
-        assert event_scan.MODE_LAUNCHES[event_scan._IMBALANCE_MAP] == \
+        assert trace.counter("launch.E.imbalance_map") == \
             before[event_scan._IMBALANCE_MAP] + 1
         want = event_scan.info_scan_plain(w, 1.0, theta, 0.0, 0.0, mb, False)
         assert_exact(got, want, f"{case} max_bars={mb}")
@@ -358,9 +359,9 @@ def test_info_scan_takes_the_walk(cuda, case):
         args = (1000.0, 0.03, 0.05, 0.0)
     else:
         args = (1.0, 64.5, 0.0, 0.0)         # 129 states
-    before = list(event_scan.MODE_LAUNCHES)
+    before = event_scan.mode_launches()
     got = event_scan.info_scan(w, *args, n, False)
-    assert [a - b for a, b in zip(event_scan.MODE_LAUNCHES, before)] == [0, 1, 0, 0, 0]
+    assert [a - b for a, b in zip(event_scan.mode_launches(), before)] == [0, 1, 0, 0, 0]
     assert_exact(got, event_scan.info_scan_plain(w, *args, n, False))
 
 
@@ -423,9 +424,9 @@ def test_hist_passes_match_plain(cuda, case):
             - torch.randint(0, 1 << 20, (len(ci) - 1,), device=cuda, generator=g,
                             dtype=torch.int32))
     for s in segment_hist.SHIFTS:
-        before = segment_hist.LAUNCHES
+        before = trace.counter("launch.H")
         got = segment_hist.hist_pass(bits, ci, base, s)
-        assert segment_hist.LAUNCHES == before + 1
+        assert trace.counter("launch.H") == before + 1
         assert_exact(got, segment_hist.hist_pass_plain(bits, ci, base, s), f"s={s}")
     for got, want in zip(segment_hist.less_pass(bits, ci, base),
                          segment_hist.less_pass_plain(bits, ci, base)):
@@ -469,10 +470,10 @@ def test_median_engines_match_plain_and_sort(cuda, case, engine):
     else:
         _, _, _, amounts, ci = (torch.from_numpy(a).to(cuda)
                                 for a in adversarial_trades(**case))
-    counters = (segment_hist.LAUNCHES, prefix_scan.FILL_LAST_LAUNCHES)
+    counters = (trace.counter("launch.H"), trace.counter("launch.F.fill_last"))
     got = median_engine(engine)(amounts, ci)
-    launched = (segment_hist.LAUNCHES - counters[0],
-                prefix_scan.FILL_LAST_LAUNCHES - counters[1])
+    launched = (trace.counter("launch.H") - counters[0],
+                trace.counter("launch.F.fill_last") - counters[1])
     assert launched == ((9, 0) if engine == "hist" else (0, 4))
     want = median_engine(engine, plain=True)(amounts, ci)
     for a, b in zip(got, want):
@@ -490,9 +491,9 @@ def test_fill_last_matches_plain(cuda, n, mask):
     g = torch.Generator(device=cuda).manual_seed(n)
     v = torch.randint(-2**31, 2**31 - 1, (n,), dtype=torch.int32, device=cuda,
                       generator=g)
-    before = prefix_scan.FILL_LAST_LAUNCHES
+    before = trace.counter("launch.F.fill_last")
     got = prefix_scan.fill_last(v, m)
-    assert prefix_scan.FILL_LAST_LAUNCHES == before + 1
+    assert trace.counter("launch.F.fill_last") == before + 1
     assert_exact(got, prefix_scan.fill_last_plain(v, m))
 
 
@@ -518,9 +519,9 @@ def test_planes_match_plain(cuda, case):
         torch.from_numpy(a).to(cuda) for a in adversarial_trades(**case))
     if edges:
         ci = _tile_edge_ci(len(ticks)).to(cuda)
-    before = (fused_scan.PLANES_LAUNCHES, prefix_scan.COLS_LAUNCHES)
+    before = (trace.counter("launch.V"), trace.counter("launch.C"))
     got = fused_scan.bar_scan_planes(ticks, units, sides, ci)
-    assert (fused_scan.PLANES_LAUNCHES, prefix_scan.COLS_LAUNCHES) == \
+    assert (trace.counter("launch.V"), trace.counter("launch.C")) == \
         (before[0] + 1, before[1])         # kernel V once, kernel C never
     want = fused_scan.bar_scan_planes_plain(ticks, units, sides, ci)
     for name, a, b in zip(("pre64", "pre32", "ext32", "extf"), got, want):
@@ -537,7 +538,7 @@ def test_io_floor_matches_plain(cuda, n):
     x = torch.randint(-2**31, 2**31 - 1, (8, n), dtype=torch.int32, device=cuda,
                       generator=g)
     streams = [r.clone() for r in x]
-    before = fused_scan.IO_FLOOR_LAUNCHES
+    before = trace.counter("launch.P")
     assert_exact(fused_scan.bar_scan_io_floor(*streams),
                  fused_scan.io_floor_plain(streams), "P1")
     for k in (1, 2, 4, 8):
@@ -553,7 +554,7 @@ def test_io_floor_matches_plain(cuda, n):
         assert y.data_ptr() % 16 == 4 * off
         assert_exact(fused_scan.bar_scan_io_floor_stacked(y),
                      fused_scan.io_floor_plain(x), f"P3 at offset {off}")
-    assert fused_scan.IO_FLOOR_LAUNCHES == before + 9
+    assert trace.counter("launch.P") == before + 9
 
 
 # kernel R's tiles hold 2048 values (8192 where a is a float or one a row), in
@@ -587,9 +588,9 @@ def test_recurrence_matches_plain(cuda, kind, n):
     """Within rtol 1e-12 of the terms' magnitude, NaN positions equal, and
     equal from run to run bit for bit."""
     a, b, y0 = _recurrence_case(kind, n, cuda, n)
-    before = scan.LAUNCHES
+    before = trace.counter("launch.R")
     got = scan.linear_recurrence(a, b, y0=y0)
-    assert scan.LAUNCHES == before + 1
+    assert trace.counter("launch.R") == before + 1
     want = scan.linear_recurrence_plain(a, b, y0=y0)
     mag = scan.linear_recurrence_plain(a.abs() if torch.is_tensor(a) else abs(a),
                                        torch.nan_to_num(b.abs()),
@@ -676,9 +677,9 @@ def test_csw_matches_plain(cuda, case):
     y = torch.log(_csw_prices(case, n, cuda))
     _, sigma = structural_break._sigma(y, w)
     tables = structural_break._tables(w, cuda)
-    before = structural_break.LAUNCHES
+    before = trace.counter("launch.W")
     got = structural_break._sup_stat(y, sigma, w, *tables)
-    assert structural_break.LAUNCHES == before + 1
+    assert trace.counter("launch.W") == before + 1
     want = structural_break._sup_stat_plain(y, sigma, w, *tables)
     for i, (g, v) in enumerate(zip(got, want)):
         assert_exact(g, v, f"{case} output {i}")
@@ -734,10 +735,10 @@ def test_volume_profile_matches_plain(cuda, case, n_bins, path):
     global scratch, against its plain version: it adds in the same order, so
     POC, HVA, LVA and pct are equal bit for bit."""
     (_, low, nl, buy, sell), start, first, m = _profile_inputs(case, cuda)
-    before = volume.LAUNCHES
+    before = trace.counter("launch.G")
     got = volume._rolling(start, first, low, nl, buy, sell, m, n_bins, 0.6834,
                           shared_cap=0 if path == "global" else None)
-    assert volume.LAUNCHES == before + 3     # the pool's slots, the profiles, the walks
+    assert trace.counter("launch.G") == before + 3     # the pool's slots, the profiles, the walks
     want = volume.volume_profile_rolling_plain(start, first, low, nl, buy, sell, m, n_bins,
                                                0.6834)
     for g, w, what in zip(got, want, ("poc", "hva", "lva", "pct")):
@@ -776,7 +777,7 @@ def test_volume_profile_span_cases_match_plain(cuda, mode, name, n_bins, va_pct,
     span over launches of 4, 8, 16, ... levels, and with its walks a thread
     each (these few profiles take a warp each by default): equal to the plain
     version bit for bit."""
-    before = volume.LAUNCHES
+    before = trace.counter("launch.G")
     if mode == "rows":
         grid, lo = profile_rows_case(name)
         g = torch.from_numpy(grid).to(cuda)
@@ -788,7 +789,7 @@ def test_volume_profile_span_cases_match_plain(cuda, mode, name, n_bins, va_pct,
                               **SPAN_PATHS[path])
         want = volume.volume_profile_rolling_plain(start, first, low, nl, buy, sell, m, n_bins,
                                                    va_pct / 100.0)
-    assert volume.LAUNCHES > before
+    assert trace.counter("launch.G") > before
     for g_, w, what in zip(got, want, ("poc", "hva", "lva", "pct")):
         assert_exact(g_, w, f"{mode} {name} bins {n_bins} va {va_pct} {path} {what}")
 
@@ -807,10 +808,10 @@ def test_chain_kernel_path_matches_plain(cuda):
     month = dict(n=len(ts), ts=ts, price=price, amount=amount, side=side)
     trades, _ = chip_smoke.chain_trades(month)
     _, graph = chip_smoke.chain_graph()
-    counts = (fused_scan.LAUNCHES, prefix_scan.LAUNCHES, scan.LAUNCHES)
+    counts = (trace.counter("launch.B"), trace.counter("launch.S"), trace.counter("launch.R"))
     k, _ = chip_smoke.run_chain(trades, graph)
-    assert fused_scan.LAUNCHES > counts[0] and prefix_scan.LAUNCHES > counts[1] \
-        and scan.LAUNCHES > counts[2]
+    assert trace.counter("launch.B") > counts[0] and trace.counter("launch.S") > counts[1] \
+        and trace.counter("launch.R") > counts[2]
     p, _ = chip_smoke.run_chain(trades, graph, plain=True)
     chip_smoke.check_chain(k, p, trades)
     again, _ = chip_smoke.run_chain(trades, graph)
@@ -862,7 +863,7 @@ def _walks(mode, px, v, thr, mb):
 
 
 def _route_delta(before):
-    return [a - b for a, b in zip(float_walk.ROUTE_LAUNCHES, before)]
+    return [a - b for a, b in zip(float_walk.route_launches(), before)]
 
 
 def _one_walk(mode, px, v, thr):
@@ -904,10 +905,10 @@ def test_float_walk_matches_plain(cuda, mode, share, cap, dust):
     thr = share * total
     mb = int(total / thr) + 2 if cap is None else cap
     kernel, plain = _walks(mode, px, v, thr, mb)
-    before, routes = float_walk.LAUNCHES, list(float_walk.ROUTE_LAUNCHES)
+    before, routes = trace.counter("launch.D"), float_walk.route_launches()
     got = kernel()
     torch.cuda.synchronize()
-    assert float_walk.LAUNCHES == before + (mb > 0)
+    assert trace.counter("launch.D") == before + (mb > 0)
     want_route = _one_walk(mode, px, v, thr) if mb > 0 else [0, 0, 0]
     assert _route_delta(routes) == want_route
     if mode == "volume" and mb > 0:
@@ -944,7 +945,7 @@ def test_float_walk_special_values(cuda, mode, special):
     assert _one_walk(mode, px, v, thr) == want_route
     for cap in (WALK_N, 17):
         kernel, plain = _walks(mode, px, v, thr, cap)
-        routes = list(float_walk.ROUTE_LAUNCHES)
+        routes = float_walk.route_launches()
         assert_exact(kernel(), plain(), f"{mode} {special} cap {cap}")
         assert _route_delta(routes) == want_route
 
@@ -955,7 +956,7 @@ def test_float_walk_thresholds_outside_the_warp_step(cuda, mode, thr):
     """A threshold at most 0, not finite or below 2^-960 takes the block walk."""
     px, v, _ = _off_grid(20_000, cuda, seed=41)
     kernel, plain = _walks(mode, px, v, thr, 20_000)
-    routes = list(float_walk.ROUTE_LAUNCHES)
+    routes = float_walk.route_launches()
     assert_exact(kernel(), plain(), f"{mode} thr {thr}")
     assert _route_delta(routes) == [0, 1, 0]
 
@@ -974,7 +975,7 @@ def test_float_walk_chunk_edges(cuda, n):
         for mode in ("volume", "dollar"):
             for thr in (1e-9, 1e30):
                 kernel, plain = _walks(mode, px, vs, thr, n)
-                routes = list(float_walk.ROUTE_LAUNCHES)
+                routes = float_walk.route_launches()
                 assert_exact(kernel(), plain(), f"{mode} n {n} {stream} thr {thr}")
                 want_route = _one_walk(mode, px, vs, thr)
                 assert _route_delta(routes) == want_route
@@ -998,12 +999,12 @@ def test_float_walk_warp_streams_match_plain(cuda, name, chunks):
     px, v, thr_v, thr_d, cap = _warp_case(name, cuda)
     dv = _dusted(v)
     st = torch.zeros(len(float_walk.STATS), dtype=torch.int64, device=cuda)
-    routes = list(float_walk.ROUTE_LAUNCHES)
+    routes = float_walk.route_launches()
     got = float_walk._launch(float_walk._VOLUME, None, dv, thr_v, cap, chunks=chunks, stats=st)
     assert_exact(got, float_walk.volume_walk_plain(dv, thr_v, cap),
                  f"{name} volume with dust, {chunks}")
     assert _route_delta(routes) == [1, 0, 0]
-    routes = list(float_walk.ROUTE_LAUNCHES)
+    routes = float_walk.route_launches()
     assert_exact(float_walk._launch(float_walk._VOLUME, None, v, thr_v, cap, chunks=chunks),
                  float_walk.volume_walk_plain(v, thr_v, cap), f"{name} volume, {chunks}")
     want_d = float_walk.dollar_walk_plain(px, v, thr_d, cap)
@@ -1025,7 +1026,7 @@ def test_float_walk_volume_chunks_on_a_large_stream(cuda, chunks):
     v = _dusted(torch.from_numpy(v).to(cuda))
     thr = float(v.double().sum()) / 5000
     want = float_walk.volume_walk_plain(v, thr, 6000)
-    routes = list(float_walk.ROUTE_LAUNCHES)
+    routes = float_walk.route_launches()
     assert_exact(float_walk._launch(float_walk._VOLUME, None, v, thr, 6000, chunks=chunks),
                  want, f"volume at {chunks} chunks")
     assert _route_delta(routes) == [1, 0, 0]
@@ -1044,11 +1045,11 @@ def test_float_range_sums_match_cumsum(cuda):
     ci = torch.unique(torch.randint(0, n, (20_000,), device=cuda, generator=g))
     ci = torch.cat([torch.tensor([-1], device=cuda), ci, torch.tensor([n - 1], device=cuda)])
     want = prefix_differences(torch.cumsum(x, 1), ci)
-    s_before, c_before = prefix_scan.FLOAT_LAUNCHES, prefix_scan.COLS_LAUNCHES
+    s_before, c_before = trace.counter("launch.S.float"), trace.counter("launch.C")
     got1 = range_sum(x[0], ci)
     got7 = range_sums(x, ci)
-    assert prefix_scan.FLOAT_LAUNCHES == s_before + 1
-    assert prefix_scan.COLS_LAUNCHES == c_before + 1
+    assert trace.counter("launch.S.float") == s_before + 1
+    assert trace.counter("launch.C") == c_before + 1
     P = torch.cumsum(x, 1).abs().amax(1)
     for r in range(7):
         assert_within(got7[r], want[r], 2e-12 * float(P[r]), f"range_sums row {r}")
@@ -1066,19 +1067,19 @@ def test_aggregate_launches_s_and_c_and_matches_plain(cuda):
     ci = torch.arange(-1, n, 700, device=cuda)
     ci = torch.cat([ci[:5], ci[4:5], ci[5:]])           # an empty bar
     plain = dict(cumsum=prefix_scan.fast_cumsum_plain)
-    s0, f0, c0 = prefix_scan.LAUNCHES, prefix_scan.FLOAT_LAUNCHES, prefix_scan.COLS_LAUNCHES
+    s0, f0, c0 = (trace.counter(k) for k in ("launch.S", "launch.S.float", "launch.C"))
     o = aggregate.comp_bar_ohlcv(px, v, ci)
-    assert (prefix_scan.LAUNCHES - s0, prefix_scan.FLOAT_LAUNCHES - f0) == (3, 2)
+    assert (trace.counter("launch.S") - s0, trace.counter("launch.S.float") - f0) == (3, 2)
     d = aggregate.comp_bar_directional_features(px, v, ci, side)
-    assert prefix_scan.COLS_LAUNCHES - c0 == 2 and prefix_scan.LAUNCHES - s0 == 4
+    assert trace.counter("launch.C") - c0 == 2 and trace.counter("launch.S") - s0 == 4
     theta = o["median_trade_size"]
     t = aggregate.comp_bar_trade_size_features(v, theta, ci, 5.0)
-    assert (prefix_scan.LAUNCHES - s0, prefix_scan.FLOAT_LAUNCHES - f0) == (8, 5)
+    assert (trace.counter("launch.S") - s0, trace.counter("launch.S.float") - f0) == (8, 5)
     po = aggregate.comp_bar_ohlcv(px, v, ci, **plain)
     pd_ = aggregate.comp_bar_directional_features(
         px, v, ci, side, cumsum_cols=prefix_scan.fast_cumsum_cols_plain, **plain)
     pt = aggregate.comp_bar_trade_size_features(v, theta, ci, 5.0, **plain)
-    assert (prefix_scan.LAUNCHES - s0, prefix_scan.COLS_LAUNCHES - c0) == (8, 2)
+    assert (trace.counter("launch.S") - s0, trace.counter("launch.C") - c0) == (8, 2)
     for got, want in ((o, po), (d, pd_), (t, pt)):
         hold_float_path(got, want, px, v, po["volume"], "card vs plain")
 
@@ -1093,11 +1094,11 @@ def test_off_grid_kits_match_plain(cuda):
     ts = 1_751_328_000_000_000_000 + np.cumsum(np.full(n, 70_000_000, np.int64))
     px, v, side = px.numpy(), v.numpy(), side.numpy()
     thr = float((px * v.astype(np.float64)).sum()) / 300
-    before = float_walk.LAUNCHES
+    before = trace.counter("launch.D")
     k = kit.DollarBarKit(ts, px, v, side, thr)
     p = kit.DollarBarKit(ts, px, v, side, thr, plain=True)
     assert_exact(k.bar_close_indices, p.bar_close_indices, "dollar closes")
-    assert float_walk.LAUNCHES == before + 1
+    assert trace.counter("launch.D") == before + 1
     vk = kit.VolumeBarKit(ts, px, v, side, float(v.sum()) / 300)
     vp = kit.VolumeBarKit(ts, px, v, side, float(v.sum()) / 300, plain=True)
     assert_exact(vk.bar_close_indices, vp.bar_close_indices, "volume closes")
@@ -1130,9 +1131,9 @@ def test_resample_matches_plain(cuda, timeframe):
     from finmlkit_tpu_torch.data import klines
     bars = klines.build_klines(_klines_trades())
     assert int((bars["trades"] == 0).sum()) > 100
-    before = prefix_scan.LAUNCHES
+    before = trace.counter("launch.S")
     got = klines.resample(bars, timeframe)
-    assert prefix_scan.LAUNCHES == before + 2
+    assert trace.counter("launch.S") == before + 2
     plain = klines.resample(bars, timeframe, plain=True)
     for k, v in plain.items():
         assert v.device.type == "cuda"
@@ -1148,9 +1149,9 @@ def test_build_klines_matches_plain(cuda):
     on the card, bit for bit."""
     from finmlkit_tpu_torch.data import klines
     trades = _klines_trades(seed=22)
-    counts = (fused_scan.LAUNCHES, prefix_scan.LAUNCHES)
+    counts = (trace.counter("launch.B"), trace.counter("launch.S"))
     got = klines.build_klines(trades)
-    assert (fused_scan.LAUNCHES, prefix_scan.LAUNCHES) == (counts[0] + 1, counts[1] + 1)
+    assert (trace.counter("launch.B"), trace.counter("launch.S")) == (counts[0] + 1, counts[1] + 1)
     want = klines.build_klines(trades, plain=True)
     for k, v in want.items():
         assert_exact(got[k], v, k)
@@ -1299,7 +1300,7 @@ def test_float_walk_entry_sum_matches_plain(cuda, name, entry):
         assert same_state(state, want_state)
     else:
         state = float(np.nextafter(thr, 0.0))
-    before = list(float_walk.ROUTE_LAUNCHES)
+    before = float_walk.route_launches()
     got, end = walk(*args(k, WALK_N), thr, WALK_N, state=state, exit_state=True)
     routes = _route_delta(before)
     want, want_end = plain(*args(k, WALK_N), thr, WALK_N, state=state, exit_state=True)
@@ -1345,3 +1346,80 @@ def test_sharded_indexers_staged_on_the_card(cuda):
     assert all(r["staged_same"] and r["staged_bytes"] > 0 for r in res)
     assert res[0]["digests"] == res[1]["digests"]
     assert res[0]["launches"]["E cusum"] >= 1 and res[0]["launches"]["D"] >= 1
+
+
+# --- host reads on the card: every synchronizing call is a counted read ----------
+
+def _pass_calls(dev):
+    """The benchmark's two passes on 300,000 trades of the synthetic month on
+    the card, each entry a call with its inputs made by the ones before it."""
+    from finmlkit_tpu_torch import interop
+    from finmlkit_tpu_torch.bar.footprint_q import bar_footprints
+    from finmlkit_tpu_torch.bar.fused import bar_products_final
+    from finmlkit_tpu_torch.bar.indexers import time_bar_indexer
+    from finmlkit_tpu_torch.bar.quantize import quantize_trades
+    from finmlkit_tpu_torch.label.tbm import triple_barrier
+    from finmlkit_tpu_torch.label.weights import average_uniqueness, return_attribution
+    from finmlkit_tpu_torch.sampling.filters import cusum_filter
+    from finmlkit_tpu_torch.testing import bench_trades
+    ts, price, amount, side = bench_trades(300_000, 3)
+    tr = interop.from_numpy(quantize_trades(price, amount), None, side, amount, dev,
+                            timestamps=ts)
+    first, last = int(ts[0]), int(ts[-1])
+    kw = dict(tick_size=tr.tick_size, amount_scale=tr.amount_scale, amounts_f32=tr.amounts)
+    clock, ci_t = time_bar_indexer(tr.timestamps, 60.0, ts_first=first, ts_last_i=last)
+    close = bar_products_final(tr.ticks, tr.units, ci_t, tr.sides, **kw)[0]["close"]
+    bar_ts = clock[1:ci_t.shape[0]]
+    ev = cusum_filter(close, [0.002])
+    ev = ev[ev < close.shape[0] - 60]
+    tgt = torch.full((ev.shape[0],), 0.003, dtype=torch.float64, device=dev)
+    touch = triple_barrier(bar_ts, close, ev, tgt, (1, 1), 3600.0)[1]
+    conc = average_uniqueness(bar_ts, ev, touch)[1]
+    thr = float((price * amount.astype(np.float64)).sum()) / 1000
+    ci_d = dollar_bar_indexer_q(tr.timestamps, tr.ticks, tr.units, thr, tr.tick_size,
+                                tr.amount_scale)[1]
+    ohlcv = bar_products_final(tr.ticks, tr.units, ci_d, tr.sides, **kw)[0]
+    return {
+        "time_bar_indexer": lambda: time_bar_indexer(tr.timestamps, 60.0, ts_first=first,
+                                                     ts_last_i=last),
+        "bar_products_final": lambda: bar_products_final(tr.ticks, tr.units, ci_t, tr.sides,
+                                                         **kw),
+        "cusum_filter": lambda: cusum_filter(close, [0.002]),
+        "triple_barrier": lambda: triple_barrier(bar_ts, close, ev, tgt, (1, 1), 3600.0),
+        "average_uniqueness": lambda: average_uniqueness(bar_ts, ev, touch),
+        "return_attribution": lambda: return_attribution(ev, touch, close, conc),
+        "dollar_bar_indexer_q": lambda: dollar_bar_indexer_q(
+            tr.timestamps, tr.ticks, tr.units, thr, tr.tick_size, tr.amount_scale),
+        "bar_footprints": lambda: bar_footprints(tr.ticks, tr.amounts, ci_d, tr.sides, ohlcv,
+                                                 tick_size=tr.tick_size, price_tick_size=0.1,
+                                                 imbalance_factor=3.0),
+        "bar_trade_size_features": lambda: bar_trade_size_features(
+            tr.units, tr.amounts, ci_d, ohlcv["median_trade_size"], theta_mult=5.0,
+            amount_scale=tr.amount_scale),
+    }
+
+
+def test_every_sync_of_an_entry_is_a_counted_read(cuda):
+    """Under ``torch.cuda.set_sync_debug_mode("warn")`` each benchmarked
+    entry raises exactly as many synchronizing warnings as the trace registry
+    counts ``host_read``s in its span, so that no read escapes the count."""
+    import warnings
+    calls = _pass_calls(cuda)
+    got = {}
+    for name, call in calls.items():
+        call()                                     # warm: the allocator, lazy loads
+        torch.cuda.synchronize()
+        before = trace.report().get(name, {}).get("reads", 0)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                call()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        syncs = [f"{w.filename}:{w.lineno}" for w in caught
+                 if "called a synchronizing CUDA operation" in str(w.message)]
+        got[name] = (len(syncs), trace.report()[name]["reads"] - before, syncs)
+    assert all(w[0] == w[1] for w in got.values()), got
+    assert got["dollar_bar_indexer_q"][1] == 2 and got["bar_products_final"][1] == 1

@@ -18,8 +18,8 @@ from finmlkit_tpu.bar.quantize import quantize_trades as jax_quantize_trades
 from finmlkit_tpu_torch import interop
 from finmlkit_tpu_torch.bar.indexers import dollar_bar_indexer_q
 from finmlkit_tpu_torch.bar.quantize import quantize_trades
-from finmlkit_tpu_torch.ops import prefix_scan
 from finmlkit_tpu_torch.testing import assert_exact
+from finmlkit_tpu_torch.utils import trace
 from tests.conftest import generate_trades
 
 N = 50_000
@@ -59,10 +59,10 @@ def case(request):
 
 def test_ci_and_close_ts_bit_exact(case):
     t = case["t"]
-    before = prefix_scan.LAUNCHES
+    before = trace.counter("launch.S")
     close_ts, ci = dollar_bar_indexer_q(t.timestamps, t.ticks, t.units,
                                         case["thr"], t.tick_size, t.amount_scale)
-    assert prefix_scan.LAUNCHES == before  # CPU tensors: the plain scan
+    assert trace.counter("launch.S") == before  # CPU tensors: the plain scan
     want_ts, want_ci = case["want"]
     assert_exact(ci, want_ci, "ci")
     assert_exact(close_ts, want_ts, "close timestamps")

@@ -412,7 +412,7 @@ def test_kit_timeit_and_profile_dir(tmp_path, capsys, monkeypatch):
     kit.build(_frame(cols, ts), device="cpu")
     for d in ("a", "b"):
         trace = (tmp_path / d / "feature_trace.json").read_text()
-        assert "feature:close_ewma20" in trace and "feature:atr14" in trace
+        assert "fmkt.feature.close_ewma20" in trace and "fmkt.feature.atr14" in trace
     for c in ref:
         assert_exact(timed[c], ref[c], c)
         assert_exact(traced[c], ref[c], c)

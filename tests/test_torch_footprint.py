@@ -27,8 +27,8 @@ from finmlkit_tpu.bar.footprint_q import comp_bar_footprints_q as jax_fp_q
 from finmlkit_tpu.ops.scan import next_bucket
 from finmlkit_tpu_torch.bar.footprint import footprint_features_from_tensors
 from finmlkit_tpu_torch.bar.footprint_q import bar_footprints, comp_bar_footprints_q
-from finmlkit_tpu_torch.ops import prefix_scan
 from finmlkit_tpu_torch.testing import assert_close, assert_exact
+from finmlkit_tpu_torch.utils import trace
 
 VP_ATOL = 1e-9
 VP_KEYS = ("vp_skew", "vp_gini")
@@ -215,9 +215,9 @@ def fp_case(request):
                  jnp.asarray(sides), jnp.asarray(low), jnp.asarray(high), 3.0,
                  max_levels=L)
     t = [torch.from_numpy(a) for a in (ticks, amounts, ci, sides, low, high)]
-    before = prefix_scan.COLS_LAUNCHES
+    before = trace.counter("launch.C")
     got = comp_bar_footprints_q(*t, 3.0, max_levels=L)
-    assert prefix_scan.COLS_LAUNCHES == before  # CPU tensors: the plain scan
+    assert trace.counter("launch.C") == before  # CPU tensors: the plain scan
     return dict(case=case, got=got, ci=ci, L=L,
                 f64={k: np.asarray(v) for k, v in f64.items()},
                 q={k: np.asarray(v) for k, v in q.items()})

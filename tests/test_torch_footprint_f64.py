@@ -26,6 +26,7 @@ from finmlkit_tpu_torch.bar.footprint import comp_bar_footprints
 from finmlkit_tpu_torch.bar.footprint_q import bar_footprints
 from finmlkit_tpu_torch.ops import prefix_scan
 from finmlkit_tpu_torch.testing import assert_exact
+from finmlkit_tpu_torch.utils import trace
 from tests.test_torch_footprint import _compare
 
 N = 4000
@@ -91,10 +92,10 @@ def test_float_grid_matches_jax(tick):
     L = next_bucket(int(nl.max()), 8)
     want = _want(px, amt, side, ci, tick, low, high, L)
     t = [torch.from_numpy(a) for a in (px, amt, ci, side)]
-    before = prefix_scan.LAUNCHES
+    before = trace.counter("launch.S")
     got = comp_bar_footprints(*t, tick, torch.from_numpy(low), torch.from_numpy(high),
                               3.0, max_levels=L)
-    assert prefix_scan.LAUNCHES == before   # CPU tensors: the plain scan
+    assert trace.counter("launch.S") == before   # CPU tensors: the plain scan
     plain = comp_bar_footprints(*t, tick, torch.from_numpy(low), torch.from_numpy(high),
                                 3.0, max_levels=L, cumsum=prefix_scan.fast_cumsum_plain)
     for k in got:

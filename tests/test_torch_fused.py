@@ -17,8 +17,9 @@ from finmlkit_tpu.bar import fused as jfused
 from finmlkit_tpu.bar.quantize import quantize_trades
 from finmlkit_tpu_torch import interop
 from finmlkit_tpu_torch.bar import fused
-from finmlkit_tpu_torch.ops import fused_scan, prefix_scan
+from finmlkit_tpu_torch.ops import fused_scan
 from finmlkit_tpu_torch.testing import assert_exact
+from finmlkit_tpu_torch.utils import trace
 
 
 N = 34000      # one trade count and
@@ -133,11 +134,11 @@ def test_median_pairs_match_jax_and_np_median(name):
 def test_cpu_path_launches_no_kernel():
     amount, side, q, ci = _case("mk")
     t = interop.from_numpy(q, ci, side, amount, "cpu")
-    before = (fused_scan.LAUNCHES, prefix_scan.LAUNCHES)
+    before = (trace.counter("launch.B"), trace.counter("launch.S"))
     fused.bar_products_final(t.ticks, t.units, t.ci, t.sides,
                              tick_size=t.tick_size, amount_scale=t.amount_scale,
                              amounts_f32=t.amounts)
-    assert (fused_scan.LAUNCHES, prefix_scan.LAUNCHES) == before
+    assert (trace.counter("launch.B"), trace.counter("launch.S")) == before
 
 
 def test_products_reject_bad_dtypes():

@@ -27,6 +27,7 @@ from finmlkit_tpu_torch import interop
 from finmlkit_tpu_torch.bar import fused
 from finmlkit_tpu_torch.ops import fused_scan
 from finmlkit_tpu_torch.testing import assert_exact
+from finmlkit_tpu_torch.utils import trace
 from tests.test_torch_fused import CASES, _case, _jax_args
 
 
@@ -160,7 +161,7 @@ def test_probes_and_planes_check_inputs():
     _, t, _ = _port("mk")
     with pytest.raises(TypeError):
         fused_scan.bar_scan_planes(t.ticks.long(), t.units, t.sides, t.ci)
-    before = (fused_scan.PLANES_LAUNCHES, fused_scan.IO_FLOOR_LAUNCHES)
+    before = (trace.counter("launch.V"), trace.counter("launch.P"))
     fused_scan.bar_scan_planes(t.ticks, t.units, t.sides, t.ci)
     fused_scan.bar_scan_io_floor_k(x, 2)
-    assert (fused_scan.PLANES_LAUNCHES, fused_scan.IO_FLOOR_LAUNCHES) == before
+    assert (trace.counter("launch.V"), trace.counter("launch.P")) == before

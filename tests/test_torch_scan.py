@@ -16,6 +16,7 @@ import torch
 from finmlkit_tpu.ops import pallas_scan
 from finmlkit_tpu_torch.ops import prefix_scan
 from finmlkit_tpu_torch.testing import assert_close, assert_exact
+from finmlkit_tpu_torch.utils import trace
 
 LENGTHS = [1, 8191, 8193, 20000]
 _BLOCK = 64 * 128  # the Pallas kernel's grid step
@@ -70,9 +71,9 @@ def test_plain_scan_matches_jax(dtype, n):
 
 def test_cpu_wrapper_is_plain_and_launches_nothing():
     x = torch.from_numpy(_data(np.int64, 5000))
-    before = prefix_scan.LAUNCHES
+    before = trace.counter("launch.S")
     assert_exact(prefix_scan.fast_cumsum(x), prefix_scan.fast_cumsum_plain(x))
-    assert prefix_scan.LAUNCHES == before
+    assert trace.counter("launch.S") == before
 
 
 def test_rejects_bad_input():
@@ -94,9 +95,9 @@ def _rows(dtype, c, n):
 @pytest.mark.parametrize("dtype", [np.int32, np.int64, np.float32, np.float64])
 def test_plain_cols_scan_matches_jax(dtype, c, n):
     x = _rows(dtype, c, n)
-    before = prefix_scan.COLS_LAUNCHES
+    before = trace.counter("launch.C")
     got = prefix_scan.fast_cumsum_cols(torch.from_numpy(x))
-    assert prefix_scan.COLS_LAUNCHES == before
+    assert trace.counter("launch.C") == before
     what = f"{np.dtype(dtype).name} C={c} n={n}"
     assert got.dtype == torch.from_numpy(x).dtype and got.shape == x.shape
     if dtype == np.float64:

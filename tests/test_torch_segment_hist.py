@@ -18,6 +18,7 @@ import torch
 from finmlkit_tpu.ops import segment_hist as jsh
 from finmlkit_tpu_torch.ops import segment_hist as sh
 from finmlkit_tpu_torch.testing import assert_exact
+from finmlkit_tpu_torch.utils import trace
 from tests.ops.test_segment_hist import _case
 
 SCENARIOS = [(6000, 70, -1, 3), (4000, 40, 7, 4), (3000, 25, -1, 5), (513, 3, -1, 6)]
@@ -86,14 +87,14 @@ def test_passes_on_cpu_run_the_plain_versions():
     amount, ci = _case(3000, 25, -1, 5)
     bits, ci_t = torch.from_numpy(amount).view(torch.int32), torch.from_numpy(ci)
     base = bits[(ci_t[:-1] + 1).clamp(max=len(bits) - 1)] - 1000
-    before = sh.LAUNCHES
+    before = trace.counter("launch.H")
     for s in sh.SHIFTS:
         assert_exact(sh.hist_pass(bits, ci_t, base, s),
                      sh.hist_pass_plain(bits, ci_t, base, s), f"s={s}")
     for got, want in zip(sh.less_pass(bits, ci_t, base),
                          sh.less_pass_plain(bits, ci_t, base)):
         assert_exact(got, want, "less")
-    assert sh.LAUNCHES == before
+    assert trace.counter("launch.H") == before
     with pytest.raises(TypeError):
         sh.hist_pass(bits.long(), ci_t, base, 0)
     with pytest.raises(TypeError):

@@ -19,6 +19,7 @@ from finmlkit_tpu.ops.segment_select import _fill_last_planes
 from finmlkit_tpu_torch.ops import prefix_scan
 from finmlkit_tpu_torch.ops.segment_select import segment_median_pair_select
 from finmlkit_tpu_torch.testing import assert_exact
+from finmlkit_tpu_torch.utils import trace
 from tests.ops.test_segment_hist import _case
 
 
@@ -62,9 +63,9 @@ def test_fill_last_plain_matches_jax_kernel(marks):
                                         interpret=True)).reshape(-1)
     v, mk = torch.from_numpy(vals), torch.from_numpy(m != 0)
     assert_exact(prefix_scan.fill_last_plain(v, mk), want, marks)
-    before = prefix_scan.FILL_LAST_LAUNCHES
+    before = trace.counter("launch.F.fill_last")
     assert_exact(prefix_scan.fill_last(v, mk), want, f"{marks}, CPU dispatch")
-    assert prefix_scan.FILL_LAST_LAUNCHES == before
+    assert trace.counter("launch.F.fill_last") == before
 
 
 def test_fill_last_checks_inputs():

@@ -40,8 +40,8 @@ from finmlkit_tpu.bar import aggregate, aggregate_q
 from finmlkit_tpu.bar.indexers import time_bar_indexer as jax_time_bar_indexer
 from finmlkit_tpu.bar.quantize import quantize_trades
 from finmlkit_tpu_torch.bar.aggregate_q import bar_trade_size_features
-from finmlkit_tpu_torch.ops import prefix_scan
 from finmlkit_tpu_torch.testing import adversarial_trades
+from finmlkit_tpu_torch.utils import trace
 from tests.conftest import generate_trades
 
 THETA_MULT = 5.0
@@ -86,11 +86,11 @@ def ts_case(request):
     q = aggregate_q.comp_bar_trade_size_features_q(
         jnp.asarray(units), jnp.asarray(amt), theta_bars, jnp.asarray(ci),
         THETA_MULT, 1e-8)
-    before = (prefix_scan.LAUNCHES, prefix_scan.COLS_LAUNCHES)
+    before = (trace.counter("launch.S"), trace.counter("launch.C"))
     got = bar_trade_size_features(torch.from_numpy(units), torch.from_numpy(amt),
                                   torch.from_numpy(ci), theta,
                                   theta_mult=THETA_MULT, amount_scale=1e-8)
-    assert (prefix_scan.LAUNCHES, prefix_scan.COLS_LAUNCHES) == before
+    assert (trace.counter("launch.S"), trace.counter("launch.C")) == before
     return dict(name=request.param, units=units, amt=amt, ci=ci,
                 theta=theta_bars, got=got,
                 f64={k: np.asarray(v) for k, v in f64.items()},
