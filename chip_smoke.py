@@ -131,12 +131,14 @@ Phases:
    through the plain versions. The pipeline's bars equal the kit's
    ``build_ohlcv`` and ``build_directional_features`` and its features
    config 4's kit build, bit for bit; kernel path against plain path: bars,
-   features, events, event and touch indices and labels exact, uniqueness,
+   features, events (kernel Z against the host loop on the closes read back),
+   event and touch indices and labels exact, uniqueness,
    attribution and final weights within rtol 1e-12 of their prefix
    magnitude, the final weights equal between two kernel runs, the z-score
    events equal but for z-scores within 1e-9 of the threshold (counted);
-   B, S and R launched; each stage's time, the chain end to end, peak device
-   memory. B, S and R are timed here when no earlier phase timed them;
+   B, S and R launched, Z once; each stage's time, the chain end to end, peak
+   device memory. B, S, R and Z are timed here when no earlier phase timed
+   them;
 12. the off-grid month: the same draws with the prices left off the 0.1 grid
    (``quantize_trades`` gives None), through the kits' float64 path:
    ``TimeBarKit`` (1-minute bars: OHLCV, directional features, trade-size
@@ -307,6 +309,9 @@ KERNELS = {
           "in integer units through E where no sum rounds (replaces host C++, not a TPU "
           "kernel)",
           "float_walk.cu", "finmlkit_tpu/native/seg_stats.cpp:183 and :199"),
+    "Z": ("Z cusum_filter, the CUSUM event filter in one block of 1024 walkers whose "
+          "chunk walks meet in rounds (replaces the host loop, not a TPU kernel)",
+          "cusum_filter.cu", "finmlkit_tpu/native/seg_stats.cpp:137"),
 }
 
 
@@ -613,7 +618,9 @@ def run_slice(tr, ts_first, ts_last, plain=False):
     mark()
     n_bars = ci.shape[0] - 1
     close, bar_ts = ohlcv["close"], clock[1:n_bars + 1]
-    ev = cusum_filter(close, [0.002])
+    # kernel Z, or on the plain path the host loop on the closes read back
+    ev = (cusum_filter(close.cpu(), [0.002]).to(close.device) if plain
+          else cusum_filter(close, [0.002]))
     cut = max(n_bars - 2000, n_bars // 2)           # bench.py:557-560
     ev = ev[ev < cut]
     if len(ev) == 0:
@@ -699,8 +706,8 @@ def phase_month(card, month):
     trace.reset()
     k_out, st = run_slice(*args)          # the main path's counted run
     launches = {"B": trace.counter("launch.B"), "S": trace.counter("launch.S"),
-                "S float": trace.counter("launch.S.float")}
-    if launches["B"] < 1 or launches["S"] < 1:
+                "S float": trace.counter("launch.S.float"), "Z": trace.counter("launch.Z")}
+    if launches["B"] < 1 or launches["S"] < 1 or launches["Z"] != 1:
         fail(f"a kernel of the main path did not launch: {launches}")
     stages = {False: [st], True: []}
     p_out, st = run_slice(*args, plain=True)
@@ -766,6 +773,7 @@ def phase_month(card, month):
     # --- kernels alone at the main path's shapes ---
     inv = torch.where(conc > 0, 1.0 / conc.clamp(min=1), 0.0)
     kernels = kernels_b_s(card, tr, ci, launches, s_inputs=(inv,))
+    kernels.update(kernel_z(card, k_out["ohlcv"]["close"], launches))
     say("stage ms, median of 3 (kernel | plain): " + ", ".join(
         f"{k} {k_st[k]:.2f} | {p_st[k]:.2f}" for k in k_st) + f" [{card}]")
 
@@ -843,6 +851,28 @@ def kernels_b_s(card, tr, ci, launches, s_inputs=()):
                           int64_ms=s64_ms, int64_plain_ms=s64_plain,
                           int64_library_ms=s64_lib, int64_bound_ms=2 * s_bound[0]),
     }
+
+
+def kernel_z(card, close, launches):
+    """Kernel Z alone on a path's closes at its threshold (0.002): CUDA-event
+    time against the host loop's (the plain version: the filter on a CPU
+    tensor, host clock), events equal. Returns its entry of the ``kernels``
+    line, with the path's ``launches``."""
+    import torch
+    from finmlkit_tpu_torch.sampling import filters
+    x = close.to(torch.float64).contiguous()
+    h = torch.full((1,), 0.002, dtype=torch.float64, device=x.device)
+    ms = cuda_ms(lambda: filters._kernel(x, h), reps=50)
+    host = x.cpu()
+    t0 = time.perf_counter()
+    want = filters.cusum_filter(host, [0.002])
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if not torch.equal(filters.cusum_filter(x, [0.002]).cpu(), want):
+        fail("kernel Z's events differ from the host loop's")
+    z_bound = bound(8 * x.shape[0] + 8 * want.shape[0] + 16, 0)  # closes in, events out
+    say(f"kernel Z ({x.shape[0]:,} closes, {want.shape[0]:,} events) alone {ms:.4f} ms vs "
+        f"the host loop {plain_ms:.3f} ms, bound {z_bound[0]:.5f} ms [{card}]")
+    return {"Z": kernel_entry("Z", launches["Z"], 0.0, ms, plain_ms, z_bound, None)}
 
 
 def kernel_c(card, tr, ci, low_t, launches):
@@ -2830,7 +2860,9 @@ def run_chain(trades, graph, device="cuda", plain=False):
     ohlcv, direc, feats = pipeline.bar_feature_drain(handles)
     mark()
     close = torch.from_numpy(ohlcv["close"]).to(device)
-    events = cusum_filter(close, [CHAIN_CUSUM])
+    # kernel Z, or on the plain path the host loop on the closes read back
+    events = (cusum_filter(close.cpu(), [CHAIN_CUSUM]).to(device) if plain
+              else cusum_filter(close, [CHAIN_CUSUM]))
     frame = {"timestamp": bar_ts[events], "close": close[events],
              **{k: torch.from_numpy(v).to(device)[events] for k, v in feats.items()}}
     mark()
@@ -2951,9 +2983,10 @@ def phase_chain(card, month, need):
     k_out, k_st = run_chain(trades, graph)        # the path's counted run
     torch.cuda.synchronize()
     launches = {"B": trace.counter("launch.B"), "S": trace.counter("launch.S"),
-                "S float": trace.counter("launch.S.float"), "R": trace.counter("launch.R")}
+                "S float": trace.counter("launch.S.float"), "R": trace.counter("launch.R"),
+                "Z": trace.counter("launch.Z")}
     peak_gib = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
-    if min(launches[x] for x in ("B", "S", "R")) < 1:
+    if min(launches[x] for x in ("B", "S", "R")) < 1 or launches["Z"] != 1:
         fail(f"a kernel of the chain did not launch: {launches}")
     p_out, p_st = run_chain(trades, graph, plain=True)
     k2, k_st2 = run_chain(trades, graph)
@@ -3004,6 +3037,9 @@ def phase_chain(card, month, need):
         entries.update(kernels_b_s(card, kit.trades, kit._ci, launches))
     if "R" in need:
         entries["R"] = kernel_r(card, launches["R"], kit.bar_close_indices.shape[0])
+    if "Z" in need:
+        entries.update(kernel_z(card, torch.from_numpy(k_out["ohlcv"]["close"]).cuda(),
+                                launches))
     return launches, entries
 
 
@@ -4248,7 +4284,7 @@ def main():
         need = {"B", "S", "C", "R", "W"} - set(kernels)
         merge("framework", *phase_framework(card, month, need))
     if 11 in phases:
-        need = {"B", "S", "R"} - set(kernels)
+        need = {"B", "S", "R", "Z"} - set(kernels)
         merge("chain", *phase_chain(card, month, need))
     del month
     if 12 in phases:

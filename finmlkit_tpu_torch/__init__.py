@@ -33,7 +33,10 @@ compiled by ``nvcc`` for ``sm_90a`` at first use (``_build.py``) and bound with
   float64 linear recurrences ``y_t = a_t y_{t-1} + b_t`` of the feature
   kernels (EWMA, EWM variances, Wilder's RSI, ATR, ADX);
 - kernel **W** (``csrc/csw.cu``, ``feature.kernels.structural_break``): the
-  sup statistic of the CSW CUSUM structural-break test, a warp per t.
+  sup statistic of the CSW CUSUM structural-break test, a warp per t;
+- kernel **Z** (``csrc/cusum_filter.cu``, ``sampling.filters.cusum_filter``):
+  the CUSUM event filter, exact, in one block whose walkers' chunks meet in
+  rounds.
 
 Kernel F's int32 mode (``ops.prefix_scan.fill_last``) serves the radix-select
 median engine (``ops.segment_select``).
@@ -44,8 +47,8 @@ CUDA tensor it launches the kernel or raises.
 The user-facing chain: ``bar.TradesData`` (raw trades and their
 preprocessing), the bar kits (``bar.TimeBarKit`` and the others), the
 feature framework (``feature.FeatureKit``), ``pipeline`` (bars -> features
-on the device, one readback), ``sampling`` (``cusum_filter``,
-``z_score_peak_filter``) and ``label`` (``TBMLabel``, ``SampleWeights``).
+on the device, one readback), ``sampling`` (``cusum_filter``, kernel Z and
+one read of its count on the card, ``z_score_peak_filter``) and ``label`` (``TBMLabel``, ``SampleWeights``).
 
 The host-only layers: ``data`` (the monthly HDF5 trade store in the JAX
 package's layout, and the 1-second klines built and resampled on the card),

@@ -62,6 +62,7 @@ _SIGNATURES = {
     "fmk_float_walk_units": [_P, _I64, ctypes.c_int, _P, _P],
     "fmk_float_walk": [ctypes.c_int] * 2 + [_P, _P, _I64, _F64, _I64, _I64, ctypes.c_int,
                                             _F64] + [_P] * 6,
+    "fmk_cusum_filter": [_P, _P, _I64, _I64, _P, _P, _P, _P],
 }
 _SIZES = {"fmk_scan_scratch_bytes", "fmk_event_scratch_bytes",
           "fmk_planes_scratch_bytes", "fmk_products_scratch_bytes",

@@ -1,5 +1,5 @@
 """Kernels B, S, C, F, E, H, V, P, R, W, G and D on the card against their
-plain versions, the chain of ``chip_smoke.py`` phase 11 (trades to final
+plain versions, kernel Z (the CUSUM filter) against the host loop, the chain of ``chip_smoke.py`` phase 11 (trades to final
 weights) through the kernels against its plain path, the float64 path of
 trades on no tick grid (kernels D, S and C) through the kits, and the host-only
 layers of phase 13: the 1-second klines (B, S) and their resample (S), the
@@ -22,7 +22,7 @@ from finmlkit_tpu_torch.feature.kernels import structural_break, volume
 from finmlkit_tpu_torch.ops import (event_scan, float_walk, fused_scan, prefix_scan, scan,
                                    segment_hist)
 from finmlkit_tpu_torch.testing import (CSW_FILTER_CASES, CUSUM_BAD, FLOAT_WALK_CASES,
-                                       PROFILE_CASES,
+                                       PROFILE_CASES, bench_trades,
                                        PROFILE_EXTRA_CASES,
                                        PROFILE_ROW_CASES, PROFILE_TS, PROFILE_WINDOW,
                                        TILE_CLOSES, adversarial_trades, assert_close,
@@ -31,6 +31,7 @@ from finmlkit_tpu_torch.testing import (CSW_FILTER_CASES, CUSUM_BAD, FLOAT_WALK_
                                        csw_filter_case, cusum_recurrence, offgrid_trades,
                                        profile_case,
                                        profile_rows_case, tile_closes, zeros_and_twos)
+from finmlkit_tpu_torch.sampling.filters import cusum_filter
 from finmlkit_tpu_torch.utils import trace
 
 pytestmark = pytest.mark.cuda
@@ -801,18 +802,23 @@ def test_chain_kernel_path_matches_plain(cuda):
     ``TBMLabel`` over the trades, the info and final weights, the z-score
     filter; the kernel path against the plain path with that phase's checks
     (bars, features, events, indices and labels exact, weights at their prefix
-    magnitude, z-score events equal off the ties), the final weights equal run
-    to run, and B, S and R launched."""
+    magnitude, z-score events equal off the ties; kernel Z's events against the
+    host loop's), the final weights equal run to run, B, S and R launched, and
+    Z once."""
     import chip_smoke
     ts, price, amount, side = chip_smoke.synth_trades(1_000_000, seed=3)
     month = dict(n=len(ts), ts=ts, price=price, amount=amount, side=side)
     trades, _ = chip_smoke.chain_trades(month)
     _, graph = chip_smoke.chain_graph()
     counts = (trace.counter("launch.B"), trace.counter("launch.S"), trace.counter("launch.R"))
+    z = trace.counter("launch.Z")
     k, _ = chip_smoke.run_chain(trades, graph)
     assert trace.counter("launch.B") > counts[0] and trace.counter("launch.S") > counts[1] \
         and trace.counter("launch.R") > counts[2]
+    assert trace.counter("launch.Z") == z + 1
+    z = trace.counter("launch.Z")
     p, _ = chip_smoke.run_chain(trades, graph, plain=True)
+    assert trace.counter("launch.Z") == z       # the plain run walks on the host
     chip_smoke.check_chain(k, p, trades)
     again, _ = chip_smoke.run_chain(trades, graph)
     for key in k["final"]:
@@ -1423,3 +1429,127 @@ def test_every_sync_of_an_entry_is_a_counted_read(cuda):
         got[name] = (len(syncs), trace.report()[name]["reads"] - before, syncs)
     assert all(w[0] == w[1] for w in got.values()), got
     assert got["dollar_bar_indexer_q"][1] == 2 and got["bar_products_final"][1] == 1
+    assert got["cusum_filter"][1] == 1             # kernel Z's count
+
+
+# --- kernel Z: the CUSUM filter against the host loop, event for event ---------
+
+MONTH_TRADES = 39_171_929
+
+
+def _month_prices(seed):
+    return bench_trades(MONTH_TRADES, seed)[:2]
+
+
+def _closes(ts, price):
+    """The last price of each minute with trades: the 1-minute bars' closes."""
+    minute = (ts - ts[0]) // 60_000_000_000
+    return price[np.append(np.flatnonzero(np.diff(minute)), len(price) - 1)]
+
+
+def _filter_both(x, thr, cuda):
+    """Kernel Z's events (a list) and the host loop's on the same values, with
+    kernel Z's launches and rounds in the call."""
+    x = torch.as_tensor(x, dtype=torch.float64)
+    before = (trace.counter("launch.Z"), trace.counter("cusum_filter.rounds"))
+    card_thr = thr.to(cuda) if torch.is_tensor(thr) else thr
+    got = cusum_filter(x.to(cuda), card_thr)
+    assert got.device.type == "cuda" and got.dtype == torch.int64
+    launches = trace.counter("launch.Z") - before[0]
+    rounds = trace.counter("cusum_filter.rounds") - before[1]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        want = cusum_filter(x, thr.cpu() if torch.is_tensor(thr) else thr)
+    return got.cpu().tolist(), want.tolist(), launches, rounds
+
+
+def test_cusum_filter_on_the_pass_closes(cuda):
+    """The closes of the benchmark's pass on 300,000 trades (time bars and
+    products on the card), at the time cell's threshold."""
+    from finmlkit_tpu_torch import interop
+    from finmlkit_tpu_torch.bar.fused import bar_products_final
+    from finmlkit_tpu_torch.bar.indexers import time_bar_indexer
+    from finmlkit_tpu_torch.bar.quantize import quantize_trades
+    ts, price, amount, side = bench_trades(300_000, 3)
+    tr = interop.from_numpy(quantize_trades(price, amount), None, side, amount, cuda,
+                            timestamps=ts)
+    _, ci = time_bar_indexer(tr.timestamps, 60.0, ts_first=int(ts[0]), ts_last_i=int(ts[-1]))
+    close = bar_products_final(tr.ticks, tr.units, ci, tr.sides, tick_size=tr.tick_size,
+                               amount_scale=tr.amount_scale, amounts_f32=tr.amounts)[0]["close"]
+    for thr in ([0.002], 0.0005):
+        got, want, launches, _ = _filter_both(close.cpu(), thr, cuda)
+        assert got == want and launches == 1 and len(want) > 5
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_cusum_filter_on_the_month_closes(cuda, seed):
+    """The month's 1-minute closes (about 45,700) at the time cell's
+    threshold, and at a tenth of it; prints how many of kernel Z's log
+    returns differ bitwise from numpy's (one ulp may; not asserted)."""
+    from finmlkit_tpu_torch.sampling import filters
+    close = _closes(*_month_prices(seed))
+    for thr in ([0.002], 0.0002):
+        got, want, launches, rounds = _filter_both(close, thr, cuda)
+        assert got == want and launches == 1 and len(want) > 100
+        print(f"seed {seed}, threshold {thr}: {len(close):,} closes, {len(want):,} "
+              f"events, {rounds} rounds")
+    x = torch.from_numpy(close).to(cuda)
+    r = filters._kernel(x, torch.full((1,), 0.002, dtype=torch.float64, device=cuda))[2]
+    host = np.log(close[1:] / close[:-1])
+    differ = int((r.cpu().numpy().view(np.int64) != host.view(np.int64)).sum())
+    print(f"seed {seed}: {differ} of {len(host):,} log returns differ bitwise from numpy's")
+
+
+@pytest.mark.parametrize("bad", ["nan", "zero"])
+def test_cusum_filter_on_r11_series(cuda, bad):
+    """R11's pin on the card: a NaN or a zero price at index 1000 of 6,000,
+    threshold 6e-3: 703 and 705 events, the last at 5990."""
+    p = 100.0 * np.exp(np.cumsum(np.random.default_rng(0).normal(0.0, 2e-3, 6000)))
+    p[1000] = np.nan if bad == "nan" else 0.0
+    got, want, launches, _ = _filter_both(p, [6e-3], cuda)
+    assert got == want and launches == 1
+    assert (len(got), got[-1]) == {"nan": (703, 5990), "zero": (705, 5990)}[bad]
+
+
+@pytest.mark.parametrize("form", ["cuda", "numpy", "cpu"])
+def test_cusum_filter_per_sample_thresholds(cuda, form):
+    """One threshold a close: a CUDA tensor (used in place), a numpy array
+    and a CPU tensor (copied from pinned memory)."""
+    close = _closes(*bench_trades(3_000_000, 4)[:2])
+    thr = 0.002 * np.random.default_rng(5).uniform(0.25, 1.75, len(close))
+    thr = np.asarray(thr) if form == "numpy" else torch.from_numpy(thr)
+    got, want, launches, _ = _filter_both(close, thr.to(cuda) if form == "cuda" else thr, cuda)
+    assert got == want and launches == 1 and len(want) > 10
+
+
+@pytest.mark.parametrize("n", [2, 3, 100, 1023, 1024, 1025, 2049])
+def test_cusum_filter_short_series(cuda, n):
+    """Fewer values than walkers, and about as many."""
+    p = 100.0 * np.exp(np.cumsum(np.random.default_rng(n).normal(0.0, 2e-3, n)))
+    got, want, launches, rounds = _filter_both(p, [2e-3], cuda)
+    assert got == want and launches == 1 and rounds >= 1
+    if n == 2:
+        assert _filter_both([1.0, 2.0], 0.5, cuda)[:2] == ([1], [1])
+
+
+def test_cusum_filter_walks_that_never_meet(cuda):
+    """A rising series under a threshold no sum reaches: no walk meets its
+    predecessor's, so the rounds are one a walker (1,024)."""
+    got, want, launches, rounds = _filter_both(np.arange(1.0, 1026.0), [10.0], cuda)
+    assert got == want == [] and launches == 1 and rounds == 1024
+
+
+def test_cusum_filter_checks_lengths_without_a_read(cuda):
+    x = torch.ones(10, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="at least 2"):
+        cusum_filter(x[:1], [0.1])
+    with pytest.raises(ValueError, match="Threshold array"):
+        cusum_filter(x, torch.full((3,), 0.1, dtype=torch.float64, device=cuda))
+
+
+def test_cusum_filter_on_the_month_prices(cuda):
+    """Every trade price of a month (39,171,929 values; about 38,000 returns a
+    walker)."""
+    price = _month_prices(6)[1]
+    got, want, launches, rounds = _filter_both(price, [5e-4], cuda)
+    assert got == want and launches == 1 and len(want) > 1000
+    print(f"month prices: {len(want):,} events, {rounds} rounds")

@@ -227,7 +227,8 @@ def pass_inputs():
 
 # reads on the CPU: the time index without its first and last timestamps
 # reads both; the dollar index its total and its count; the footprints their
-# levels; CUSUM the closes and the copy of its events back; the labels one a
+# levels; CUSUM the closes and the copy of its events back (on the card, one:
+# kernel Z's event count); the labels one a
 # round (every path here ends within the first round of 256 bars, and a
 # second finds none left); the attribution its sum; the trade sizes'
 # segment_reduce checks its lengths with two. The products' check of ci
