@@ -32,6 +32,7 @@ __all__ = ["time_bar_indexer", "tick_bar_indexer", "dollar_bar_indexer_q",
            "imbalance_bar_indexer", "run_bar_indexer"]
 
 _DOLLAR_SHIFT = 6  # >>6 keeps a month of tick*unit dollars inside int64
+_FIRST_BUFFER = 1 << 16  # closes the CUSUM, imbalance and run scans first make room for
 
 
 @trace.span("time_bar_indexer")
@@ -63,6 +64,7 @@ def time_bar_indexer(timestamps: torch.Tensor, interval_seconds: float,
     return clock, ci
 
 
+@trace.span("tick_bar_indexer")
 def tick_bar_indexer(timestamps: torch.Tensor, threshold: int):
     """Tick-bar indexer in closed form (``indexers.py:136-148``): the first
     close at trade ``max(threshold - 1, 1)``, then every ``max(threshold, 1)``
@@ -110,6 +112,7 @@ def dollar_bar_indexer_q(timestamps, price_ticks, amount_units, threshold,
     return timestamps[ci], ci
 
 
+@trace.span("volume_bar_indexer_q")
 def volume_bar_indexer_q(timestamps, amount_units, threshold, amount_scale, *,
                          scan=volume_scan):
     """Integer-exact volume-bar indexer with reset-to-zero semantics
@@ -124,7 +127,7 @@ def volume_bar_indexer_q(timestamps, amount_units, threshold, amount_scale, *,
     dev = amount_units.device
     thr_units = float(threshold) / float(amount_scale)
     thr = math.ceil(thr_units)
-    total = float(int(amount_units.sum()))
+    total = float(trace.host_read(int, amount_units.sum()))
     # every bar holds at least thr units, so the buffer never fills
     max_bars = n if thr_units <= 0 else min(max(int(total / thr_units) + 2, 2), n)
     out = scan(amount_units, thr, max_bars)
@@ -198,11 +201,10 @@ def cusum_scan_inputs(timestamps, prices, sigma, sigma_floor: float,
     f64 = torch.float64
     sig = sigma.to(f64)
     isnan = torch.isnan(sig)
-    first_valid = int(torch.argmin(isnan.to(torch.uint8)))
+    first_valid = trace.host_read(int, torch.argmin(isnan.to(torch.uint8)))
     sig_filled = ffill(sig, ~isnan)
     lam = torch.maximum(sig_filled * float(sigma_mult),
-                        torch.tensor(float(sigma_floor), dtype=f64,
-                                     device=sig.device))
+                        torch.full((), float(sigma_floor), dtype=f64, device=sig.device))
     log_p = torch.log(prices.to(f64))
     rets = torch.cat([torch.zeros(1, dtype=f64, device=log_p.device),
                       torch.diff(log_p)])
@@ -211,6 +213,7 @@ def cusum_scan_inputs(timestamps, prices, sigma, sigma_floor: float,
     return rets, lam, can_close, first_valid, sig_filled
 
 
+@trace.span("cusum_bar_indexer")
 def cusum_bar_indexer(timestamps, prices, sigma, sigma_floor: float,
                       sigma_mult: float, max_bars: int | None = None, *,
                       ffill=fast_ffill, scan=cusum_scan):
@@ -223,7 +226,8 @@ def cusum_bar_indexer(timestamps, prices, sigma, sigma_floor: float,
     bar cannot close while ``timestamps[i] == timestamps[i+1]``; when s+
     triggers only s+ resets, and vice versa (``scan``, kernel E by default).
     ``max_bars`` caps the number of bars (a truncation); without it the
-    event buffer grows until every bar fits.
+    event buffer grows until every bar fits, each scan again counted as
+    ``event_scan.regrow`` in the trace registry.
 
     The sums follow the reference's exact host loop in IEEE doubles
     (``cusum_bar_indexer_host``): a NaN price gives two NaN returns, after
@@ -239,14 +243,15 @@ def cusum_bar_indexer(timestamps, prices, sigma, sigma_floor: float,
     rets, lam, can_close, first_valid, sig_filled = cusum_scan_inputs(
         timestamps, prices, sigma, sigma_floor, sigma_mult, ffill=ffill)
     user_cap = max_bars is not None
-    mb = int(max_bars) if user_cap else max(min(n, 1 << 16), 2)
+    mb = int(max_bars) if user_cap else max(min(n, _FIRST_BUFFER), 2)
     while True:
         out = scan(rets, lam, can_close, first_valid, mb)
         if user_cap or len(out) < mb or mb >= n:
             break
         mb = min(mb * 4, n)  # the buffer filled: grow it and scan again
-    ci = torch.cat([torch.tensor([first_valid], dtype=torch.int64,
-                                 device=timestamps.device), out])
+        trace.count("event_scan.regrow")
+    ci = torch.cat([torch.full((1,), first_valid, dtype=torch.int64,
+                               device=timestamps.device), out])
     return timestamps[ci], ci, sig_filled
 
 
@@ -264,7 +269,7 @@ def _info_bar_indexer(timestamps, sides, weights, expected_ticks_init,
     w = sides.to(f64) if weights is None else sides.to(f64) * weights.to(f64)
     n = w.shape[0]
     user_cap = max_bars is not None
-    mb = int(max_bars) if user_cap else max(min(n, 1 << 16), 2)
+    mb = int(max_bars) if user_cap else max(min(n, _FIRST_BUFFER), 2)
     # tick imbalance on kernel E: the int8 sides are finite integers, known
     # without a read of the card
     known = (scan is info_scan and weights is None
@@ -284,10 +289,12 @@ def _info_bar_indexer(timestamps, sides, weights, expected_ticks_init,
                 f"regime (> {mb} bars over {n} trades); raise the "
                 f"initial expectations/alphas or pass max_bars=")
         mb = min(mb * 4, n)
+        trace.count("event_scan.regrow")
     ci = torch.cat([torch.zeros(1, dtype=torch.int64, device=w.device), out])
     return timestamps[ci], ci
 
 
+@trace.span("imbalance_bar_indexer")
 def imbalance_bar_indexer(timestamps, sides, weights=None, *, threshold=None,
                           expected_ticks_init=None, expected_rate_init=None,
                           alpha_ticks=0.0, alpha_rate=0.0, max_bars=None,
@@ -301,8 +308,9 @@ def imbalance_bar_indexer(timestamps, sides, weights=None, *, threshold=None,
     imbalance. ``threshold`` fixes theta (the alphas must be 0); otherwise
     theta = E[T] * E[rate] from ``expected_ticks_init`` and
     ``expected_rate_init``, EMA-updated at each close with ``alpha_ticks`` and
-    ``alpha_rate``. ``max_bars`` truncates; without it a ValueError is raised
-    once the bars pass n / 8. ``scan`` defaults to kernel E. Returns
+    ``alpha_rate``. ``max_bars`` truncates; without it the close buffer grows
+    (each scan again counted as ``event_scan.regrow``) and a ValueError is
+    raised once the bars pass n / 8. ``scan`` defaults to kernel E. Returns
     ``(close_ts, ci)``.
     """
     return _info_bar_indexer(timestamps, sides, weights, expected_ticks_init,
@@ -310,6 +318,7 @@ def imbalance_bar_indexer(timestamps, sides, weights=None, *, threshold=None,
                              threshold, max_bars, False, scan)
 
 
+@trace.span("run_bar_indexer")
 def run_bar_indexer(timestamps, sides, weights=None, *, threshold=None,
                     expected_ticks_init=None, expected_rate_init=None,
                     alpha_ticks=0.0, alpha_rate=0.0, max_bars=None,

@@ -141,7 +141,7 @@ def _launch(mode: int, n: int, start: int, max_bars: int, device, *, x=None,
         if not exit_state:
             return out[:0]
         if mode == _VOLUME and start == 1 and n >= 1:
-            entry = (entry[0] + int(units[0]),)
+            entry = (entry[0] + trace.host_read(int, units[0]),)
         return out[:0], entry
     if device.type != "cuda":
         raise ValueError(f"kernel E runs on cuda, not {device}")
@@ -171,8 +171,8 @@ def _launch(mode: int, n: int, start: int, max_bars: int, device, *, x=None,
                                 io.data_ptr() + 8 if exit_state else None, stream)
     _build.check(rc, "event scan")
     if not exit_state:
-        return out[:int(io[0])]
-    got = io.tolist()
+        return out[:trace.host_read(int, io[0])]
+    got = trace.host_read(torch.Tensor.tolist, io)
     return out[:min(got[0], max(max_bars, 0))], _unwords(mode, got[1:])
 
 
@@ -203,7 +203,7 @@ def _map_states(w, e_t, e_r, alpha_t, alpha_r, integral: bool = False,
     if k is None or not (abs(entry_sum) <= k and entry_sum == math.trunc(entry_sum)):
         return None
     if not integral:
-        integral = bool(torch.all(torch.isfinite(w) & (w == torch.trunc(w))))
+        integral = trace.host_read(bool, torch.all(torch.isfinite(w) & (w == torch.trunc(w))))
     return k if integral else None
 
 

@@ -21,7 +21,9 @@ environment: tracing is on where ``FMKT_TRACE=1`` is set at import, or after
   read, with the host time it blocked, against the innermost open span.
 - :func:`count` adds to a counter, against the innermost span and the
   process: ``launch.<kernel>`` for each hand kernel's launch, and
-  ``launch.<kernel>.<route or mode>`` beside it where a kernel has several.
+  ``launch.<kernel>.<route or mode>`` beside it where a kernel has several;
+  ``event_scan.regrow`` for each scan an event indexer runs again after its
+  close buffer filled (``bar/indexers.py``).
 - :func:`report` gives each span's figures, self and inclusive;
   :func:`dump` writes the ring's spans as JSON lines; :func:`counter` reads
   a counter's process total; :func:`reset` clears all.

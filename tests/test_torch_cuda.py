@@ -1432,6 +1432,88 @@ def test_every_sync_of_an_entry_is_a_counted_read(cuda):
     assert got["cusum_filter"][1] == 1             # kernel Z's count
 
 
+def _event_calls(dev):
+    """The five event indexers as the bar kits call them, on 300,000 trades
+    of the synthetic month on the card: kernel E for volume, CUSUM,
+    imbalance and run, the closed form for ticks."""
+    from finmlkit_tpu_torch import interop
+    from finmlkit_tpu_torch.bar.indexers import (cusum_bar_indexer, imbalance_bar_indexer,
+                                                  run_bar_indexer, tick_bar_indexer,
+                                                  volume_bar_indexer_q)
+    from finmlkit_tpu_torch.bar.quantize import quantize_trades
+    ts, price, amount, side = bench_trades(300_000, 3)
+    tr = interop.from_numpy(quantize_trades(price, amount), None, side, amount, dev,
+                            timestamps=ts)
+    sigma = torch.full((len(ts),), 2e-5, dtype=torch.float64, device=dev)
+    prices = tr.ticks.to(torch.float64) / (1.0 / tr.tick_size)
+    return {
+        "tick_bar_indexer": lambda: tick_bar_indexer(tr.timestamps, 1000),
+        "volume_bar_indexer_q": lambda: volume_bar_indexer_q(tr.timestamps, tr.units, 0.5,
+                                                             tr.amount_scale),
+        "cusum_bar_indexer": lambda: cusum_bar_indexer(tr.timestamps, prices, sigma, 1e-9,
+                                                       20.0),
+        "imbalance_bar_indexer": lambda: imbalance_bar_indexer(tr.timestamps, tr.sides,
+                                                               threshold=30.0),
+        "run_bar_indexer": lambda: run_bar_indexer(
+            tr.timestamps, tr.sides, expected_ticks_init=1000.0, expected_rate_init=0.5,
+            alpha_ticks=0.05, alpha_rate=0.05),
+    }
+
+
+# the volume index reads its total, the CUSUM index its first valid sigma,
+# and each index on kernel E reads E's count once
+EVENT_CARD_READS = {"tick_bar_indexer": 0, "volume_bar_indexer_q": 2, "cusum_bar_indexer": 2,
+                    "imbalance_bar_indexer": 1, "run_bar_indexer": 1}
+
+
+def test_every_sync_of_an_event_indexer_is_a_counted_read(cuda):
+    """As ``test_every_sync_of_an_entry_is_a_counted_read``, for the event
+    indexers, whose buffers never fill here."""
+    import warnings
+    got = {}
+    for name, call in _event_calls(cuda).items():
+        call()
+        torch.cuda.synchronize()
+        before = trace.report().get(name, {}).get("reads", 0)
+        regrow = trace.counter("event_scan.regrow")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                call()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        syncs = [f"{w.filename}:{w.lineno}" for w in caught
+                 if "called a synchronizing CUDA operation" in str(w.message)]
+        got[name] = (len(syncs), trace.report()[name]["reads"] - before, syncs)
+        assert trace.counter("event_scan.regrow") == regrow
+    assert {k: v[1] for k, v in got.items()} == EVENT_CARD_READS, got
+    assert all(w[0] == w[1] for w in got.values()), got
+
+
+@pytest.mark.parametrize("name", ["cusum_bar_indexer", "imbalance_bar_indexer",
+                                  "run_bar_indexer"])
+def test_a_full_close_buffer_regrows_on_the_card(cuda, name, monkeypatch):
+    """A close buffer of 4 fills: each launch of kernel E again counts one
+    ``event_scan.regrow`` and one read, and the closes are those of a
+    buffer that never fills."""
+    from finmlkit_tpu_torch.bar import indexers
+    call = _event_calls(cuda)[name]
+    want = call()[1]
+    bars = want.shape[0] - 1
+    grown = sum(4 ** k <= bars for k in range(1, 12))   # buffers of 4, 16, 64, ... that fill
+    monkeypatch.setattr(indexers, "_FIRST_BUFFER", 4)
+    regrow, launches = trace.counter("event_scan.regrow"), trace.counter("launch.E")
+    reads = trace.report()[name]["reads"]
+    got = call()[1]
+    assert torch.equal(got, want)
+    assert grown >= 1
+    assert trace.counter("event_scan.regrow") - regrow == grown
+    assert trace.counter("launch.E") - launches == grown + 1
+    assert trace.report()[name]["reads"] - reads == EVENT_CARD_READS[name] + grown
+
+
 # --- kernel Z: the CUSUM filter against the host loop, event for event ---------
 
 MONTH_TRADES = 39_171_929

@@ -1,8 +1,9 @@
 """The trace registry (``finmlkit_tpu_torch/utils/trace.py``) on the CPU:
 spans nest, reads and counters go to the innermost span, tracing off opens
 no profiler range and tracing on encloses the entry's operations, ``dump``
-writes the spans, each benchmarked entry opens its span once a call with its
-reads counted, and no former launch counter is left beside the registry."""
+writes the spans, each benchmarked entry and each event indexer opens its
+span once a call with its reads counted, a full close buffer counts its
+regrowth, and no former launch counter is left beside the registry."""
 import inspect
 import json
 import re
@@ -18,7 +19,10 @@ from finmlkit_tpu_torch import interop
 from finmlkit_tpu_torch.bar.aggregate_q import bar_trade_size_features
 from finmlkit_tpu_torch.bar.footprint_q import bar_footprints
 from finmlkit_tpu_torch.bar.fused import bar_products_final
-from finmlkit_tpu_torch.bar.indexers import dollar_bar_indexer_q, time_bar_indexer
+from finmlkit_tpu_torch.bar.indexers import (cusum_bar_indexer, dollar_bar_indexer_q,
+                                              imbalance_bar_indexer, run_bar_indexer,
+                                              tick_bar_indexer, time_bar_indexer,
+                                              volume_bar_indexer_q)
 from finmlkit_tpu_torch.bar.quantize import quantize_trades
 from finmlkit_tpu_torch.label.tbm import triple_barrier
 from finmlkit_tpu_torch.label.weights import average_uniqueness, return_attribution
@@ -253,6 +257,72 @@ def test_entry_opens_its_span_once_a_call(registry, pass_inputs, entry):
     if entry == "cusum_filter":
         assert rep["cusum_filter.loop"]["calls"] == 2
         assert rep[entry]["host_ms"] > rep["cusum_filter.loop"]["host_ms"] > 0
+
+
+# --- the event indexers (tick, volume, CUSUM, imbalance, run) ------------------
+
+
+@pytest.fixture(scope="module")
+def event_calls():
+    """Each event indexer as the bar kits call it, on the CPU trades; on CPU
+    tensors the scans are their plain versions."""
+    tr = _trades()
+    sigma = torch.full((N_TRADES,), 2e-4, dtype=torch.float64)
+    sigma[:3] = float("nan")
+    prices = tr.ticks.to(torch.float64) / (1.0 / tr.tick_size)
+    thr = 40 * float(tr.amounts.double().mean())
+    return {
+        "tick_bar_indexer": lambda: tick_bar_indexer(tr.timestamps, 100),
+        "volume_bar_indexer_q": lambda: volume_bar_indexer_q(
+            tr.timestamps, tr.units, thr, tr.amount_scale),
+        "cusum_bar_indexer": lambda: cusum_bar_indexer(tr.timestamps, prices, sigma, 1e-9,
+                                                       3.0),
+        "imbalance_bar_indexer": lambda: imbalance_bar_indexer(tr.timestamps, tr.sides,
+                                                               threshold=12.0),
+        "run_bar_indexer": lambda: run_bar_indexer(
+            tr.timestamps, tr.sides, expected_ticks_init=40.0, expected_rate_init=0.5,
+            alpha_ticks=0.05, alpha_rate=0.05),
+    }
+
+
+# reads on the CPU (the scans' plain versions read no card): the volume index
+# its total, the CUSUM index its first valid sigma; on the card each also
+# reads kernel E's count (tests/test_torch_cuda.py)
+EVENT_READS = {"tick_bar_indexer": 0, "volume_bar_indexer_q": 1, "cusum_bar_indexer": 1,
+               "imbalance_bar_indexer": 0, "run_bar_indexer": 0}
+
+
+@pytest.mark.parametrize("entry", sorted(EVENT_READS))
+def test_event_indexer_opens_its_span_once_a_call(registry, event_calls, entry):
+    first = event_calls[entry]()
+    assert first[1].shape[0] > 3
+    rep = trace.report()
+    assert {n for n, v in rep.items() if v["top"]} == {entry}
+    assert (rep[entry]["calls"], rep[entry]["top"]) == (1, 1)
+    assert rep[entry]["reads"] == EVENT_READS[entry]
+    event_calls[entry]()
+    rep = trace.report()
+    assert (rep[entry]["calls"], rep[entry]["top"], rep[entry]["timed"]) == (2, 2, 1)
+    assert rep[entry]["reads"] == 2 * EVENT_READS[entry]
+    assert trace.counter("event_scan.regrow") == 0
+
+
+@pytest.mark.parametrize("entry", ["cusum_bar_indexer", "imbalance_bar_indexer",
+                                   "run_bar_indexer"])
+def test_a_full_close_buffer_counts_a_regrowth(registry, event_calls, entry, monkeypatch):
+    """A close buffer of 4 fills; each scan again counts once against the
+    indexer's span, and the closes are those of a buffer that never fills."""
+    from finmlkit_tpu_torch.bar import indexers
+    want = event_calls[entry]()[1]
+    trace.reset()
+    monkeypatch.setattr(indexers, "_FIRST_BUFFER", 4)
+    got = event_calls[entry]()[1]
+    assert torch.equal(got, want)
+    bars = want.shape[0] - 1
+    grown = sum(4 ** k <= bars for k in range(1, 12))   # buffers of 4, 16, 64, ... that fill
+    assert grown >= 1
+    assert trace.counter("event_scan.regrow") == grown
+    assert trace.report()[entry]["counts"] == {"event_scan.regrow": grown}
 
 
 def test_entries_keep_their_names_and_signatures():
