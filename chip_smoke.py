@@ -285,7 +285,9 @@ KERNELS = {
        for scan, line, how in (("cusum", 508, ""),
                                ("imbalance", 680, ", a scan of tile maps at a fixed "
                                 "theta on integer weights"),
-                               ("run", 680, ""), ("volume", 368, ""))},
+                               ("run", 680, ", each close found by a search of bit-packed "
+                                "buy and sell counts on -1, 0, +1 weights"),
+                               ("volume", 368, ""))},
     "H": ("H segment_hist, a pass over tiles (replaces H1 and H2)", "segment_hist.cu",
           "finmlkit_tpu/ops/segment_hist.py:106 and :167"),
     "V": ("V bar_planes, a segmented scan over tiles (replaces K1c)", "bar_planes.cu",
@@ -1332,6 +1334,7 @@ def phase_info(card, month, need):
                 "C": trace.counter("launch.C"), "F": trace.counter("launch.F.ffill"),
                 **{f"E {scan}": trace.counter("launch.E." + event_scan.MODE_NAMES[mode])
                    + (trace.counter("launch.E.imbalance_map") if mode == event_scan._IMBALANCE else 0)
+                   + (trace.counter("launch.E.run_count") if mode == event_scan._RUN else 0)
                    for scan, mode in E_MODES.items()}}
 
     kits = info_kits(month)
@@ -1345,6 +1348,7 @@ def phase_info(card, month, need):
     k_out, k_st = run_info(kits, event)        # the path's counted run
     launches = counters()
     imb_paths = {"map": trace.counter("launch.E.imbalance_map"), "walk": trace.counter("launch.E.imbalance")}
+    run_paths = {"count": trace.counter("launch.E.run_count"), "walk": trace.counter("launch.E.run")}
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     tr = kits["cusum"].trades
@@ -1359,6 +1363,9 @@ def phase_info(card, month, need):
     if imb_paths["map"] < 1 or imb_paths["walk"] != 0:
         fail(f"the tick imbalance bars did not take kernel E's map path: "
              f"launches by path {imb_paths}")
+    if run_paths["count"] < 1 or run_paths["walk"] != 0:
+        fail(f"the tick run bars did not take kernel E's count search: "
+             f"launches by path {run_paths}")
     t0 = time.perf_counter()
     p_out, p_st = run_info(info_kits(month, plain=True), event)
     t_plain = time.perf_counter() - t0
@@ -1420,7 +1427,7 @@ def phase_info(card, month, need):
             fail(f"cusum trade_size.{key} not finite")
     counts = {name: len(c) - 1 for name, c in cis.items()}
     say(f"info bars: {counts}, launches {launches} (E imbalance by path "
-        f"{imb_paths}); kernel path == plain path "
+        f"{imb_paths}, E run by path {run_paths}); kernel path == plain path "
         f"(close indices, bars, CUSUM trade size, footprints and filled "
         f"sigma exact; CUSUM near-tie differences {ties_kp}); tick ci == "
         f"arange, volume and imbalance ci == the integer rules in numpy, "
@@ -1441,6 +1448,7 @@ def phase_info(card, month, need):
                           thr_units, counts, launches,
                           cusum_may_differ=bool(ties_kp))}
     kernels["E imbalance"]["launches_by_mode"] = imb_paths
+    kernels["E run"]["launches_by_mode"] = run_paths
     check_e_nonfinite(card)
     check_e_cusum_nonfinite(card)
     del sig
@@ -1494,9 +1502,14 @@ def kernel_e(card, tr, price, sigma, thr_units, counts, launches,
     and held to its plain version (one timed call; CUSUM closes may differ
     only where phase 7 found near ties). The imbalance scan takes the map
     path (its states reported); the walk, forced, is timed and held to the
-    same closes beside it. Returns one ``kernels`` entry a scan, with the
-    default's counts: 256-trade segments skipped and scanned, pass-2 chunks
-    that did not merge, chunks fixed up."""
+    same closes beside it. The run scan takes the count search (no chunks:
+    its stats are the table chunks its rings requested, the entries read
+    past the rings, the closes at the trade after the last and the walker's
+    nanoseconds, from which its time a close);
+    the walk, forced, is timed beside it in turns, count, walk, walk, count.
+    Returns one ``kernels`` entry a scan, with the walk's counts: 256-trade
+    segments skipped and scanned, pass-2 chunks that did not merge, chunks
+    fixed up."""
     import torch
     from finmlkit_tpu_torch.bar.indexers import cusum_scan_inputs
     from finmlkit_tpu_torch.ops import event_scan as es
@@ -1519,7 +1532,8 @@ def kernel_e(card, tr, price, sigma, thr_units, counts, launches,
         "imbalance": (es.info_scan_plain, (w, 1.0, IMB_THETA, 0.0, 0.0, n, False),
                       {"map": es._IMBALANCE_MAP, "walk": es._IMBALANCE}, 1,
                       dict(x=w, e_t=1.0, e_r=IMB_THETA), 8),
-        "run": (es.info_scan_plain, (w, *run, n, True), {"walk": es._RUN}, 1,
+        "run": (es.info_scan_plain, (w, *run, n, True),
+                {"count": es._RUN_COUNT, "walk": es._RUN}, 1,
                 dict(x=w, **dict(zip(("e_t", "e_r", "alpha_t", "alpha_r"), run))), 8),
         "volume": (es.volume_scan_plain, (tr.units, thr_units, n),
                    {"walk": es._VOLUME}, 1, dict(units=tr.units, thr=thr_units), 8),
@@ -1541,7 +1555,7 @@ def kernel_e(card, tr, price, sigma, thr_units, counts, launches,
             got = scan(chunks, stats)
             ms = cuda_ms(lambda: scan(chunks), reps=3)
             sweep = {}
-            for c in E_CHUNKS:
+            for c in E_CHUNKS if mode != es._RUN_COUNT else ():
                 st = torch.zeros(4, dtype=torch.int64, device=dev)
                 assert_exact(scan(c, st), got, f"E {name} {path}: {c} chunks against {chunks}")
                 sweep[str(c)] = [cuda_ms(lambda: scan(c), reps=3), *st.tolist()]
@@ -1551,11 +1565,30 @@ def kernel_e(card, tr, price, sigma, thr_units, counts, launches,
                      f"plain version's {len(want)}")
             runs[path] = (got, ms, chunks, stats.tolist(), sweep)
         got, ms, chunks, (skipped, scanned, unmerged, fixed), sweep = runs[next(iter(modes))]
+        extra = {}
+        if name == "run":
+            count_stats = runs["count"][3]
+            w_ms, w_chunks, (skipped, scanned, unmerged, fixed), w_sweep = runs["walk"][1:]
+            turns = {"count": [], "walk": []}
+            for path in ("count", "walk", "walk", "count"):
+                turns[path].append(cuda_ms(lambda: es._launch(modes[path], n, start, n, dev,
+                                                               **kw), reps=3))
+            us_close = count_stats[3] / 1e3 / max(len(got), 1)
+            extra = dict(path="count", walk_ms=w_ms, walk_chunks=w_chunks,
+                         walk_by_chunks=w_sweep, count_chunks_requested=count_stats[0],
+                         count_misses=count_stats[1], count_next=count_stats[2],
+                         count_walker_ms=count_stats[3] / 1e6, count_us_per_close=us_close,
+                         turns_ms=turns)
+            say(f"kernel E run, the count search: {ms:.3f} ms, its walker "
+                f"{count_stats[3] / 1e6:.3f} ms over {len(got):,} closes = {us_close:.3f} "
+                f"us a close ({count_stats[0]:,} table chunks requested, {count_stats[1]} "
+                f"entries read past the rings, {count_stats[2]} closes at the next trade); "
+                f"the walk forced {w_ms:.3f} ms, the same closes; in turns count "
+                f"{turns['count']} ms, walk {turns['walk']} ms [{card}]")
         # some 10 operations a trade; 8 bytes a close written
         e_bound = bound(nbytes * n + 8 * counts[name], 10 * n)
         m = min(len(got), len(want))    # the error: closes that differ
         err = float(int((got[:m] != want[:m]).sum()) + abs(len(got) - len(want)))
-        extra = {}
         if name == "imbalance":
             w_ms, w_chunks, w_stats, w_sweep = runs["walk"][1:]
             extra = dict(path="map", states=2 * imb_k + 1, walk_ms=w_ms,
@@ -1571,6 +1604,7 @@ def kernel_e(card, tr, price, sigma, thr_units, counts, launches,
             segments_scanned=scanned, pass2_unmerged=unmerged,
             chunks_fixed_up=fixed, by_chunks=sweep, **extra)
         path = (f"the map path ({2 * imb_k + 1} states)" if name == "imbalance"
+                else "the count search (the walk's counts below)" if name == "run"
                 else f"{chunks} chunks (default)")
         say(f"kernel E {name}: {ms:.3f} ms by {path}, plain "
             f"{a.elapsed_time(b):.1f} ms, bound {e_bound[0]:.3f} ms; segments "
@@ -4253,6 +4287,7 @@ def main():
     def merge(path, launches, entries):
         launches = dict(launches)
         s_float = launches.pop("S float", None)  # S's launches on float streams
+        run_count = launches.pop("E run_count", None)  # E run's by the count search
         for name, n in launches.items():
             if name in kernels:                 # timed by an earlier phase
                 kernels[name]["launches"] += n
@@ -4263,6 +4298,8 @@ def main():
             kernels[name]["launches_by_path"][path] = n
         if s_float is not None:
             kernels["S"].setdefault("float_launches_by_path", {})[path] = s_float
+        if run_count is not None:
+            kernels["E run"].setdefault("count_launches_by_path", {})[path] = run_count
 
     month = make_month(N_MONTH) if phases & {5, 6, 7, 8, 9, 10, 11} else None
     if 5 in phases:

@@ -17,7 +17,9 @@
 //                at each close from the bar's length and statistic;
 //   3 volume     the int64 in-bar sum of amount units >= thr, reset to zero;
 //   4 imbalance  as 1, where both alphas are 0 and every weight is a finite
-//                integer: a parallel scan of the tiles' maps of states (below).
+//                integer: a parallel scan of the tiles' maps of states (below);
+//   5 run        as 2, where every weight is -1, 0 or +1 (tick run bars): a
+//                search of each close in bit-packed counts (below).
 // A close needs its statistic >= theta, as in the reference, so a NaN
 // statistic or threshold never closes.
 //
@@ -83,6 +85,15 @@
 // levels of 128, pass 3 walks each tile once from its true entry state (a
 // thread a tile, over the weights pass 1 stored as bytes), and step 5's
 // compaction follows. Its work is (2K + 1) integer steps a trade.
+//
+// Mode 5 has no walk. With weights in {-1, 0, +1} the in-bar buy and sell
+// sums are counts that only grow, and a whole count reaches theta exactly
+// where it reaches ceil(theta); so the close after close c is the nearer of
+// the first trades whose prefix count of buys, or of sells, reaches its value
+// at c plus ceil(theta) less the entry sum. A pack over all SMs writes a
+// buy and a sell bit a trade and each 1024-trade block's counts (kernel S
+// scans them); one warp then finds each close from the counts and the bits,
+// and takes the EMA step of the walk (info_close) once a close.
 //
 // Bound: the walk's latency, not device memory. A step is a skip (a few
 // dependent float64 operations on a summary in shared memory, requested two
@@ -1076,6 +1087,355 @@ int launch_map(const Args& a, void* scratch, long long* out, long long max_out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- mode 5: tick run bars by count search ---------------------------------
+// With weights in {-1, 0, +1} the close after close c is the first trade j
+// where cb + B(j) - B(c) >= k or cs + S(j) - S(c) >= k: B and S the prefix
+// counts of buys and sells over the checked trades (those before `start` do
+// not count), k = ceil(theta), cb and cs the entry sums of the first bar (0
+// after it). So with the trades of the m-th buy and of the m-th sell in
+// tables, a close is two table reads: the buy that brings B to B(c) + k - cb
+// and the sell that brings S to S(c) + k - cs, the nearer one closing (or
+// c + 1 where a target is met already). The count that reaches its target
+// stands at it, so the bar's statistic is k itself; each table entry also
+// holds the other count at its trade.
+//
+// Launches: the pack (all SMs: a buy and a sell bit a trade by ballot, each
+// 32-trade word's counts within its block of 1024, each block's counts);
+// kernel S over the blocks' counts; the tables (all SMs: each bit to its
+// rank); the walker (one warp). The walker keeps each table's next entries in
+// a ring of two chunks in shared memory, each chunk one bulk copy that an
+// mbarrier counts in, the next requested as soon as the count at the last
+// close leaves the first; a target beyond the ring (a bar of more than 4,096
+// buys or sells) reads its entry from device memory.
+constexpr int kCountBlock = 1024;  // trades a block: 32 words
+constexpr int kChunk = 4096;       // table entries a chunk of the walker's two-chunk rings holds
+
+// Where the sells' table starts: a chunk after the last buy, at an even entry
+// (a bulk copy reads 16-byte aligned).
+__device__ __forceinline__ long long sells_at(long long buys) {
+  return (buys + kChunk + 1) / 2 * 2;
+}
+
+struct Entry {
+  unsigned g;       // the trade
+  unsigned other;   // the other side's count there (sells at a buy, buys at a sell)
+};
+
+struct CountWork {
+  long long blocks;     // blocks of 1024 trades from trade 0
+  unsigned* buy;        // per 32 trades: the buy bits
+  unsigned* sell;       // per 32 trades: the sell bits
+  unsigned* cnt;        // per 32 trades: buys << 16 | sells in its block, to its end
+  long long* tot;       // per block: (buys << 32) + sells
+  long long* incl;      // per block: inclusive prefix of tot
+  void* scan_scratch;   // kernel S's scratch for tot
+  Entry* tab;           // per buy in order, then (sells_at) per sell, each with a chunk after
+  int* flag;            // set where a weight of trades start .. n-1 is not -1, 0 or +1
+};
+
+// Pack, a block of 256 threads a block of trades, a warp 4 words: the bits
+// by ballot, the words' counts in the block by a warp scan, the block's
+// counts, the flag. The weights are read once, as a stream.
+__global__ void __launch_bounds__(256)
+count_pack_kernel(const double* __restrict__ x, long long n, long long start,
+                  unsigned* __restrict__ buy, unsigned* __restrict__ sell,
+                  unsigned* __restrict__ cnt, long long* __restrict__ tot,
+                  int* __restrict__ flag) {
+  __shared__ unsigned words[32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long q = blockIdx.x;
+  double v[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long long g = q * kCountBlock + (warp * 4 + i) * 32 + lane;
+    v[i] = (g >= start && g < n) ? __ldcs(x + g) : 0.0;
+  }
+  bool bad = false;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const unsigned b = __ballot_sync(kFull, v[i] == 1.0);
+    const unsigned s = __ballot_sync(kFull, v[i] == -1.0);
+    bad |= !(v[i] == 0.0 || v[i] == 1.0 || v[i] == -1.0);
+    if (lane == i) {
+      buy[q * 32 + warp * 4 + i] = b;
+      sell[q * 32 + warp * 4 + i] = s;
+      words[warp * 4 + i] = (__popc(b) << 16) | __popc(s);
+    }
+  }
+  if (__any_sync(kFull, bad) && lane == 0) atomicOr(flag, 1);
+  __syncthreads();
+  if (warp != 0) return;
+  unsigned c = words[lane];
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned y = __shfl_up_sync(kFull, c, o);
+    if (lane >= o) c += y;
+  }
+  cnt[q * 32 + lane] = c;
+  if (lane == 31) tot[q] = (static_cast<long long>(c >> 16) << 32) + (c & 0xffff);
+}
+
+// The tables, a block of 256 threads a block of trades, a warp 4 words, a
+// lane a bit: each buy and each sell to its rank, with the other count; the
+// sells' table starts a chunk after the last buy.
+__global__ void __launch_bounds__(256)
+count_table_kernel(const unsigned* __restrict__ buy, const unsigned* __restrict__ sell,
+                   const unsigned* __restrict__ cnt, const long long* __restrict__ incl,
+                   long long blocks, Entry* __restrict__ tab) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long q = blockIdx.x;
+  const long long base = q > 0 ? incl[q - 1] : 0;
+  Entry* tab_s = tab + sells_at(incl[blocks - 1] >> 32);
+  const unsigned below = (1u << lane) - 1u, upto = below | (1u << lane);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long long wd = q * 32 + warp * 4 + i;
+    const unsigned b = buy[wd], s = sell[wd], c = cnt[wd];
+    // B and S before the word
+    const unsigned eb = static_cast<unsigned>(base >> 32) + (c >> 16) - __popc(b);
+    const unsigned es = static_cast<unsigned>(base & 0xffffffffLL) + (c & 0xffff) - __popc(s);
+    const unsigned g = static_cast<unsigned>(wd * 32 + lane);
+    if ((b >> lane) & 1u) tab[eb + __popc(b & below)] = Entry{g, es + __popc(s & upto)};
+    if ((s >> lane) & 1u) tab_s[es + __popc(s & below)] = Entry{g, eb + __popc(b & upto)};
+  }
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+__device__ __forceinline__ bool bar_done(unsigned bar, unsigned parity) {
+  unsigned ok;
+  asm volatile(
+      "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}" : "=r"(ok) : "r"(bar), "r"(parity) : "memory");
+  return ok != 0;
+}
+
+// One table's ring: its chunks lo and lo + 1, chunk i in slot i & 1, each
+// filled by one bulk copy counted in by the slot's mbarrier; entry idx of
+// either lies at (idx mod 2 kChunk) in the ring.
+struct TabRing {
+  const Entry* tab;   // the table in device memory
+  unsigned total;     // its entries
+  unsigned lo;        // the first chunk held
+  unsigned ring;      // shared address of the ring
+  unsigned bar;       // shared address of slot 0's mbarrier (slot 1's 8 bytes on)
+  unsigned par;       // bit s: the phase parity of slot s's next fill
+  unsigned in;        // bit s: slot s's last fill is known to be in
+};
+
+// Wait until slot s's last fill is in.
+__device__ __forceinline__ void settle(TabRing& r, unsigned s) {
+  if (!((r.in >> s) & 1u)) {
+    while (!bar_done(r.bar + 8 * s, ((r.par >> s) & 1u) ^ 1u)) {}
+    r.in |= 1u << s;
+  }
+}
+
+// Fill chunk i's slot with it (an arrival alone past the table's end).
+__device__ __forceinline__ void request(TabRing& r, unsigned i) {
+  constexpr unsigned bytes = kChunk * sizeof(Entry);
+  const unsigned s = i & 1u;
+  if ((threadIdx.x & 31) == 0) {
+    const unsigned bar = r.bar + 8 * s;
+    if (static_cast<long long>(i) * kChunk < r.total) {
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                   :: "r"(bar), "r"(bytes) : "memory");
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+          :: "r"(r.ring + s * bytes), "l"(r.tab + static_cast<long long>(i) * kChunk),
+             "r"(bytes), "r"(bar) : "memory");
+    } else {
+      asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(bar) : "memory");
+    }
+  }
+  r.par ^= 1u << s;
+  r.in &= ~(1u << s);
+}
+
+// Hold chunks lo and lo + 1 (lo no lower than before); returns the chunks requested.
+__device__ __forceinline__ unsigned advance(TabRing& r, unsigned lo) {
+  unsigned got = 0;
+  for (; r.lo < lo; ++r.lo, ++got) {
+    const unsigned i = max(r.lo + 2, lo);  // chunk r.lo's slot takes its successor's
+    settle(r, i & 1u);
+    __syncwarp();  // no lane reads the slot any more
+    request(r, i);
+    if (i == lo) {  // a jump of more than one chunk: the other slot too
+      settle(r, (i + 1) & 1u);
+      __syncwarp();
+      request(r, i + 1);
+      r.lo = lo;
+      return got + 2;
+    }
+  }
+  return got;
+}
+
+// Entry idx (< total) of the table: from the ring where it holds it, else
+// from device memory (counted in misses).
+__device__ __forceinline__ Entry entry(TabRing& r, unsigned idx, long long& misses) {
+  if ((idx / kChunk) >= r.lo + 2) {
+    ++misses;
+    return r.tab[idx];
+  }
+  settle(r, (idx / kChunk) & 1u);
+  unsigned g, other;
+  asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];" : "=r"(g), "=r"(other)
+               : "r"(r.ring + (idx % (2 * kChunk)) * 8u));
+  return Entry{g, other};
+}
+
+constexpr int kWalkShared = 2 * 2 * kChunk * sizeof(Entry) + 4 * 8;
+
+// The walker, one warp: every close in order, the first max_out written, the
+// count (-1 where the pack set the flag) and the exit state. `stats`, if not
+// null: the chunks the rings requested, the entries read from device memory,
+// the closes at the trade after the last (a target already met), and the
+// walker's nanoseconds.
+__global__ void __launch_bounds__(32)
+count_walk_kernel(Args a, CountWork w, long long* __restrict__ out, long long max_out,
+                  long long* __restrict__ count, long long* __restrict__ stats,
+                  InfoState* __restrict__ exit) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int lane = threadIdx.x;
+  const unsigned long long t0 = global_ns();
+  if (*w.flag != 0) {
+    if (lane == 0) *count = -1;
+    return;
+  }
+  const long long all = w.incl[w.blocks - 1];
+  const long long b_all = all >> 32, s_all = all & 0xffffffffLL;
+  // the shared base in a register once (not recomputed at every use)
+  unsigned base = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("mov.u32 %0, %0;" : "+r"(base));
+  constexpr unsigned ring_bytes = 2 * kChunk * sizeof(Entry);
+  TabRing rb{w.tab, static_cast<unsigned>(b_all), 0, base, base + 2 * ring_bytes, 0, 0};
+  TabRing rs{w.tab + sells_at(b_all), static_cast<unsigned>(s_all), 0, base + ring_bytes,
+             base + 2 * ring_bytes + 16, 0, 0};
+  if (lane < 4)
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(rb.bar + 8 * lane) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  __syncwarp();
+  for (unsigned i = 0; i < 2; ++i) {
+    request(rb, i);
+    request(rs, i);
+  }
+  InfoState s = entry_state<InfoState>(a);
+  long long cb = static_cast<long long>(s.cb), cs = static_cast<long long>(s.cs);
+  long long c = a.start - 1, bc = 0, sc = 0, cnt = 0, requested = 4, misses = 0, next = 0;
+  while (c + 1 < a.n) {
+    // a whole count reaches theta where it reaches ceil(theta); none reaches
+    // a NaN or +inf theta, and every one a theta of -inf
+    const double theta = __dmul_rn(s.e_t, s.e_r);
+    if (!(theta < INFINITY)) break;
+    const double k = ceil(theta);
+    if (k > 0x1p62) break;
+    const long long ki = static_cast<long long>(fmax(k, -0x1p62));
+    const long long tb = bc + ki - cb, ts = sc + ki - cs;
+    long long j, bj, sj;
+    double stat;
+    if (tb <= bc || ts <= sc) {  // a target met already: the trade after the last closes
+      j = c + 1;
+      bj = bc + (bc < b_all && entry(rb, static_cast<unsigned>(bc), misses).g == j);
+      sj = sc + (sc < s_all && entry(rs, static_cast<unsigned>(sc), misses).g == j);
+      stat = fmax(s.cb + static_cast<double>(bj - bc), s.cs + static_cast<double>(sj - sc));
+      ++next;
+    } else {
+      const bool fb = tb <= b_all, fs = ts <= s_all;
+      if (!fb && !fs) break;  // neither count reaches its target
+      // both read at once: a side whose target lies past its last entry
+      // reads its next entry (in the ring, and never the nearer)
+      const Entry eb = entry(rb, static_cast<unsigned>(fb ? tb - 1 : bc), misses);
+      const Entry es = entry(rs, static_cast<unsigned>(fs ? ts - 1 : sc), misses);
+      // a buy and a sell are two trades: the nearer closes
+      const bool by_buy = fb && (!fs || eb.g < es.g);
+      j = by_buy ? eb.g : es.g;
+      bj = by_buy ? tb : es.other;
+      sj = by_buy ? eb.other : ts;
+      // the count that reached its target stands at it: the statistic is k
+      stat = static_cast<double>(ki);
+    }
+    s = info_close(s, stat, j, a);
+    if (lane == 0 && cnt < max_out) out[cnt] = j;
+    ++cnt;
+    c = j;
+    bc = bj;
+    sc = sj;
+    cb = cs = 0;
+    requested += advance(rb, static_cast<unsigned>(bc) / kChunk) +
+                 advance(rs, static_cast<unsigned>(sc) / kChunk);
+  }
+  for (unsigned q = 0; q < 2; ++q) {  // nothing left in flight
+    settle(rb, q);
+    settle(rs, q);
+  }
+  if (lane != 0) return;
+  *count = min(cnt, max_out);
+  if (exit != nullptr)
+    *exit = {s.cb + static_cast<double>(b_all - bc), s.cs + static_cast<double>(s_all - sc),
+             s.e_t, s.e_r, s.open};
+  if (stats != nullptr) {
+    stats[0] = requested;
+    stats[1] = misses;
+    stats[2] = next;
+    stats[3] = static_cast<long long>(global_ns() - t0);
+  }
+}
+
+long long count_layout(CountWork* w, char* base, long long n) {
+  const long long blocks = (n + kCountBlock - 1) / kCountBlock;
+  long long o = 0;
+  auto take = [&](long long bytes) { char* p = base + o; o += round_up(bytes); return p; };
+  CountWork v;
+  v.blocks = blocks;
+  v.buy = reinterpret_cast<unsigned*>(take(blocks * 32 * sizeof(unsigned)));
+  v.sell = reinterpret_cast<unsigned*>(take(blocks * 32 * sizeof(unsigned)));
+  v.cnt = reinterpret_cast<unsigned*>(take(blocks * 32 * sizeof(unsigned)));
+  v.tot = reinterpret_cast<long long*>(take(blocks * sizeof(long long)));
+  v.incl = reinterpret_cast<long long*>(take(blocks * sizeof(long long)));
+  v.scan_scratch = take(fmk_scan_scratch_bytes(1, 1, blocks));
+  // the buys and the sells are at most n, each table followed by a chunk
+  // that the rings copy whole
+  v.tab = reinterpret_cast<Entry*>(take((n + 2 * kChunk + 1) * sizeof(Entry)));
+  v.flag = reinterpret_cast<int*>(take(sizeof(int)));
+  if (w != nullptr) *w = v;
+  return o;
+}
+
+// Mode 5: the pack, kernel S over the blocks' counts, the tables, the
+// walker. The entry sums must be whole (and at most 2^52, so that every sum
+// stays exact) and the stream below 2^31 trades (a table entry holds a trade
+// in 32 bits, the blocks' counts share 64).
+int launch_count(const Args& a, void* scratch, long long* out, long long max_out,
+                 long long* count, void* stats, void* exit, cudaStream_t s) {
+  InfoState entry;
+  memcpy(&entry, a.entry, sizeof(entry));
+  auto whole = [](double v) { return fabs(v) <= 0x1p52 && v == std::trunc(v); };
+  if (a.n >= (1LL << 31) || !whole(entry.cb) || !whole(entry.cs))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CountWork w;
+  count_layout(&w, static_cast<char*>(scratch), a.n);
+  FMK_CHECK(cudaMemsetAsync(w.flag, 0, sizeof(int), s));
+  const unsigned blocks = static_cast<unsigned>(w.blocks);
+  count_pack_kernel<<<blocks, 256, 0, s>>>(a.x, a.n, a.start, w.buy, w.sell, w.cnt, w.tot,
+                                          w.flag);
+  FMK_CHECK(cudaGetLastError());
+  const int rc = fmk_prefix_scan(1, w.tot, w.incl, w.scan_scratch, w.blocks, s);
+  if (rc != 0) return rc;
+  count_table_kernel<<<blocks, 256, 0, s>>>(w.buy, w.sell, w.cnt, w.incl, w.blocks, w.tab);
+  FMK_CHECK(cudaGetLastError());
+  FMK_CHECK(cudaFuncSetAttribute(count_walk_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, kWalkShared));
+  count_walk_kernel<<<1, 32, kWalkShared, s>>>(a, w, out, max_out,
+                                               static_cast<long long*>(count),
+                                               static_cast<long long*>(stats),
+                                               static_cast<InfoState*>(exit));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Bytes of scratch kernel E needs for trades start .. n-1 (start < n) in
@@ -1088,6 +1448,7 @@ extern "C" long long fmk_event_scratch_bytes(int mode, long long n,
     case 2: return layout<Run>(nullptr, nullptr, n, start, chunks);
     case 3: return layout<Volume>(nullptr, nullptr, n, start, chunks);
     case 4: return map_layout(nullptr, nullptr, n, start);
+    case 5: return count_layout(nullptr, nullptr, n);
     default: return -1;
   }
 }
@@ -1096,7 +1457,11 @@ extern "C" long long fmk_event_scratch_bytes(int mode, long long n,
 // 2 run (x = weights, e_t / e_r / alpha_t / alpha_r), 3 volume (units, thr;
 // the first bar holds trade 0), 4 imbalance by tile maps (x = integer-valued
 // finite weights, alphas 0, theta = e_t * e_r finite, positive and of at most
-// kMapStates states; chunks and the stats' counts unused, the stats zeroed).
+// kMapStates states; chunks and the stats' counts unused, the stats zeroed),
+// 5 run by count search (x = weights, each -1, 0 or +1, else count[0] is -1
+// and nothing else is written; whole entry sums cb and cs; chunks unused; the
+// stats: table chunks the rings requested, entries read past the rings,
+// closes at the trade after the last, the walker's nanoseconds).
 // Checks trades start .. n-1 (start < n) in
 // `chunks` chunks of whole tiles (at least 1), with `scratch` of
 // fmk_event_scratch_bytes(mode, n, start, chunks) bytes, 256-byte aligned;
@@ -1133,6 +1498,7 @@ extern "C" int fmk_event_scan(int mode, const void* x, const void* lam,
     case 2: return launch<Run>(a, scratch, chunks, o, max_out, c, stats, exit, s);
     case 3: return launch<Volume>(a, scratch, chunks, o, max_out, c, stats, exit, s);
     case 4: return launch_map(a, scratch, o, max_out, c, stats, exit, s);
+    case 5: return launch_count(a, scratch, o, max_out, c, stats, exit, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

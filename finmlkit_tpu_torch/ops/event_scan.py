@@ -14,7 +14,10 @@ walks serially only what never meets (``csrc/event_scan.cu``);
 Imbalance bars at a fixed threshold on integer weights (tick imbalance among
 them) take another path of the kernel: the in-bar sum then has few states, so
 each tile's effect is a map of states and the maps compose as a parallel scan
-(:func:`_map_scan_model` on the CPU).
+(:func:`_map_scan_model` on the CPU). Run bars on weights of -1, 0 and +1
+(tick run bars) take a third: the in-bar sums are then counts, so each close
+is a search in bit-packed prefix counts, not a walk over every trade
+(:func:`_run_count_model` on the CPU).
 
 Each scan has a plain PyTorch version beside it: the chunked closed forms of
 the JAX code, driven by a host loop, on any device. They are the CPU path and
@@ -52,17 +55,21 @@ from ..utils import trace
 __all__ = ["cusum_scan", "cusum_scan_plain", "info_scan", "info_scan_plain",
            "volume_scan", "volume_scan_plain"]
 
-_CUSUM, _IMBALANCE, _RUN, _VOLUME, _IMBALANCE_MAP = 0, 1, 2, 3, 4
+_CUSUM, _IMBALANCE, _RUN, _VOLUME, _IMBALANCE_MAP, _RUN_COUNT = 0, 1, 2, 3, 4, 5
 # kernel E's launches in the trace registry (utils/trace.py): launch.E, and
 # by mode launch.E.<MODE_NAMES[mode]>; each also counts one launch.S (E
-# compacts its closes with one launch of kernel S)
-MODE_NAMES = ("cusum", "imbalance", "run", "volume", "imbalance_map")
+# compacts its closes with one launch of kernel S; the count search scans its
+# blocks' counts with it)
+MODE_NAMES = ("cusum", "imbalance", "run", "volume", "imbalance_map", "run_count")
 _MAP_STATES = 127      # the most in-bar states of the map path (kMapStates)
 _MAP_GROUP = 128       # tiles a block of its scan composes (kGroup)
 _CUSUM_CHUNK = 8192        # the JAX scans' chunk sizes and in-chunk event
 _CUSUM_EVENTS_PER_CHUNK = 4  # extractions (indexers.py:504-505, 677)
 _INFO_CHUNK = 2048
 _TILE = 2048           # kernel E's tile (csrc/event_scan.cu kTile)
+_COUNT_CHUNK = 4096    # table entries a chunk of the count search's rings holds (kChunk)
+_COUNT_CHUNKS = 2      # chunks a ring holds
+_WHOLE = 2.0 ** 52     # the largest entry sum the count search takes
 
 
 def mode_launches() -> list:
@@ -86,7 +93,7 @@ def _default_chunks(mode: int, device) -> int:
     run walks, one chunk: the sequential walk. Tick imbalance walks never
     met there (their sums keep their offset modulo theta) and ran slower
     chunked, and walks whose EMA thresholds move never meet bit for bit."""
-    if mode in (_IMBALANCE, _RUN, _IMBALANCE_MAP):
+    if mode in (_IMBALANCE, _RUN, _IMBALANCE_MAP, _RUN_COUNT):
         return 1
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return 4 * sms if mode == _CUSUM else max(sms // 4, 1)
@@ -94,7 +101,7 @@ def _default_chunks(mode: int, device) -> int:
 
 # each mode's state as the kernel's State: 8-byte words, d a double, q an int64
 _LAYOUT = {_CUSUM: "dd", _IMBALANCE: "ddddq", _RUN: "ddddq", _VOLUME: "q",
-           _IMBALANCE_MAP: "ddddq"}
+           _IMBALANCE_MAP: "ddddq", _RUN_COUNT: "ddddq"}
 
 
 def _initial(mode: int, e_t: float = 0.0, e_r: float = 0.0) -> tuple:
@@ -128,12 +135,17 @@ def _launch(mode: int, n: int, start: int, max_bars: int, device, *, x=None,
     the 256-trade segments the walks skipped and scanned, the pass-2 chunks
     that did not merge and the chunks the fix-up walked again. The map path
     (``_IMBALANCE_MAP``, on weights :func:`_map_states` admits) has no chunks
-    and leaves the stats at 0.
+    and leaves the stats at 0. The count search (``_RUN_COUNT``) has no
+    chunks either; its stats are the table chunks its rings requested, the
+    entries it read past them, its closes at the trade after the last, and
+    the walker's nanoseconds.
 
     ``entry`` is the state entering trade ``start`` as a tuple in the mode's
     layout (:data:`_LAYOUT`; default :func:`_initial`); volume bars that start
     at trade 1 add trade 0's units to its carry. With ``exit_state`` the
-    return is ``(closes, state after trade n-1)``, read with the count.
+    return is ``(closes, state after trade n-1)``, read with the count. The
+    count search returns None where a weight is not -1, 0 or +1 (the kernel
+    then writes a count of -1 and nothing else).
     """
     entry = _initial(mode, e_t, e_r) if entry is None else tuple(entry)
     out = torch.empty(max(max_bars, 1), dtype=torch.int64, device=device)
@@ -170,9 +182,12 @@ def _launch(mode: int, n: int, start: int, max_bars: int, device, *, x=None,
                                 None if stats is None else stats.data_ptr(),
                                 io.data_ptr() + 8 if exit_state else None, stream)
     _build.check(rc, "event scan")
+    got = (trace.host_read(torch.Tensor.tolist, io) if exit_state
+           else [trace.host_read(int, io[0])])
+    if got[0] < 0:
+        return None
     if not exit_state:
-        return out[:trace.host_read(int, io[0])]
-    got = trace.host_read(torch.Tensor.tolist, io)
+        return out[:got[0]]
     return out[:min(got[0], max(max_bars, 0))], _unwords(mode, got[1:])
 
 
@@ -264,6 +279,96 @@ def _map_scan_model(n: int, start: int, max_bars: int, tile: int, *, x, e_t,
     end = (float(u[-1] - k) if tiles else float(cb0), cs0, et0, er0,
            int(every[-1]) if every.size else open0)
     return out + (end,)
+
+
+def _count_route(run_mode: bool, integral: bool, state, n: int) -> bool:
+    """Whether a scan takes the count search (``_RUN_COUNT``): run bars
+    whose caller knows the weights are integers (``integral=True``: the int8
+    sides of tick run bars), whose entry sums ``cb`` and ``cs`` are whole
+    numbers of at most 2^52 (every sum then stays exact), over fewer than
+    2^31 trades. The kernel still checks that each weight is -1, 0 or +1,
+    and :func:`info_scan` walks where one is not."""
+    if not (run_mode and integral) or n >= 2 ** 31:
+        return False
+    return all(math.isfinite(v) and v == math.trunc(v) and abs(v) <= _WHOLE
+               for v in map(float, state[:2]))
+
+
+def _run_count_model(n: int, start: int, max_bars: int, *, x, e_t, e_r,
+                     alpha_t=0.0, alpha_r=0.0, chunks: int = _COUNT_CHUNKS,
+                     entry=None, exit_state=False):
+    """Kernel E's count search on the CPU, for the tests: the arguments of
+    :func:`_launch` (``x`` a CPU tensor), in numpy, with rings of ``chunks``
+    chunks.
+
+    The pack and the tables: the trades of ``start .. n-1`` whose weight is
+    +1 (buys) and -1 (sells) in order; a weight that is not -1, 0 or +1
+    returns None (the kernel's flag). The walker: from the last close c
+    (``start - 1`` before the first) with the prefix counts B(c) and S(c),
+    the next close is the nearer of the buy that brings B to B(c) +
+    ceil(theta) - cb and the sell that brings S to S(c) + ceil(theta) - cs
+    (cb, cs the entry sums, 0 after the first close; the statistic is then
+    ceil(theta)), or c + 1 where one of those is met already. Each table's
+    ring holds ``chunks`` chunks of 4096 entries from the one of its count at
+    the last close; an entry past it is a miss. The EMA step is the walk's.
+    Returns the first ``max_bars`` closes and ``{"requested", "misses",
+    "next", "closes"}`` (the kernel's stats: the chunks the rings requested,
+    and every close counted), and with ``exit_state`` the state after trade
+    n-1."""
+    cb0, cs0, e_t, e_r, op = _initial(_RUN, e_t, e_r) if entry is None else entry
+    w = x.numpy()[:n]
+    live = np.arange(n) >= start
+    if (live & ~((w == 0) | (w == 1) | (w == -1))).any():
+        return None
+    trades = {"b": np.flatnonzero(live & (w == 1)), "s": np.flatnonzero(live & (w == -1))}
+    pre = {k: np.cumsum(live & (w == v)) for k, v in (("b", 1), ("s", -1))}
+    total = {k: len(v) for k, v in trades.items()}
+    lo = {"b": 0, "s": 0}
+    stats = {"requested": 2 * chunks, "misses": 0, "next": 0}
+
+    def read(k, idx):           # the trade of the (idx + 1)-th buy or sell
+        stats["misses"] += idx // _COUNT_CHUNK >= lo[k] + chunks
+        return int(trades[k][idx])
+
+    cb, cs = int(cb0), int(cs0)
+    st = (float(cb0), float(cs0), float(e_t), float(e_r), int(op))
+    c, bc, sc, out = start - 1, 0, 0, []
+    while c + 1 < n:
+        theta = st[2] * st[3]
+        if not theta < math.inf:
+            break
+        k = -2 ** 62 if theta < -2.0 ** 62 else math.ceil(theta)
+        if k > 2 ** 62:
+            break
+        tb, ts = bc + k - cb, sc + k - cs
+        if tb <= bc or ts <= sc:
+            j = c + 1
+            stats["next"] += 1
+            bj, sj = int(pre["b"][j]), int(pre["s"][j])
+            stat = max(st[0] + float(bj - bc), st[1] + float(sj - sc))
+        else:
+            fb, fs = tb <= total["b"], ts <= total["s"]
+            if not fb and not fs:
+                break
+            j = min(read("b", tb - 1) if fb else n, read("s", ts - 1) if fs else n)
+            bj, sj = int(pre["b"][j]), int(pre["s"][j])
+            stat = float(k)
+        t_bar = float(j - st[4])
+        rate = stat / max(t_bar, 1.0)
+        st = (0.0, 0.0, (1.0 - alpha_t) * st[2] + alpha_t * t_bar,
+              (1.0 - alpha_r) * st[3] + alpha_r * rate, j)
+        out.append(j)
+        c, bc, sc, cb, cs = j, bj, sj, 0, 0
+        for key, count in (("b", bc), ("s", sc)):
+            new = count // _COUNT_CHUNK
+            stats["requested"] += max(min(new - lo[key], chunks), 0)
+            lo[key] = max(lo[key], new)
+    stats["closes"] = len(out)
+    res = (torch.tensor(out[:max(max_bars, 0)], dtype=torch.int64), stats)
+    if not exit_state:
+        return res
+    return res + ((st[0] + float(total["b"] - bc), st[1] + float(total["s"] - sc),
+                   st[2], st[3], st[4]),)
 
 
 def _same(a, b) -> bool:
@@ -604,8 +709,9 @@ def info_scan(w, e_ticks0: float, e_rate0: float, alpha_t: float,
     ``w`` is float64. On a CUDA tensor this launches kernel E: imbalance
     bars whose weights, threshold and entry sum :func:`_map_states` admits
     (``integral=True``: the caller knows the weights are finite integers) by
-    its map path, all others by its walk. On a CPU tensor it runs
-    :func:`info_scan_plain`.
+    its map path, run bars that :func:`_count_route` admits by its count
+    search (walked again where a weight turns out not to be -1, 0 or +1), all
+    others by its walk. On a CPU tensor it runs :func:`info_scan_plain`.
     """
     _check(w, torch.float64, "w", w)
     if w.device.type == "cpu":
@@ -619,10 +725,13 @@ def info_scan(w, e_ticks0: float, e_rate0: float, alpha_t: float,
     if not run_mode and w.shape[0] > start and _map_states(
             w, e_t, e_r, alpha_t, alpha_r, integral, float(state[0])) is not None:
         mode = _IMBALANCE_MAP
-    return _launch(mode, w.shape[0], start, max_bars,
-                   w.device, x=w, e_t=e_t, e_r=e_r,
-                   alpha_t=float(alpha_t), alpha_r=float(alpha_r), entry=state,
-                   exit_state=exit_state)
+    kw = dict(x=w, e_t=e_t, e_r=e_r, alpha_t=float(alpha_t), alpha_r=float(alpha_r),
+              entry=state, exit_state=exit_state)
+    if _count_route(run_mode, integral, state, w.shape[0]):
+        got = _launch(_RUN_COUNT, w.shape[0], start, max_bars, w.device, **kw)
+        if got is not None:
+            return got
+    return _launch(mode, w.shape[0], start, max_bars, w.device, **kw)
 
 
 # ---------------------------------------------------------------------------

@@ -434,12 +434,14 @@ def _compare(got: dict, want: dict, exact_floats: bool) -> list:
 
 def launch_counts() -> dict:
     """The kernel launch counters of the sharded layer's path, by kernel:
-    E by scan, D, S (its float streams apart), C, F, R and G, read from the
-    trace registry."""
+    E by scan (imbalance with its map path, run with its count search, and
+    the count search apart), D, S (its float streams apart), C, F, R and G,
+    read from the trace registry."""
     return {"E cusum": trace.counter("launch.E.cusum"),
             "E imbalance": (trace.counter("launch.E.imbalance")
                             + trace.counter("launch.E.imbalance_map")),
-            "E run": trace.counter("launch.E.run"),
+            "E run": trace.counter("launch.E.run") + trace.counter("launch.E.run_count"),
+            "E run_count": trace.counter("launch.E.run_count"),
             "E volume": trace.counter("launch.E.volume"),
             "D": trace.counter("launch.D"), "S": trace.counter("launch.S"),
             "S float": trace.counter("launch.S.float"), "C": trace.counter("launch.C"),

@@ -362,7 +362,7 @@ def test_info_scan_takes_the_walk(cuda, case):
         args = (1.0, 64.5, 0.0, 0.0)         # 129 states
     before = event_scan.mode_launches()
     got = event_scan.info_scan(w, *args, n, False)
-    assert [a - b for a, b in zip(event_scan.mode_launches(), before)] == [0, 1, 0, 0, 0]
+    assert [a - b for a, b in zip(event_scan.mode_launches(), before)] == [0, 1, 0, 0, 0, 0]
     assert_exact(got, event_scan.info_scan_plain(w, *args, n, False))
 
 
@@ -400,6 +400,148 @@ def test_cusum_scan_nonfinite_matches_plain(cuda, name):
                                         can_close=cc, chunks=chunks),
                      want, f"{chunks} chunks")
     assert len(want) > 100
+
+
+# kernel E's count search (mode 5) on int8 sides: the month's length at the
+# event cell's EMA, two other thresholds, sides with zeros, bars of more than
+# a 1024-trade block: (n, (e_t, e_r, alpha_t, alpha_r), share of zeros)
+RUN_COUNT_CASES = {
+    "month_ema": (39_171_929, (1000.0, 0.5, 0.05, 0.05), 0.0),
+    "fixed_30_zeros": (2_000_003, (1.0, 30.0, 0.0, 0.0), 0.3),
+    "ema_fast": (4_000_037, (100.0, 0.6, 0.2, 0.1), 0.0),
+    "above_a_block": (3_000_001, (1.0, 6000.5, 0.0, 0.0), 0.1),
+}
+
+
+def _int8_sides(n, zeros, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    s = torch.where(torch.rand(n, device=device, generator=g) < 0.5, 1, -1).to(torch.int8)
+    if zeros:
+        s[torch.rand(n, device=device, generator=g) < zeros] = 0
+    return s
+
+
+def _mode_delta(before):
+    return [a - b for a, b in zip(event_scan.mode_launches(), before)]
+
+
+@pytest.mark.parametrize("case", list(RUN_COUNT_CASES))
+def test_run_count_matches_the_walk_and_plain(cuda, case):
+    """Tick run bars take the count search, once a call, and give the walk's
+    closes and exit state and the plain scan's closes bit for bit; cut to 50
+    closes, the count is capped and the exit state is still the stream's."""
+    n, args, zeros = RUN_COUNT_CASES[case]
+    w = _int8_sides(n, zeros, cuda, 29).to(torch.float64)
+    kw = dict(zip(("e_t", "e_r", "alpha_t", "alpha_r"), args))
+    before = event_scan.mode_launches()
+    got, end = event_scan.info_scan(w, *args, n, True, integral=True, exit_state=True)
+    assert _mode_delta(before) == [0, 0, 0, 0, 0, 1]
+    walk, walk_end = event_scan._launch(event_scan._RUN, n, 1, n, cuda, x=w,
+                                        exit_state=True, **kw)
+    assert_exact(got, walk, f"{case}: the walk forced")
+    assert same_state(end, walk_end), (end, walk_end)
+    want = event_scan.info_scan_plain(w, *args, n, True)
+    assert_exact(got, want, f"{case}: plain")
+    assert len(want) > 100
+    stats = torch.zeros(4, dtype=torch.int64, device=cuda)
+    cut, cut_end = event_scan._launch(event_scan._RUN_COUNT, n, 1, 50, cuda, x=w,
+                                      stats=stats, exit_state=True, **kw)
+    assert_exact(cut, want[:50], f"{case}: 50 closes")
+    assert same_state(cut_end, walk_end), (cut_end, walk_end)
+    requested, misses, _, ns = stats.tolist()
+    assert requested >= 8 and ns > 0 and (misses > 0) == (case == "above_a_block")
+
+
+def test_run_count_from_entry_states_matches_plain(cuda):
+    """The count search from whole entry sums, trade 0 checked, against the
+    plain scan from the same state: closes and exit state."""
+    n = 1_000_003
+    w = _int8_sides(n, 0.1, cuda, 37).to(torch.float64)
+    for entry in ((29.0, 3.0, 1.0, 30.0, -7), (45.0, 2.0, 1.0, 30.0, -3),
+                  (480.0, 399.0, 1000.0, 0.5, -12_345), (-900.0, 0.0, 1.0, 30.0, -5)):
+        args = (entry[2], entry[3], 0.05 if entry[2] > 1 else 0.0,
+                0.05 if entry[2] > 1 else 0.0)
+        before = event_scan.mode_launches()
+        got, end = event_scan.info_scan(w, *args, n, True, integral=True, state=entry,
+                                        first_closes=True, exit_state=True)
+        assert _mode_delta(before) == [0, 0, 0, 0, 0, 1]
+        want, want_end = event_scan.info_scan_plain(w, *args, n, True, state=entry,
+                                                    first_closes=True, exit_state=True)
+        assert_exact(got, want, str(entry))
+        assert same_state(end, want_end), (entry, end, want_end)
+
+
+def test_run_count_flag_walks_again(cuda):
+    """A side of 2 sets the pack's flag: the search returns nothing, the scan
+    walks (one more launch.E.run) and equals the plain scan."""
+    from finmlkit_tpu_torch.bar.indexers import run_bar_indexer
+    n = 1_000_003
+    s = _int8_sides(n, 0.1, cuda, 31)
+    s[n // 2] = 2
+    w = s.to(torch.float64)
+    assert event_scan._launch(event_scan._RUN_COUNT, n, 1, n, cuda, x=w, e_t=1.0,
+                              e_r=30.0) is None
+    before = event_scan.mode_launches()
+    got = event_scan.info_scan(w, 1.0, 30.0, 0.0, 0.0, n, True, integral=True)
+    assert _mode_delta(before) == [0, 0, 1, 0, 0, 1]
+    assert_exact(got, event_scan.info_scan_plain(w, 1.0, 30.0, 0.0, 0.0, n, True))
+    ts = torch.arange(n, dtype=torch.int64, device=cuda)
+    ema = dict(expected_ticks_init=1000.0, expected_rate_init=0.5, alpha_ticks=0.05,
+               alpha_rate=0.05)
+    assert_exact(run_bar_indexer(ts, s, **ema)[1],
+                 run_bar_indexer(ts, s, **ema, scan=event_scan.info_scan_plain)[1])
+
+
+@pytest.mark.parametrize("case", ["float_weights", "not_integral", "fractional_entry"])
+def test_run_bars_off_the_route_take_the_walk(cuda, case):
+    """Volume run bars (float weights), a caller that does not say the
+    weights are integers, and a fractional entry sum: the walk, mode 2."""
+    from finmlkit_tpu_torch.bar.indexers import run_bar_indexer
+    n = 500_003
+    s = _int8_sides(n, 0.0, cuda, 41)
+    ema = dict(expected_ticks_init=100.0, expected_rate_init=0.6, alpha_ticks=0.05,
+               alpha_rate=0.05)
+    args = (100.0, 0.6, 0.05, 0.05)
+    before = event_scan.mode_launches()
+    if case == "float_weights":
+        ts = torch.arange(n, dtype=torch.int64, device=cuda)
+        g = torch.Generator(device=cuda).manual_seed(43)
+        amounts = torch.rand(n, dtype=torch.float64, device=cuda, generator=g)
+        got = run_bar_indexer(ts, s, amounts, **ema)[1]
+        want = run_bar_indexer(ts, s, amounts, **ema, scan=event_scan.info_scan_plain)[1]
+    else:
+        w = s.to(torch.float64)
+        state = (0.5 if case == "fractional_entry" else 0.0, 0.0, *args[:2], 0)
+        got = event_scan.info_scan(w, *args, n, True, state=state,
+                                   integral=case == "fractional_entry")
+        want = event_scan.info_scan_plain(w, *args, n, True, state=state)
+    assert _mode_delta(before) == [0, 0, 1, 0, 0, 0]
+    assert_exact(got, want, case)
+    assert len(want) > 10
+
+
+def test_run_count_spans_chain_as_one_scan(cuda):
+    """The month's run bars cut into four spans, each scanned from the state
+    the one before left with trade 0 checked (as the sharded ring scans its
+    shards): each span takes the count search, and the spans' closes and exit
+    state are one scan's."""
+    n = 39_171_929
+    w = _int8_sides(n, 0.0, cuda, 47).to(torch.float64)
+    args = (1000.0, 0.5, 0.05, 0.05)
+    whole, whole_end = event_scan.info_scan(w, *args, n, True, integral=True,
+                                            exit_state=True)
+    cuts = [0, 2, n // 4, n // 2 + 777, n]
+    parts, state = [], None
+    for a, b in zip(cuts, cuts[1:]):
+        st = None if state is None else state[:4] + (state[4] - a,)
+        before = event_scan.mode_launches()
+        got, end = event_scan.info_scan(w[a:b], *args, n, True, integral=True, state=st,
+                                        first_closes=a > 0, exit_state=True)
+        assert _mode_delta(before) == [0, 0, 0, 0, 0, 1]
+        parts.append(got + a)
+        state = end[:4] + (end[4] + a,)
+    assert_exact(torch.cat(parts), whole, "four spans")
+    assert same_state(state, whole_end), (state, whole_end)
 
 
 def test_event_scan_edges(cuda):
@@ -1244,17 +1386,19 @@ def _split_scans(mode, n, k, kw, start):
     rest = {key: (t[k:] if torch.is_tensor(t) and t.dim() == 1 else t)
             for key, t in kw["args"].items()}
     a, mid = event_scan._launch(mode, k, start, n, kw["dev"], exit_state=True, **cut)
-    if mode in (event_scan._IMBALANCE, event_scan._RUN, event_scan._IMBALANCE_MAP):
+    info = (event_scan._IMBALANCE, event_scan._RUN, event_scan._IMBALANCE_MAP,
+            event_scan._RUN_COUNT)
+    if mode in info:
         mid = mid[:4] + (mid[4] - k,)            # open relative to the second part
     b, end = event_scan._launch(mode, n - k, 0, n, kw["dev"], exit_state=True,
                                 entry=mid, **rest)
-    if mode in (event_scan._IMBALANCE, event_scan._RUN, event_scan._IMBALANCE_MAP):
+    if mode in info:
         end = end[:4] + (end[4] + k,)
     return whole, (torch.cat([a, b + k]), end)
 
 
 @pytest.mark.parametrize("where", ["tile", "chunk", "close", "mid"])
-@pytest.mark.parametrize("mode", ["cusum", "imbalance", "run", "volume", "map"])
+@pytest.mark.parametrize("mode", ["cusum", "imbalance", "run", "volume", "map", "run_count"])
 def test_event_scan_split_equals_whole(cuda, mode, where):
     """A stream scanned in two parts, the second from the first's exit state,
     gives the whole scan's closes and exit state (exact sums)."""
@@ -1272,6 +1416,10 @@ def test_event_scan_split_equals_whole(cuda, mode, where):
         args = dict(x=torch.from_numpy(np.where(g.random(n) < 0.5, 1.0, -1.0)).to(cuda),
                     e_t=1.0, e_r=30.0)
         m, start = event_scan._IMBALANCE_MAP, 1
+    elif mode == "run_count":
+        args = dict(x=torch.from_numpy(g.integers(-1, 2, n).astype(np.float64)).to(cuda),
+                    e_t=40.0, e_r=0.75, alpha_t=0.05, alpha_r=0.05)
+        m, start = event_scan._RUN_COUNT, 1
     else:
         w = g.integers(-8, 9, n) if mode == "run" else g.integers(-6, 11, n)  # a drift
         args = dict(x=torch.from_numpy(w / 8.0).to(cuda), e_t=40.0,
@@ -1352,6 +1500,30 @@ def test_sharded_indexers_staged_on_the_card(cuda):
     assert all(r["staged_same"] and r["staged_bytes"] > 0 for r in res)
     assert res[0]["digests"] == res[1]["digests"]
     assert res[0]["launches"]["E cusum"] >= 1 and res[0]["launches"]["D"] >= 1
+
+
+def test_sharded_run_bars_take_the_count_search(cuda):
+    """The sharded ring's tick run bars on two ranks sharing the card: every
+    span takes the count search (no walk), from the whole sums the span before
+    left, and the closes are the single-device indexer's."""
+    from finmlkit_tpu_torch.bar.indexers import run_bar_indexer
+    from finmlkit_tpu_torch.parallel import dryrun
+    from finmlkit_tpu_torch.parallel.mesh import spawn_mesh
+    from finmlkit_tpu_torch.testing import bench_trades
+    run = dict(expected_ticks_init=1000.0, expected_rate_init=0.5, alpha_ticks=0.05,
+               alpha_rate=0.05)
+    spec = dict(n=2_000_000, seed=5, sigma=2e-5, volume_bars=500, dollar_bars=500,
+                interval=60.0, ticks=1000, floor=1e-9, mult=60.0, theta=30.0, run=run,
+                only="indexers")
+    res = spawn_mesh(dryrun.month_path, 2, args=(spec,), device="cuda", timeout=300)
+    ts, _, _, side = bench_trades(spec["n"], spec["seed"])
+    want = run_bar_indexer(torch.from_numpy(ts).to(cuda), torch.from_numpy(side).to(cuda),
+                           **run)[1]
+    assert want.shape[0] > 100
+    for r in res:
+        assert r["digests"]["ci.run"] == dryrun._digest(want.cpu().numpy()), r["rank"]
+        assert r["launches"]["E run_count"] >= 1, r["launches"]
+        assert r["launches"]["E run"] == r["launches"]["E run_count"], r["launches"]
 
 
 # --- host reads on the card: every synchronizing call is a counted read ----------

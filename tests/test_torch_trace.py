@@ -377,5 +377,6 @@ def test_mode_and_route_names():
     from finmlkit_tpu_torch.ops import event_scan, float_walk
     assert event_scan.MODE_NAMES[event_scan._CUSUM] == "cusum"
     assert event_scan.MODE_NAMES[event_scan._IMBALANCE_MAP] == "imbalance_map"
+    assert event_scan.MODE_NAMES[event_scan._RUN_COUNT] == "run_count"
     assert float_walk.ROUTE_NAMES[float_walk.UNITS] == "units"
-    assert len(event_scan.MODE_NAMES) == 5 and len(float_walk.ROUTE_NAMES) == 3
+    assert len(event_scan.MODE_NAMES) == 6 and len(float_walk.ROUTE_NAMES) == 3
